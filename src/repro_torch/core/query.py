@@ -1,0 +1,391 @@
+"""HoD query processing (paper §5) on PyTorch: the SweepPlan executor.
+
+An SSD query runs three phases (paper §5): a *forward search* over ``G_f``,
+a *core search* inside ``G_c``, and a *backward search* over ``G_b``.
+Every phase is one sequential scan of a static-shape
+:class:`~repro_torch.core.index.SweepPlan` (DESIGN.md §5):
+
+* **forward**: plan levels ascend rank; every edge goes strictly up-rank
+  and same-rank nodes are never adjacent, so each node's distance is final
+  before its out-edges are relaxed (single-pass DAG sweep);
+* **core**: one min-plus (tropical) product against the precomputed core
+  closure (the paper-faithful iterative/Dijkstra modes are kept for
+  validation);
+* **backward**: plan levels descend rank — the paper's heap-free linear
+  scan.
+
+This is the PyTorch counterpart of the JAX package's ``QueryEngine``,
+with the same public methods and bit-identical answers.  The JAX
+``lax.scan`` over plan levels becomes a host loop over the plan's *real*
+levels (padding levels are inert and skipped); each level of a distance
+sweep is one launch of the fused in-place ``edge_relax`` kernel, and the
+core search is one ``tropical_matmul`` launch.  Which path runs is
+decided by the engine's device: CUDA runs the kernels, the CPU their
+plain versions.  SSSP reconstruction, the P2P backward labels and the
+threshold mask stay plain torch, as they are plain jnp in the JAX
+package.
+
+Queries are batched over sources (``dist`` is ``[S, n_pad]``).
+"""
+from __future__ import annotations
+
+import heapq
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..kernels.edge_relax.ops import relax_level_
+from ..kernels.tropical_matmul.ops import minplus
+from .index import HoDIndex, SweepPlan
+
+__all__ = ["QueryEngine", "dijkstra_reference"]
+
+INF = float("inf")
+
+#: One real plan level on the device: (dst [M], src_idx [M, K],
+#: w [M, K], assoc [M, K], row_valid [M]).
+Level = Tuple[torch.Tensor, ...]
+
+
+def _knn_select(dist: np.ndarray, k: int
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """Host top-k over a ``[S, n]`` distance matrix (original node
+    order): the k smallest entries per row, ascending by ``(distance,
+    node id)``; unreachable tail padded with ``(-1, +inf)``."""
+    s, n = dist.shape
+    nodes = np.full((s, k), -1, np.int32)
+    out = np.full((s, k), np.inf, np.float32)
+    ids = np.arange(n)
+    for i in range(s):
+        order = np.lexsort((ids, dist[i]))[:k]
+        d = dist[i, order]
+        m = int(np.isfinite(d).sum())     # finite entries sort first
+        nodes[i, :m] = order[:m]
+        out[i, :m] = d[:m]
+    return nodes, out
+
+
+def _plan_levels(plan: SweepPlan, n_pad: int,
+                 device: torch.device) -> List[Level]:
+    """The plan's real levels (``level_mask`` true), in scan order, on
+    ``device``.  Each level keeps only its rows up to the last valid one
+    — trailing padding rows are inert.  Indices are checked on the host
+    once here, because the kernel gathers through them unchecked."""
+    for name, idx in (("dst", plan.dst), ("src_idx", plan.src_idx)):
+        if idx.size and (idx.min() < 0 or idx.max() >= n_pad):
+            raise ValueError(f"plan {name} index outside [0, {n_pad})")
+    levels = []
+    for lvl in np.flatnonzero(plan.level_mask):
+        valid = np.flatnonzero(plan.row_valid[lvl])
+        m = int(valid[-1]) + 1 if valid.size else 0
+        levels.append(tuple(
+            torch.from_numpy(np.ascontiguousarray(a[lvl, :m])).to(device)
+            for a in (plan.dst, plan.src_idx, plan.w, plan.assoc,
+                      plan.row_valid)))
+    return levels
+
+
+def _dense_core_adjacency(ix: HoDIndex) -> np.ndarray:
+    """Dense [C, C] core adjacency from the raw CSR (scatter, no Python
+    loop) — only the paper-faithful Bellman core mode reads it."""
+    c = ix.n_core
+    adj = np.full((c, c), np.inf, dtype=np.float32)
+    if c:
+        np.fill_diagonal(adj, 0.0)
+        if ix.core_dst.shape[0]:
+            cu = np.repeat(np.arange(c, dtype=np.int32),
+                           np.diff(ix.core_ptr))
+            np.minimum.at(adj, (cu, ix.core_dst),
+                          ix.core_w.astype(np.float32))
+    return adj
+
+
+class QueryEngine:
+    """Batched SSD/SSSP execution over a packed :class:`HoDIndex`.
+
+    core_mode:
+      * ``"closure"``  — beyond-paper: single tropical product (default)
+      * ``"bellman"``  — iterative min-plus to fixpoint (diameter-
+                          bounded), closest in spirit to scanning G_c
+      * ``"dijkstra"`` — paper-faithful host-side heap Dijkstra on the core
+
+    ``device`` is where the sweeps run: ``"cuda"`` (the default, through
+    the hand-written kernels) or ``"cpu"`` (their plain versions).
+    """
+
+    def __init__(self, index: HoDIndex, core_mode: str = "closure",
+                 eps: float = 0.0, k_cap: int = 16, device=None):
+        if core_mode not in ("closure", "bellman", "dijkstra"):
+            raise ValueError(core_mode)
+        self.device = resolve_device(device)
+        if core_mode == "closure" and index.n_core \
+                and index.core_closure.shape[0] == 0:
+            core_mode = "bellman"   # closure skipped at pack time (big core)
+        self.index = index
+        self.core_mode = core_mode
+        self.eps = float(eps)
+
+        index.ensure_plans(k_cap)   # no-op for pack_index/v2+-load indexes
+        dev = self.device
+        self._levels_f = _plan_levels(index.plan_f, index.n_pad, dev)
+        self._levels_b = _plan_levels(index.plan_b, index.n_pad, dev)
+        self._levels_c = _plan_levels(index.plan_core, index.n_pad, dev)
+        self._perm = torch.from_numpy(index.perm.astype(np.int64)).to(dev)
+        self._closure = (torch.from_numpy(index.core_closure).to(dev)
+                         if core_mode == "closure" else None)
+        # Dense core adjacency is only materialized for the mode that
+        # scans it; closure/dijkstra engines skip the [C, C] build.
+        self._core_adj = (torch.from_numpy(_dense_core_adjacency(index))
+                          .to(dev) if core_mode == "bellman" else None)
+
+    # ------------------------------------------------------- plan executor
+    @staticmethod
+    def _run_plan(state: torch.Tensor, levels: List[Level], level_body,
+                  reverse: bool = False) -> torch.Tensor:
+        """The sweep executor: ``level_body(state, dst, src_idx, w, assoc,
+        valid) -> state`` over each real level in scan order
+        (``reverse=True`` walks them back to front, as the P2P
+        backward-label sweep walks ``plan_b`` in ascending rank)."""
+        for lvl in (reversed(levels) if reverse else levels):
+            state = level_body(state, *lvl)
+        return state
+
+    @staticmethod
+    def _relax_level(dist, dst, src_idx, w, assoc, valid):
+        """Distance relaxation for one level (SSD sweeps, DESIGN.md §5):
+        one fused in-place ``edge_relax`` launch on CUDA.  The level's
+        gathered sources and scattered destinations are disjoint
+        (DESIGN.md §3), so updating ``dist`` in place is race-free; rows
+        that split one destination's in-edge list merge by min."""
+        return relax_level_(dist, dst, src_idx, w, valid)
+
+    @staticmethod
+    def _relax_level_rev(dlab, dst, src_idx, w, assoc, valid):
+        """Reverse relaxation for one level: backward *labels* (P2P mode,
+        DESIGN.md §7).  ``dlab[x] = min(dlab[x], w + dlab[v])`` for each
+        backward edge ``(x -> v, w)``: gather at ``dst``, scatter-min
+        into the higher-rank ``src_idx`` slots.  Padding slots carry
+        ``+inf`` weight and sentinel sources — absorbing."""
+        s = dlab.shape[0]
+        cand = dlab.index_select(1, dst.long())[:, :, None] + w[None]
+        cand = torch.where(valid[None, :, None], cand, INF)
+        idx = src_idx.reshape(1, -1).long().expand(s, -1)
+        return dlab.scatter_reduce_(1, idx, cand.reshape(s, -1), "amin",
+                                    include_self=True)
+
+    @staticmethod
+    def _relax_level_thresh(d: float):
+        """:meth:`_relax_level` with the distance-threshold mask applied
+        after every level (DESIGN.md §7): any label that exceeds ``d`` is
+        snapped back to ``+inf`` inside the sweep, so it never seeds
+        further relaxations.  Sound because weights are positive."""
+        def body(dist, dst, src_idx, w, assoc, valid):
+            dist = relax_level_(dist, dst, src_idx, w, valid)
+            return dist.masked_fill_(~(dist <= d), INF)
+
+        return body
+
+    def _recon_level(self, pred, dist, dst, src_idx, w, assoc, valid):
+        """SSSP predecessor reconstruction for one level (§6): scatter
+        the assoc of every tight edge, max-merged (-1 = none)."""
+        s = dist.shape[0]
+        cand = dist.index_select(1, src_idx.reshape(-1).long()) \
+            .reshape(s, *src_idx.shape) + w[None]            # [S, M, K]
+        tgt = dist.index_select(1, dst.long())                # [S, M]
+        tight = torch.isfinite(cand) \
+            & (cand <= (tgt + self.eps * (1.0 + tgt))[..., None])
+        tight &= valid[None, :, None]
+        pcand = torch.where(tight, assoc[None], -1).amax(dim=-1)
+        return pred.scatter_reduce_(1, dst.long().expand(s, -1), pcand,
+                                    "amax", include_self=True)
+
+    def _recon_level_body(self, dist):
+        """:meth:`_recon_level` with ``dist`` bound, in the executor's
+        level-body signature."""
+        def body(pred, dst, src_idx, w, assoc, valid):
+            return self._recon_level(pred, dist, dst, src_idx, w, assoc,
+                                     valid)
+
+        return body
+
+    # ------------------------------------------------------------------ SSD
+    def _core_update(self, dist: torch.Tensor) -> torch.Tensor:
+        """Core search (§5.2) on the core block of ``dist``, written back
+        into that view in place."""
+        ix = self.index
+        c = ix.n_core
+        if c == 0:
+            return dist
+        core = dist[:, ix.n_noncore:ix.n_noncore + c]   # a view of dist
+        if self.core_mode == "bellman":
+            # Iterate min-plus relaxation to fixpoint — the closest
+            # analogue of the paper's in-memory core scan.  Converges in
+            # at most C-1 rounds; one host sync per round.
+            d = core.clone()
+            for _ in range(c):
+                nd = torch.minimum(d, minplus(d, self._core_adj))
+                changed = bool((nd < d).any())
+                d = nd
+                if not changed:
+                    break
+            core.copy_(d)
+        else:  # closure
+            core.copy_(minplus(core, self._closure))
+        return dist
+
+    def _init_state(self, nodes_perm: np.ndarray) -> torch.Tensor:
+        """[S, n_pad] all-+inf label state with 0 at each row's node."""
+        s = len(nodes_perm)
+        state = torch.full((s, self.index.n_pad), INF, dtype=torch.float32,
+                           device=self.device)
+        rows = torch.arange(s, device=self.device)
+        cols = torch.from_numpy(np.asarray(nodes_perm, np.int64)) \
+            .to(self.device)
+        state[rows, cols] = 0.0
+        return state
+
+    def _forward_core(self, sources_perm: np.ndarray,
+                      level_body=None) -> torch.Tensor:
+        """Forward search (§5.1) + core search (§5.2): the shared first
+        two phases of SSD, P2P, and threshold queries."""
+        dist = self._run_plan(self._init_state(sources_perm),
+                              self._levels_f,
+                              level_body or self._relax_level)
+        if self.core_mode == "dijkstra":
+            host = self._core_dijkstra_host(dist.cpu().numpy())
+            return torch.from_numpy(host).to(self.device)
+        return self._core_update(dist)
+
+    def _ssd_dev(self, sources_perm: np.ndarray) -> torch.Tensor:
+        dist = self._forward_core(sources_perm)
+        return self._run_plan(dist, self._levels_b,     # backward (§5.3)
+                              self._relax_level)
+
+    def _sssp_dev(self, sources_perm: np.ndarray):
+        dist = self._ssd_dev(sources_perm)
+        pred = torch.full(dist.shape, -1, dtype=torch.int32,
+                          device=self.device)
+        recon = self._recon_level_body(dist)
+        # The per-plan reconstruction scatters are max-merges over a
+        # fixed `dist`, so the plan order commutes.
+        for levels in (self._levels_f, self._levels_c, self._levels_b):
+            pred = self._run_plan(pred, levels, recon)
+        return dist, pred
+
+    def _to_host(self, state: torch.Tensor) -> np.ndarray:
+        """``[S, n_pad]`` device state -> ``[S, n]`` host array in
+        original node order."""
+        return state.index_select(1, self._perm).cpu().numpy()
+
+    def _perm_ids(self, nodes) -> np.ndarray:
+        return self.index.perm[np.asarray(nodes, dtype=np.int32)]
+
+    # ---------------------------------------------------------------- public
+    def ssd(self, sources: np.ndarray) -> np.ndarray:
+        """Distances from each source to every node, original node order."""
+        return self._to_host(self._ssd_dev(self._perm_ids(sources)))
+
+    def sssp(self, sources: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """(dist, pred): pred[v] = node preceding v on a shortest path, -1
+        for sources/unreachable. Node ids in original order."""
+        dist, pred = self._sssp_dev(self._perm_ids(sources))
+        return self._to_host(dist), self._to_host(pred)
+
+    def p2p(self, sources: np.ndarray, targets: np.ndarray) -> np.ndarray:
+        """Point-to-point distances ``dist(sources[i], targets[i])``
+        (meet-in-the-middle, DESIGN.md §7) — a ``[S]`` float32 vector:
+        forward labels of ``s`` (forward sweep + core search) meet
+        backward labels of ``t`` (``plan_b`` in ascending rank with the
+        reversed level body), ``dist(s, t) = min_m fwd[m] + bwd[m]``."""
+        fwd = self._forward_core(self._perm_ids(sources))
+        bwd = self._run_plan(self._init_state(self._perm_ids(targets)),
+                             self._levels_b, self._relax_level_rev,
+                             reverse=True)
+        return (fwd + bwd).amin(dim=1).cpu().numpy()
+
+    def ssd_within(self, sources: np.ndarray, d: float) -> np.ndarray:
+        """Distance-threshold query (DESIGN.md §7): distances from each
+        source in original node order, with every entry beyond ``d``
+        masked to ``+inf`` — nodes within the threshold carry exactly
+        their SSD distance."""
+        d = float(np.float32(d))
+        body = self._relax_level_thresh(d)
+        dist = self._forward_core(self._perm_ids(sources), level_body=body)
+        dist.masked_fill_(~(dist <= d), INF)            # mask core output
+        return self._to_host(self._run_plan(dist, self._levels_b, body))
+
+    def knn(self, sources: np.ndarray, k: int
+            ) -> Tuple[np.ndarray, np.ndarray]:
+        """The ``k`` nearest nodes of each source (DESIGN.md §7):
+        ``(nodes, dist)``, each ``[S, k]``, ascending by ``(distance,
+        node id)`` with the source itself included at distance 0; rows
+        with fewer than ``k`` reachable nodes pad with ``(-1, +inf)``."""
+        if not 1 <= k <= self.index.n:
+            raise ValueError(f"k must be in [1, {self.index.n}], got {k}")
+        return _knn_select(self.ssd(sources), k)
+
+    def paths(self, sources: np.ndarray, targets: np.ndarray) -> list:
+        """Unfold predecessors into explicit node paths (one per source)."""
+        dist, pred = self.sssp(sources)
+        out = []
+        for i, t in enumerate(np.asarray(targets).tolist()):
+            if not np.isfinite(dist[i, t]):
+                out.append(None)
+                continue
+            path = [t]
+            guard = 0
+            while pred[i, path[-1]] >= 0 and guard <= self.index.n:
+                path.append(int(pred[i, path[-1]]))
+                guard += 1
+            out.append(path[::-1])
+        return out
+
+    # ----------------------------------------------- paper-faithful Dijkstra
+    def _core_dijkstra_host(self, dist: np.ndarray) -> np.ndarray:
+        """Host heap Dijkstra on the core CSR for every batch row — the
+        literal §5.2 in-memory core search.  Mutates and returns the
+        writable ``[S, n_pad]`` host array."""
+        ix = self.index
+        lo, c = ix.n_noncore, ix.n_core
+        for i in range(dist.shape[0]):
+            dc = dist[i, lo:lo + c].copy()
+            heap = [(float(d), int(v)) for v, d in enumerate(dc)
+                    if np.isfinite(d)]
+            heapq.heapify(heap)
+            done = np.zeros(c, dtype=bool)
+            while heap:
+                d_u, u = heapq.heappop(heap)
+                if done[u] or d_u > dc[u]:
+                    continue
+                done[u] = True
+                e0, e1 = ix.core_ptr[u], ix.core_ptr[u + 1]
+                for v, wv in zip(ix.core_dst[e0:e1], ix.core_w[e0:e1]):
+                    nd = d_u + float(wv)
+                    if nd < dc[v]:
+                        dc[v] = nd
+                        heapq.heappush(heap, (nd, int(v)))
+            dist[i, lo:lo + c] = dc
+        return dist
+
+
+def dijkstra_reference(g, sources) -> np.ndarray:
+    """Plain in-memory Dijkstra oracle on the *original* graph."""
+    n = g.n
+    out = np.full((len(sources), n), np.inf, dtype=np.float64)
+    for i, s in enumerate(np.asarray(sources).tolist()):
+        dist = out[i]
+        dist[s] = 0.0
+        heap = [(0.0, s)]
+        while heap:
+            d_u, u = heapq.heappop(heap)
+            if d_u > dist[u]:
+                continue
+            dsts, ws = g.out_edges(u)
+            for v, wv in zip(dsts.tolist(), ws.tolist()):
+                nd = d_u + wv
+                if nd < dist[v]:
+                    dist[v] = nd
+                    heapq.heappush(heap, (nd, v))
+    return out

@@ -1,0 +1,100 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C entry point and compiles on
+its own with ``nvcc`` into ``_build/<name>-<hash>.so`` (the hash covers
+the source and the flags, so an edited source rebuilds and a stale
+library is never loaded).  Builds happen at first use, never at import:
+the package imports on machines without ``nvcc`` or a card, where only
+the plain CPU versions run.  The libraries load through ``ctypes``;
+every pointer and the stream are passed as ``c_void_p``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+__all__ = ["KERNELS", "NVCC_FLAGS", "build", "load", "build_log"]
+
+_HERE = Path(__file__).resolve().parent
+CSRC = _HERE / "csrc"
+BUILD_DIR = _HERE / "_build"
+
+#: Every kernel source this package ships, by name (``csrc/<name>.cu``).
+KERNELS = ("edge_relax", "tropical_matmul")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH, CUDA_HOME, "
+                           "/usr/local/cuda/bin): the CUDA kernels cannot "
+                           "be built")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build_log(name: str) -> str:
+    """What nvcc printed for the current build of ``name`` (registers,
+    shared memory and spills, from ``-Xptxas -v``)."""
+    log = _lib_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def build(names: Iterable[str] = KERNELS) -> None:
+    """Compile every named kernel whose current library is missing: one
+    ``nvcc`` per source, all started together.  Raises with nvcc's
+    output if any build fails."""
+    todo = [n for n in names if not _lib_path(n).exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in todo:
+        out = _lib_path(name)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        procs[name] = (out, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (out, tmp, proc) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{text}")
+            continue
+        out.with_suffix(".log").write_text(text)
+        os.replace(tmp, out)    # atomic: a concurrent loader sees all or none
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            _LIBS[name] = lib
+        return lib
