@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's query path on one GPU and check it.
+"""Drive the PyTorch/CUDA port's serving paths on one GPU and check them.
 
     python3 chip_smoke.py
 
@@ -10,10 +10,13 @@ never JAX or the JAX package.  Phases, each of which asserts:
 1. environment: the card's name and power limit (nvidia-smi);
 2. build: nvcc compiles every kernel source of the port, in parallel;
 3. kernels: each hand-written kernel against its plain PyTorch version
-   on the card, at the full-size shapes of the query path, required
-   bit-equal (``torch.equal``: every operation is an fp32 add or a min),
-   with the kernel's and the plain version's times (CUDA events);
-4. the slice at full size: the road-network stand-in (grid side 200,
+   on the card, at the full-size shapes of the serving paths, with the
+   kernel's, the plain version's and (where one PyTorch call computes
+   the same function) the library call's times (CUDA events).  The HoD
+   kernels and ``bag_sum`` must be bit-equal (``torch.equal``: fp32
+   adds and mins, or sums in the plain version's order);
+   ``flash_decode`` within atol 1e-4 of its f32 output;
+4. the HoD slice at full size: the road-network stand-in (grid side 200,
    40,000 nodes), the serve CLI's build config with the closure limit
    raised so the 15,722-node core is closed on the card, and a
    ``QueryServer`` answering 256 seeded SSD requests with repeats.  The
@@ -22,10 +25,31 @@ never JAX or the JAX package.  Phases, each of which asserts:
    SSSP batch with paths, one ``bellman``-mode batch, and checks against
    host Dijkstra and against the same engine on the CPU;
 5. profile: ``torch.profiler`` over a few SSD batches prints the device
-   time by kernel and the device's idle share (no assertion).
+   time by kernel and the device's idle share (no assertion);
+6. LM serving at full width: first glm4-9b's width at 2 layers in f32,
+   whose decode must equal prefill of the extended sequences at atol
+   1e-4 (the logic); then all 40 layers, random bf16 weights (18.8 GB)
+   from a seeded generator.  (a) 4 prompts of 512 tokens are prefilled
+   into a 1024-slot cache and decoded greedily for 32 steps; the last
+   step's logits must match a prefill of the extended sequences within
+   a relative L2 bound (LM_REL_L2), and the last step re-run with each
+   of four planted faults must land outside it (the check's controls);
+   (b) decode_32k with its batch cut from 128 to 32 (the 128-row cache
+   is 172 GB): 42.9 GB of KV filled from the generator, 8 timed decode
+   steps at cur_len 32760, and one ``torch.profiler`` pass over a step.
+   ``flash_decode`` must launch 40 times a step in each run;
+7. DLRM serving at full size: rm2 with 26 x 10^6-row tables (6.66 GB);
+   ``forward`` at serve_p99 (B=512) and serve_bulk (B=262,144), and
+   ``retrieval_scores`` over 10^6 candidates, checked against the same
+   model on the CPU, and one profile of a serve_bulk call; ``bag_sum``
+   must launch once a call.
 
-It prints one JSON line with every kernel's numbers, the card's name and
-power limit, and, last, ``{"ok": true, "device": {...}}``.  Any failure
+Each path frees its memory before the next.  Every launch counter is
+zeroed just before a served run and read just after it.  It prints one
+JSON line with every kernel's numbers (``launches`` is the count of the
+run at the kernel's timed shape, ``launches_by_path`` each served run's
+own count), the card's name and power limit, and, last,
+``{"ok": true, "device": {...}}``.  Any failure
 exits non-zero before those lines; without a card, or outside a
 checkout, it exits non-zero at once.
 """
@@ -48,14 +72,43 @@ CORE = 15722                # core nodes of this build: the minplus shapes
 PLAN_F_ROWS = 22400         # plan_f's M_pad: the edge_relax level shape
 K_SLOTS = 16
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth and
-# fp32 outside the tensor cores, the unit both kernels run on.
+# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth,
+# fp32 outside the tensor cores (the HoD kernels, bag_sum), and dense
+# bf16 on the tensor cores (flash_decode's products over bf16 caches).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
+
+# LM serving: glm4-9b; decode_32k's batch cut from 128 to 32.
+LM_PROMPTS, LM_PROMPT_LEN, LM_SERVE_CACHE, LM_SERVE_STEPS = 4, 512, 1024, 32
+DECODE_BATCH, DECODE_CUR, DECODE_STEPS = 32, 32760, 8
+# Decode-vs-prefill logits bound at 40 layers in bf16, as a relative L2
+# error ||decode - prefill|| / ||prefill|| over the last step's logits
+# (tests/test_torch_transformer.py holds 2 layers to 2e-2).  It lies
+# between the sound reading (1.924e-2) and the smallest reading of the
+# planted faults that lm_check_controls re-runs every time (3.130e-2,
+# the self-token dropped), near their geometric mean (PERF.md §6).
+# Greedy tokens must agree wherever the reference's top-two gap exceeds
+# twice the largest logit error (noise cannot flip those).  An f32 run of
+# the same width at 2 layers checks the decode logic itself at the CPU
+# test's f32 tolerance, atol 1e-4.
+LM_REL_L2, LM_F32_ATOL = 2.5e-2, 1e-4
+# flash_decode's check: the per-layer decode_32k shape
+FD_B, FD_H, FD_KH, FD_DH, FD_S = 32, 32, 2, 128, 32768
+# DLRM rm2: 26 tables of 10^6 rows; serve_bulk's lookups
+RM2_ROWS, RM2_DIM, BULK_BAGS = 26 * 10 ** 6, 64, 262144 * 26
+
+# The served run whose launch count the kernels line reports: the one at
+# the shape each kernel is timed at.
+MAIN_PATH = {"edge_relax": "hod_serve_stream",
+             "tropical_matmul": "hod_serve_stream",
+             "flash_decode": "decode_32k", "embedding_bag": "serve_bulk"}
 
 REPLACES = {
     "edge_relax": "src/repro/kernels/edge_relax/kernel.py:35",
     "tropical_matmul": "src/repro/kernels/tropical_matmul/kernel.py:39",
+    "flash_decode": "src/repro/kernels/flash_decode/kernel.py:87",
+    "embedding_bag": "src/repro/kernels/embedding_bag/kernel.py:20",
 }
 
 
@@ -71,10 +124,10 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
-    operations over the fp32 peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    operations over the peak rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
@@ -316,22 +369,23 @@ def drive_slice(np, torch, card: str, side: int, closure_limit: int,
     say(f"bellman batch equals closure: {minplus.launches} min-plus rounds "
         f"in {bell_s * 1e3:.1f} ms (host clock, on {card})")
     if dev == "cuda":
-        profile_ssd(torch, eng, batch, card)
+        profile_device(torch, lambda: eng.ssd(batch), 8,
+                       f"SSD batches of {len(batch)}", card)
     return launches
 
 
-def profile_ssd(torch, eng, batch, card: str, reps: int = 8) -> None:
-    """Where an SSD batch's time goes: device time by kernel, and the
+def profile_device(torch, step, reps: int, what: str, card: str) -> None:
+    """Where the time of ``step`` goes: device time by kernel, and the
     share of the wall time the device sits idle (torch.profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    eng.ssd(batch)
+    step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            eng.ssd(batch)
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []      # device-side events only: kernels and copies
@@ -344,14 +398,474 @@ def profile_ssd(torch, eng, batch, card: str, reps: int = 8) -> None:
     if not rows:
         say("profile: the profiler saw no device time (not measured)")
         return
-    say(f"profile of {reps} SSD batches of {len(batch)}: wall "
-        f"{wall_us / reps / 1e3:.3f} ms/batch, device busy "
-        f"{busy_us / reps / 1e3:.3f} ms/batch, device idle share "
+    say(f"profile of {reps} {what}: wall "
+        f"{wall_us / reps / 1e3:.3f} ms/call, device busy "
+        f"{busy_us / reps / 1e3:.3f} ms/call, device idle share "
         f"{1 - busy_us / wall_us:.3f} (host clock under the profiler, "
         f"on {card})")
     for us, count, key in sorted(rows, reverse=True)[:10]:
-        say(f"  {us / reps:9.1f} us/batch  {count // reps:4d} calls/batch  "
-            f"{key[:90]}")
+        say(f"  {us / reps:10.1f} us/call {us / busy_us:6.1%} of busy  "
+            f"{count // reps:5d} calls/call  {key[:80]}")
+
+
+# ------------------------------------------- phase 3, the models' kernels
+def check_flash_decode(torch, card: str) -> dict:
+    """flash_decode at glm4's per-layer decode_32k shape (bf16 caches),
+    at three kv_lens, and at one odd shape; timed at the main path's
+    kv_len, beside SDPA (GQA) on the same inputs."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bf16 = torch.bfloat16
+    q = torch.randn((FD_B, FD_H, FD_DH), generator=gen, device="cuda",
+                    dtype=bf16)
+    k = torch.randn((FD_B, FD_S, FD_KH, FD_DH), generator=gen, device="cuda",
+                    dtype=bf16)
+    v = torch.randn((FD_B, FD_S, FD_KH, FD_DH), generator=gen, device="cuda",
+                    dtype=bf16)
+    kv_main = DECODE_CUR + 1
+    err = 0.0
+    for kv_len in (FD_S, 20001, kv_main):
+        got = flash_decode(q, k, v, kv_len)
+        e = (got - flash_decode_ref(q, k, v, kv_len)).abs().max().item()
+        say(f"flash_decode q {list(q.shape)} caches {list(k.shape)} bf16, "
+            f"kv_len {kv_len}: max |kernel - plain| {e:.3e} (atol 1e-4)")
+        if not e <= 1e-4:
+            raise AssertionError(f"flash_decode kv_len={kv_len}: max error "
+                                 f"{e} > 1e-4")
+        err = max(err, e)
+    # an odd shape: S not a tile multiple, G=3, kv_len 1; f32 caches take
+    # the SIMT form, bf16 ones the tensor-core form
+    for dt in (torch.float32, bf16):
+        qo = torch.randn((3, 9, 64), generator=gen, device="cuda", dtype=dt)
+        ko = torch.randn((3, 1001, 3, 64), generator=gen, device="cuda",
+                         dtype=dt)
+        vo = torch.randn((3, 1001, 3, 64), generator=gen, device="cuda",
+                         dtype=dt)
+        for kv_len in (1, 1000):
+            e = (flash_decode(qo, ko, vo, kv_len)
+                 - flash_decode_ref(qo, ko, vo, kv_len)).abs().max().item()
+            if not e <= 1e-4:
+                raise AssertionError(f"flash_decode odd shape {dt} kv_len="
+                                     f"{kv_len}: max error {e} > 1e-4")
+    say("flash_decode odd shape q [3,9,64] caches [3,1001,3,64] f32 and "
+        "bf16, kv_len 1 and 1000: within atol 1e-4")
+
+    row = {"shape": f"q [{FD_B},{FD_H},{FD_DH}] bf16, caches "
+                    f"[{FD_B},{FD_S},{FD_KH},{FD_DH}] bf16, kv_len {kv_main}",
+           "max_abs_err": err}
+    row["ms"] = time_ms(torch, lambda: flash_decode(q, k, v, kv_main),
+                        iters=20)
+    row["plain_ms"] = time_ms(torch, lambda: flash_decode_ref(
+        q, k, v, kv_main), iters=3)
+    qs = q.view(FD_B, FD_H, 1, FD_DH)
+    ks = k[:, :kv_main].transpose(1, 2)
+    vs = v[:, :kv_main].transpose(1, 2)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qs, ks, vs, enable_gqa=True)
+    row["library_ms"] = time_ms(torch, sdpa, iters=20)
+    lib_err = (sdpa().reshape(FD_B, FD_H, FD_DH).float()
+               - flash_decode_ref(q, k, v, kv_main)).abs().max().item()
+    # Bytes: K and V rows below kv_len once, q in, f32 out; operations:
+    # a multiply-add per (head, position, column) for QK and for PV, bf16
+    # products on the tensor cores.
+    row["bound_ms"], row["bound_by"] = bound(
+        2.0 * FD_B * FD_KH * kv_main * FD_DH * 2 + FD_B * FD_H * FD_DH * 6,
+        4.0 * FD_B * FD_H * kv_main * FD_DH, BF16_TC_OPS_PER_S)
+    say(f"flash_decode: kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, SDPA (library, enable_gqa) "
+        f"{row['library_ms']:.4f} ms (its max |SDPA - plain| {lib_err:.3e}), "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}) on {card}")
+    return row
+
+
+def check_bag_sum(torch, card: str) -> dict:
+    """bag_sum at serve_bulk's lookups (rm2's stacked [26e6, 64] f32 table,
+    one id a bag, mask ones) bit-equal to the plain version, and a
+    multi-hot [65536, 8] case at mask density 0.7; timed at serve_bulk
+    beside F.embedding_bag(mode="sum", per_sample_weights=mask)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.embedding_bag import bag_sum, bag_sum_ref, take_fill
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    table = torch.empty((RM2_ROWS, RM2_DIM), device="cuda")
+    table.uniform_(-1e-3, 1e-3, generator=gen)
+    ids = torch.randint(0, RM2_ROWS, (BULK_BAGS, 1), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    ones = torch.ones((BULK_BAGS, 1), device="cuda")
+    plain = lambda i, m: bag_sum_ref(take_fill(table, i), m)  # noqa: E731
+    got = bag_sum(table, ids, ones)
+    if not torch.equal(got, plain(ids, ones)):
+        raise AssertionError("bag_sum at serve_bulk differs from the plain "
+                             "version")
+    mids = torch.randint(0, RM2_ROWS, (65536, 8), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    mmask = (torch.rand((65536, 8), generator=gen, device="cuda")
+             < 0.7).float()
+    mgot, mwant = bag_sum(table, mids, mmask), plain(mids, mmask)
+    rel = ((mgot - mwant).abs() / mwant.abs().clamp_min(1e-30)).max().item()
+    if not torch.allclose(mgot, mwant, rtol=1e-6, atol=0):
+        raise AssertionError(f"bag_sum multi-hot: max relative error {rel}")
+    say(f"bag_sum table [{RM2_ROWS},{RM2_DIM}] f32: ids [{BULK_BAGS},1] "
+        f"equal to plain; multi-hot [65536,8] density 0.7 max relative "
+        f"error {rel:.3e} (rtol 1e-6)")
+    row = {"shape": f"table [{RM2_ROWS},{RM2_DIM}] f32, ids "
+                    f"[{BULK_BAGS},1]", "max_abs_err": 0.0}
+    row["ms"] = time_ms(torch, lambda: bag_sum(table, ids, ones), iters=20)
+    row["plain_ms"] = time_ms(torch, lambda: plain(ids, ones), iters=3)
+    row["library_ms"] = time_ms(torch, lambda: F.embedding_bag(
+        ids, table, mode="sum", per_sample_weights=ones), iters=20)
+    # Bytes: each distinct row gathered once, ids and mask in, rows out.
+    rows = int(torch.unique(ids).numel())
+    row["bound_ms"], row["bound_by"] = bound(
+        4.0 * RM2_DIM * (rows + BULK_BAGS) + 8.0 * BULK_BAGS,
+        2.0 * BULK_BAGS * RM2_DIM)
+    say(f"bag_sum: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+        f"ms, F.embedding_bag (library) {row['library_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}, {rows} distinct rows) "
+        f"on {card}")
+    return row
+
+
+def free(torch) -> None:
+    """Return the finished path's memory to the card before the next."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------- phase 6
+def drive_lm(torch, card: str) -> dict:
+    """glm4-9b serving at full width through the port's entry points;
+    returns flash_decode's launches in each served run (the f32 logic
+    check's own count is asserted there and not reported).  Each run is
+    its own function, so its tensors are gone when it returns."""
+    from repro_torch.launch.steps import build_cell
+
+    lm_f32_logic(torch, card)
+    free(torch)
+    t0 = time.perf_counter()
+    cell = build_cell("glm4-9b", "decode_32k", device="cuda",
+                      batch=DECODE_BATCH)
+    torch.cuda.synchronize()
+    params, caches = cell.args[0], cell.args[1]
+    cfg = cell.meta["cfg"]
+    w_bytes = sum(a.numel() * a.element_size() for a in (
+        params["embed"], params["ln_f"], params["head"],
+        *(a for pos in params["layers"] for a in pos.values())))
+    kv_bytes = sum(c[n].numel() * c[n].element_size() for c in caches
+                   for n in ("k", "v"))
+    say(f"glm4-9b: {cfg.n_layers} layers, {cfg.param_count() / 1e9:.3f} B "
+        f"params, {w_bytes / 1e9:.2f} GB bf16 weights and a "
+        f"{kv_bytes / 1e9:.2f} GB decode_32k cache (batch "
+        f"{cell.meta['reduced']['batch']}) made on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    launches = {"lm_serve": lm_serve_requests(torch, params, cfg, gen, card)}
+    free(torch)
+    launches["decode_32k"] = lm_decode_32k(torch, cell, gen, w_bytes,
+                                           kv_bytes, card)
+    return launches
+
+
+def check_decode_vs_prefill(torch, got, want, rel_bound: float, what: str,
+                            atol: float = None) -> float:
+    """Decode logits against prefill of the extended sequences: the
+    relative L2 error within ``rel_bound`` (and every logit within
+    ``atol`` where given), and the greedy tokens equal wherever noise
+    cannot flip them.  Returns the relative L2 error."""
+    diff = (got - want).abs()
+    err = diff.max().item()
+    rel = ((got - want).norm() / want.norm()).item()
+    top2 = want.topk(2, dim=-1).values
+    firm = (top2[:, 0] - top2[:, 1]) > 2 * diff.max(dim=-1).values
+    agree = got.argmax(-1) == want.argmax(-1)
+    say(f"LM decode vs prefill ({what}): max |diff| {err:.3e}, relative L2 "
+        f"{rel:.3e} (bound {rel_bound:.3e}"
+        + (f", atol {atol}" if atol is not None else "")
+        + f"), greedy tokens agree {int(agree.sum())} of {agree.numel()} "
+        f"({int(firm.sum())} beyond the noise)")
+    if not torch.isfinite(want).all() or not rel <= rel_bound \
+            or (atol is not None and not err <= atol) \
+            or not bool(agree[firm].all()):
+        raise AssertionError(f"decode logits differ from prefill of the "
+                             f"extended sequences ({what})")
+    return rel
+
+
+def lm_f32_logic(torch, card: str) -> None:
+    """glm4-9b's full width at 2 layers in f32: 2 greedy decode steps after
+    a 4x64 prefill must equal prefill of the extended sequences at atol
+    1e-4, so the bf16 run's distance is rounding, not logic."""
+    import dataclasses
+    from repro_torch.configs import glm4_9b
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models import transformer as tf
+    cfg = dataclasses.replace(glm4_9b.CONFIG, n_layers=2,
+                              compute_dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    params = tf.init_params(cfg, gen, device="cuda", dtype=torch.float32)
+    prompts = torch.randint(0, cfg.vocab, (4, 64), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    logits, filled = tf.prefill(params, prompts, cfg)
+    cache = tf.make_cache(cfg, 4, 80, dtype=torch.float32, device="cuda")
+    for full, part in zip(cache, filled):
+        full["k"][:, :, :64] = part["k"]
+        full["v"][:, :, :64] = part["v"]
+    flash_decode.launches = 0
+    tokens = [logits.argmax(-1).to(torch.int32)]
+    for i in range(2):
+        logits, _ = tf.decode_step(params, cache, tokens[-1], 64 + i, cfg)
+        tokens.append(logits.argmax(-1).to(torch.int32))
+    torch.cuda.synchronize()
+    launches = flash_decode.launches
+    if launches != 2 * cfg.n_layers:
+        raise AssertionError(f"flash_decode launched {launches} times in the "
+                             f"f32 run")
+    ext = torch.cat([prompts, torch.stack(tokens[:-1], dim=1)], dim=1)
+    want, _ = tf.prefill(params, ext, cfg)
+    check_decode_vs_prefill(torch, logits, want, 1.0,
+                            "f32, full width, 2 layers", atol=LM_F32_ATOL)
+
+
+def lm_serve_requests(torch, params, cfg, gen, card: str) -> int:
+    """Prefill 4 prompts of 512 tokens into a 1024-slot cache, decode 32
+    greedy steps, and hold the last step's logits against a prefill of
+    the extended sequences."""
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models import transformer as tf
+    prompts = torch.randint(0, cfg.vocab, (LM_PROMPTS, LM_PROMPT_LEN),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    flash_decode.launches = 0
+    t0 = time.perf_counter()
+    logits, filled = tf.prefill(params, prompts, cfg)
+    cache = tf.make_cache(cfg, LM_PROMPTS, LM_SERVE_CACHE, device="cuda")
+    for full, part in zip(cache, filled):
+        full["k"][:, :, :LM_PROMPT_LEN] = part["k"]
+        full["v"][:, :, :LM_PROMPT_LEN] = part["v"]
+    del filled, full, part
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tokens = [logits.argmax(-1).to(torch.int32)]
+    for i in range(LM_SERVE_STEPS):
+        logits, _ = tf.decode_step(params, cache, tokens[-1],
+                                   LM_PROMPT_LEN + i, cfg)
+        tokens.append(logits.argmax(-1).to(torch.int32))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = flash_decode.launches
+    if launches != cfg.n_layers * LM_SERVE_STEPS:
+        raise AssertionError(f"flash_decode launched {launches} times in "
+                             f"{LM_SERVE_STEPS} steps of {cfg.n_layers} "
+                             f"layers")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("decode logits are not finite")
+    ext = torch.cat([prompts, torch.stack(tokens[:-1], dim=1)], dim=1)
+    want, _ = tf.prefill(params, ext, cfg)
+    say(f"LM serve: prefill {LM_PROMPTS}x{LM_PROMPT_LEN} in "
+        f"{(t1 - t0) * 1e3:.1f} ms, {LM_SERVE_STEPS} greedy decode steps "
+        f"({LM_PROMPTS} requests, cache {LM_SERVE_CACHE}) in "
+        f"{(t2 - t1) * 1e3:.1f} ms = "
+        f"{LM_PROMPTS * LM_SERVE_STEPS / (t2 - t1):.1f} tokens/s (host "
+        f"clock, on {card}); flash_decode launches {launches}")
+    check_decode_vs_prefill(torch, logits, want, LM_REL_L2,
+                            f"bf16, {cfg.n_layers} layers, last of "
+                            f"{LM_SERVE_STEPS} steps")
+    lm_check_controls(torch, params, cfg, cache, tokens[-2], want)
+    return launches
+
+
+def _p_bf16_decode(torch, q, k_cache, v_cache, kv_len: int):
+    """flash_decode_ref with the Pallas body's rounding of p to the cache
+    dtype before the PV product (kernel.py:50), in one block."""
+    from repro_torch.kernels.flash_decode import q_scale
+    b, h, dh = q.shape
+    s, kh = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, kh, h // kh, dh) * q_scale(dh, q.dtype)
+    sc = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float())
+    sc = sc.masked_fill(torch.arange(s, device=q.device) >= kv_len,
+                        float("-inf"))
+    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    pv = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
+                      v_cache.float())
+    return (pv / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)).reshape(
+        b, h, dh)
+
+
+def lm_check_controls(torch, params, cfg, cache, token, want) -> None:
+    """The decode-vs-prefill check's controls: re-run the last decode
+    step from the same cache, once sound (which must agree with the
+    served step) and once with each planted fault, and hold each reading
+    against LM_REL_L2.  The three decode-logic faults must land outside
+    it.  The fourth, p rounded to bf16 before PV, is the Pallas body's
+    own rounding, which the kernel deliberately leaves out: its reading
+    is printed, not asserted (rounding p is noise of the same order as
+    the bf16 path's own)."""
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+    last = LM_PROMPT_LEN + LM_SERVE_STEPS - 1     # the last step's slot
+
+    def stale(q, k, v, n):                        # the new K/V never lands
+        k, v = k.clone(), v.clone()
+        k[:, n - 1] = 0
+        v[:, n - 1] = 0
+        return flash_decode(q, k, v, n)
+
+    def rerun(cur_len, attend=None):
+        for c in cache:                           # slots the step wrote
+            c["k"][:, :, last:] = 0
+            c["v"][:, :, last:] = 0
+        layers.flash_decode = attend or flash_decode
+        try:
+            got, _ = tf.decode_step(params, cache, token, cur_len, cfg)
+        finally:
+            layers.flash_decode = flash_decode
+        return ((got - want).norm() / want.norm()).item()
+
+    sound = rerun(last)
+    faults = {
+        "position off by one (RoPE and slot at cur_len + 1)": rerun(last + 1),
+        "self-token dropped (kv_len = cur_len)": rerun(
+            last, lambda q, k, v, n: flash_decode(q, k, v, n - 1)),
+        "new K/V lost (slot cur_len stale)": rerun(last, stale),
+    }
+    p_bf16 = rerun(last, lambda q, k, v, n: _p_bf16_decode(torch, q, k, v,
+                                                           n))
+    say(f"LM check controls (last step re-run, relative L2 against prefill, "
+        f"bound {LM_REL_L2:.3e}): sound {sound:.3e}; "
+        + "; ".join(f"{k} {v:.3e}" for k, v in faults.items())
+        + f"; p rounded to bf16 before PV {p_bf16:.3e} (not asserted)")
+    if not sound <= LM_REL_L2:
+        raise AssertionError(f"the re-run sound step reads {sound}")
+    for what, rel in faults.items():
+        if not rel > LM_REL_L2:
+            raise AssertionError(f"planted fault '{what}' reads {rel}, "
+                                 f"inside the bound {LM_REL_L2}")
+
+
+def lm_decode_32k(torch, cell, gen, w_bytes: int, kv_bytes: int,
+                  card: str) -> int:
+    """decode_32k at batch 32: fill the cache from the generator, time 8
+    steps at cur_len 32760, profile one."""
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models import transformer as tf
+    params, caches = cell.args[0], cell.args[1]
+    cfg = cell.meta["cfg"]
+    t0 = time.perf_counter()
+    for c in range(cfg.n_cycles):
+        for pos in caches:
+            pos["k"][c].normal_(generator=gen)
+            pos["v"][c].normal_(generator=gen)
+    toks = torch.randint(0, cfg.vocab, (DECODE_BATCH,), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    logits, _ = tf.decode_step(params, caches, toks, DECODE_CUR - 1, cfg)
+    torch.cuda.synchronize()
+    say(f"decode_32k: cache filled from the generator and one warm-up step "
+        f"in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    flash_decode.launches = 0
+    t0 = time.perf_counter()
+    for i in range(DECODE_STEPS):
+        logits, _ = tf.decode_step(params, caches, toks, DECODE_CUR + i, cfg)
+        toks = logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_decode.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if launches != cfg.n_layers * DECODE_STEPS:
+        raise AssertionError(f"flash_decode launched {launches} times in "
+                             f"{DECODE_STEPS} decode_32k steps")
+    if logits.shape != (DECODE_BATCH, cfg.vocab) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError("decode_32k logits are not finite [B, V]")
+    # The step's byte bound: every weight but the embedding table (only B
+    # rows of it), and the K/V rows up to cur_len of every layer.
+    emb = params["embed"]
+    step_bytes = (w_bytes - emb.numel() * emb.element_size()
+                  + DECODE_BATCH * cfg.d_model * emb.element_size()
+                  + kv_bytes * (DECODE_CUR + 1) / FD_S)
+    ms = wall / DECODE_STEPS * 1e3
+    say(f"decode_32k: batch {DECODE_BATCH} (cut from 128), cur_len "
+        f"{DECODE_CUR}: {ms:.2f} ms/step, "
+        f"{DECODE_BATCH * DECODE_STEPS / wall:.1f} tokens/s, model "
+        f"{cell.model_flops / (ms / 1e3) / 1e12:.2f} TFLOP/s; byte bound "
+        f"{step_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms/step "
+        f"({step_bytes / 1e9:.1f} GB); peak device memory {peak:.2f} GB; "
+        f"flash_decode launches {launches} (host clock, on {card})")
+    profile_device(torch, lambda: tf.decode_step(params, caches, toks,
+                                                 DECODE_CUR, cfg),
+                   2, f"decode_32k steps (batch {DECODE_BATCH})", card)
+    return launches
+
+
+# ------------------------------------------------------------- phase 7
+def drive_dlrm(torch, card: str) -> dict:
+    """dlrm-rm2 serving at full size through the port's entry points;
+    returns bag_sum's launches in each cell's timed calls."""
+    from repro_torch.kernels.embedding_bag import bag_sum
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import dlrm
+
+    launches = {}
+    cpu_params = None
+    for shape, calls in (("serve_p99", 20), ("serve_bulk", 3),
+                         ("retrieval_cand", 5)):
+        t0 = time.perf_counter()
+        cell = build_cell("dlrm-rm2", shape, device="cuda")
+        torch.cuda.synchronize()
+        params, cfg = cell.args[0], cell.meta["cfg"]
+        build_s = time.perf_counter() - t0
+        out = cell.run()                                # warm-up
+        torch.cuda.synchronize()
+        bag_sum.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            out = cell.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if bag_sum.launches != calls:
+            raise AssertionError(f"{shape}: bag_sum launched "
+                                 f"{bag_sum.launches} times in {calls} calls")
+        launches[shape] = bag_sum.launches
+        if cpu_params is None:      # one CPU copy: every cell has the same seed
+            cpu_params = {"tables": params["tables"].cpu(),
+                          "bot": [[w.cpu(), b.cpu()] for w, b in params["bot"]],
+                          "top": [[w.cpu(), b.cpu()] for w, b in params["top"]]}
+        args_cpu = [a.cpu() for a in cell.args[1:]]
+        if cell.kind == "serve":
+            n = min(512, args_cpu[0].shape[0])
+            want = dlrm.forward(cpu_params, args_cpu[0][:n], args_cpu[1][:n],
+                                cfg)
+            got = out[:n].cpu()
+            if out.shape != (cell.meta["batch"],) \
+                    or not torch.isfinite(out).all() \
+                    or not torch.allclose(got, want, rtol=1e-5, atol=1e-6):
+                raise AssertionError(f"{shape}: logits differ from the CPU "
+                                     f"model: max {(got - want).abs().max()}")
+            check = f"logits of {n} rows equal the CPU model's (rtol 1e-5)"
+            per_s = cell.meta["batch"] * calls / wall
+        else:
+            vals, ids = out
+            wv, wi = dlrm.retrieval_scores(cpu_params, *args_cpu, cfg)
+            if not torch.equal(ids.cpu(), wi) \
+                    or not torch.allclose(vals.cpu(), wv, rtol=1e-5, atol=1e-6):
+                raise AssertionError("retrieval top-128 differs from the CPU "
+                                     "model's")
+            check = (f"top-128 of {cell.meta['n_candidates']} candidates "
+                     f"equal the CPU model's")
+            per_s = calls / wall
+        ms = wall / calls * 1e3
+        say(f"dlrm-rm2 {shape}: batch {cell.meta['batch']}, {ms:.3f} ms/call, "
+            f"{per_s:.0f} queries/s, model "
+            f"{cell.model_flops / (ms / 1e3) / 1e12:.3f} TFLOP/s (host clock "
+            f"over {calls} calls, on {card}); {check}; bag_sum launches "
+            f"{calls}; cell built in {build_s:.2f} s")
+        if shape == "serve_bulk":
+            profile_device(torch, cell.run, 1, f"{shape} calls", card)
+        del cell, params, out
+        free(torch)
+    return launches
 
 
 def main() -> int:
@@ -368,6 +882,9 @@ def main() -> int:
         return 2
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
+    # f32 products in full f32 (the DLRM comparisons), stated not assumed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     card = card_line()
     say(card)
@@ -391,23 +908,38 @@ def main() -> int:
     }
     check_minplus(torch, card, 37, 1001, 777, lda_pad=13, timed=False)
     check_relax(np, torch, card, 45, 998, 301, 5, timed=False)
+    rows["flash_decode"] = check_flash_decode(torch, card)
+    free(torch)
+    rows["embedding_bag"] = check_bag_sum(torch, card)
+    free(torch)
 
-    launches = drive_slice(np, torch, card, SIDE, CLOSURE_LIMIT)
+    paths = {name: {"hod_serve_stream": n} for name, n in
+             drive_slice(np, torch, card, SIDE, CLOSURE_LIMIT).items()}
+    free(torch)
+    t0 = time.perf_counter()
+    paths["flash_decode"] = drive_lm(torch, card)
+    free(torch)
+    say(f"LM phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["embedding_bag"] = drive_dlrm(torch, card)
+    free(torch)
+    say(f"DLRM phase took {time.perf_counter() - t0:.1f} s")
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
         raise AssertionError("the smoke imported jax or the JAX package")
 
     kernels = []
-    for name, src in (("edge_relax", "edge_relax.cu"),
-                      ("tropical_matmul", "tropical_matmul.cu")):
+    for name in REPLACES:
         r = rows[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{src}",
-            "replaces": REPLACES[name], "launches": launches[name],
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": REPLACES[name],
+            "launches": paths[name][MAIN_PATH[name]],
+            "main_path": MAIN_PATH[name], "launches_by_path": paths[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
             "shape": r["shape"]})
     say(json.dumps({"kernels": kernels}))
     say(card)

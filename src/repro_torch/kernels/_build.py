@@ -26,7 +26,7 @@ CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 
 #: Every kernel source this package ships, by name (``csrc/<name>.cu``).
-KERNELS = ("edge_relax", "tropical_matmul")
+KERNELS = ("edge_relax", "tropical_matmul", "flash_decode", "embedding_bag")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

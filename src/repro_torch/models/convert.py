@@ -1,0 +1,78 @@
+"""Carry the JAX package's parameters across into the port.
+
+The functions take the JAX parameter pytree with every leaf as a numpy
+array (``jax.tree.map(np.asarray, params)``), so this module needs no
+JAX: an ``.npz`` or any other numpy source works the same.  bf16 leaves
+(numpy's ``ml_dtypes`` bfloat16) are taken bit for bit.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .dlrm import DLRMConfig
+from .transformer import TransformerConfig, _layer_shapes
+
+
+def _tensor(a, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    a = np.array(a)                      # a writable copy torch may own
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype)
+
+
+def transformer_params_from_numpy(tree: Dict[str, Any],
+                                  cfg: TransformerConfig, device=None,
+                                  dtype: Optional[torch.dtype] = None
+                                  ) -> Dict[str, Any]:
+    """``{"embed", "ln_f", optional "head", "layers": [per cycle position
+    {name: [n_cycles, ...]}]}`` -> the port's parameters on ``device``
+    (default ``cuda``) in ``dtype`` (default ``cfg.param_dtype``)."""
+    device = resolve_device(device)
+    dt = cfg.param_dtype if dtype is None else dtype
+    if len(tree["layers"]) != cfg.local_global_period:
+        raise ValueError(f"{len(tree['layers'])} cycle positions, config has "
+                         f"{cfg.local_global_period}")
+    shapes = _layer_shapes(cfg)
+    layers = []
+    for pos in tree["layers"]:
+        if set(pos) != set(shapes):
+            raise ValueError(f"layer keys {sorted(pos)} are not the dense "
+                             f"layer's {sorted(shapes)}")
+        stack = {}
+        for name, a in pos.items():
+            stack[name] = _tensor(a, device, dt)
+            want = (cfg.n_cycles,) + shapes[name]
+            if tuple(stack[name].shape) != want:
+                raise ValueError(f"{name}: shape {tuple(stack[name].shape)}, "
+                                 f"config wants {want}")
+        layers.append(stack)
+    params = {"embed": _tensor(tree["embed"], device, dt),
+              "ln_f": _tensor(tree["ln_f"], device, dt), "layers": layers}
+    if tuple(params["embed"].shape) != (cfg.vocab, cfg.d_model):
+        raise ValueError(f"embed: shape {tuple(params['embed'].shape)}")
+    if not cfg.tie_embeddings:
+        params["head"] = _tensor(tree["head"], device, dt)
+    return params
+
+
+def dlrm_params_from_numpy(tree: Dict[str, Any], cfg: DLRMConfig,
+                           device=None) -> Dict[str, Any]:
+    """``{"tables": [T, V, D], "bot"/"top": [[W, b], ...]}`` -> the
+    port's DLRM parameters on ``device`` (default ``cuda``)."""
+    device = resolve_device(device)
+    tables = _tensor(tree["tables"], device, cfg.dtype)
+    want = (cfg.n_sparse, cfg.vocab_per_table, cfg.embed_dim)
+    if tuple(tables.shape) != want:
+        raise ValueError(f"tables: shape {tuple(tables.shape)}, config "
+                         f"wants {want}")
+    return {"tables": tables,
+            "bot": [[_tensor(w, device, cfg.dtype),
+                     _tensor(b, device, cfg.dtype)] for w, b in tree["bot"]],
+            "top": [[_tensor(w, device, cfg.dtype),
+                     _tensor(b, device, cfg.dtype)] for w, b in tree["top"]]}

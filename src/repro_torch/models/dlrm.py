@@ -1,0 +1,170 @@
+"""DLRM (Naumov et al., arXiv:1906.00091), RM2 configuration, on one device.
+
+13 dense features -> bottom MLP (13-512-256-64); 26 categorical features
+-> per-table embedding lookup (the hot path); dot-product feature
+interaction over the 27 resulting vectors; top MLP (512-512-256-1) -> CTR
+logit.  The JAX package's ``models/dlrm.py`` without its shard_map: every
+lookup goes through the hand-written ``bag_sum`` kernel, which gathers
+the rows itself.  The 26 tables are one ``[26, V, D]`` tensor; a forward
+pass is one ``bag_sum`` launch over its ``[26*V, D]`` view.
+
+``retrieval_cand`` scores one query against 10^6 candidates as a plain
+matvec and ``topk``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..device import resolve_device
+from ..kernels.embedding_bag import bag_sum
+from .common import mlp, mlp_init
+
+
+@dataclasses.dataclass(frozen=True)
+class DLRMConfig:
+    name: str = "dlrm-rm2"
+    n_dense: int = 13
+    n_sparse: int = 26
+    embed_dim: int = 64
+    vocab_per_table: int = 1_000_000
+    bot_mlp: Tuple[int, ...] = (13, 512, 256, 64)
+    top_mlp: Tuple[int, ...] = (512, 512, 256, 1)
+    interaction: str = "dot"
+    dtype: Any = torch.float32
+
+    def __post_init__(self):
+        if self.interaction != "dot":
+            raise ValueError(f"DLRMConfig: only the dot interaction is "
+                             f"ported, got {self.interaction!r}")
+
+    @property
+    def n_interactions(self) -> int:
+        f = self.n_sparse + 1
+        return f * (f - 1) // 2
+
+    def param_count(self) -> int:
+        emb = self.n_sparse * self.vocab_per_table * self.embed_dim
+        bot = sum(self.bot_mlp[i] * self.bot_mlp[i + 1]
+                  for i in range(len(self.bot_mlp) - 1))
+        d_top_in = self.n_interactions + self.bot_mlp[-1]
+        dims = (d_top_in,) + self.top_mlp
+        top = sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1))
+        return emb + bot + top
+
+
+def init_params(cfg: DLRMConfig, generator: Optional[torch.Generator] = None,
+                device=None) -> Dict[str, Any]:
+    """Tables uniform in +-V^-0.5 and MLPs normal x fan_in^-0.5 (the JAX
+    law), drawn from ``generator`` on ``device`` (default ``cuda``; the
+    generator must live there, default seed 0).  The tables are drawn in
+    place, so the 6.66 GB of rm2 are made on the card with no copy."""
+    device = resolve_device(device)
+    gen = (torch.Generator(device=device).manual_seed(0)
+           if generator is None else generator)
+    scale = cfg.vocab_per_table ** -0.5
+    tables = torch.empty((cfg.n_sparse, cfg.vocab_per_table, cfg.embed_dim),
+                         dtype=cfg.dtype, device=device)
+    tables.uniform_(-scale, scale, generator=gen)
+    d_top_in = cfg.n_interactions + cfg.bot_mlp[-1]
+    return {
+        "tables": tables,
+        "bot": mlp_init(gen, list(cfg.bot_mlp), cfg.dtype, device),
+        "top": mlp_init(gen, [d_top_in] + list(cfg.top_mlp), cfg.dtype,
+                        device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# EmbeddingBag (single- and multi-hot)
+# ---------------------------------------------------------------------------
+
+def embedding_lookup(tables: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """tables [T, V, D]; ids [B, T] -> [B, T, D] (row ``ids[b, t]`` of
+    table t).  One ``bag_sum`` launch over the ``[T*V, D]`` view, with
+    ids offset by ``t*V``; an id outside ``[0, V)`` gives a zero row, as
+    the JAX lookup's range mask does."""
+    t, v, d = tables.shape
+    b = ids.shape[0]
+    ok = (ids >= 0) & (ids < v)
+    flat = ids.long() + torch.arange(t, device=ids.device) * v
+    flat = torch.where(ok, flat, t * v)          # past the end: a zero row
+    ones = torch.ones((b * t, 1), dtype=tables.dtype, device=tables.device)
+    out = bag_sum(tables.view(t * v, d), flat.to(torch.int32).view(b * t, 1),
+                  ones)
+    return out.view(b, t, d)
+
+
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
+                  offsets: torch.Tensor, n_bags: int,
+                  mode: str = "sum") -> torch.Tensor:
+    """Multi-hot EmbeddingBag over one table: ids [L], offsets
+    [n_bags+1]; bag b pools rows ``ids[offsets[b]:offsets[b+1]]``.
+
+    The bags are padded to ``[n_bags, max_len]`` with a validity mask and
+    summed by one ``bag_sum`` launch; ``mode="mean"`` divides by the bag
+    size (at least 1).
+    """
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"embedding_bag: mode must be 'sum' or 'mean', got "
+                         f"{mode!r}")
+    dev = ids.device
+    offsets = offsets.long()
+    lengths = offsets[1:n_bags + 1] - offsets[:n_bags]
+    max_len = int(lengths.max()) if n_bags else 0
+    slot = torch.arange(max_len, device=dev)
+    mask = slot[None, :] < lengths[:, None]
+    pos = (offsets[:n_bags, None] + slot[None, :]).clamp(0, ids.shape[0])
+    ids_ext = torch.cat([ids.to(torch.int32), ids.new_zeros(1, dtype=torch.int32)])
+    padded = torch.where(mask, ids_ext[pos], 0).to(torch.int32)
+    out = bag_sum(table, padded, mask)
+    if mode == "mean":
+        cnt = torch.clamp(lengths.to(out.dtype), min=1.0)
+        out = out / cnt[:, None]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Forward / retrieval
+# ---------------------------------------------------------------------------
+
+def forward(params, dense: torch.Tensor, sparse_ids: torch.Tensor,
+            cfg: DLRMConfig) -> torch.Tensor:
+    """dense [B, 13] f32, sparse_ids [B, 26] int -> CTR logits [B]."""
+    bot = mlp(dense.to(cfg.dtype), params["bot"])             # [B, 64]
+    emb = embedding_lookup(params["tables"], sparse_ids)      # [B, 26, 64]
+    z = torch.cat([bot[:, None, :], emb], dim=1)              # [B, 27, 64]
+    zz = torch.bmm(z, z.transpose(1, 2))                      # [B, 27, 27]
+    f = z.shape[1]
+    iu, ju = torch.triu_indices(f, f, offset=1, device=z.device)
+    inter = zz[:, iu, ju]                                     # [B, 351]
+    top_in = torch.cat([bot, inter], dim=-1)
+    return mlp(top_in, params["top"])[:, 0]
+
+
+def user_vector(params, dense: torch.Tensor, sparse_ids: torch.Tensor,
+                cfg: DLRMConfig) -> torch.Tensor:
+    """Query-side representation for retrieval: bottom-MLP out + pooled
+    sparse embeddings (a two-tower view of the same parameters)."""
+    bot = mlp(dense.to(cfg.dtype), params["bot"])
+    emb = embedding_lookup(params["tables"], sparse_ids)
+    return bot + emb.sum(dim=1)
+
+
+def retrieval_scores(params, dense: torch.Tensor, sparse_ids: torch.Tensor,
+                     cand_ids: torch.Tensor, cfg: DLRMConfig,
+                     top_k: int = 128):
+    """Score 1 query against N candidates (table-0 rows); return the
+    top-k (scores, candidate ids), best first.  Candidates outside the
+    table score 0, as the JAX version's range mask gives."""
+    u = user_vector(params, dense, sparse_ids, cfg)[0]        # [D]
+    table0 = params["tables"][0]
+    v = table0.shape[0]
+    ok = (cand_ids >= 0) & (cand_ids < v)
+    rows = table0[cand_ids.long().clamp(0, v - 1)]
+    rows = rows * ok[:, None].to(rows.dtype)
+    scores = rows @ u
+    vals, idx = torch.topk(scores, min(top_k, scores.shape[0]))
+    return vals, cand_ids[idx]

@@ -1,0 +1,222 @@
+"""Decoder-only LM of the port: parameters, prefill and decode (serving).
+
+The JAX package's ``models/transformer.py`` for the dense GQA archs
+(glm4-9b), on one device.  Parameters keep its pytree layout: ``embed``
+[V, D], ``ln_f`` [D], optional ``head`` [D, V], and ``layers``, a list
+per cycle position of dicts of ``[n_cycles, ...]`` stacks, so
+``models/convert.py`` carries JAX weights across unchanged.  Both
+serving functions round where the JAX ones do: every parameter
+(the norm scales included) is cast to ``compute_dtype`` each call, the
+embedding is scaled by ``sqrt(d_model)`` in that dtype, and the logits
+are a ``compute_dtype`` product widened to f32 afterwards.
+
+Decode attention runs the hand-written ``flash_decode`` kernel (through
+``layers.attention_decode``) and updates the caches in place.  The
+training forward and loss, MoE and sliding-window layers come later
+(``ROADMAP.md`` queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from ..device import resolve_device
+from .common import dense_init
+from .layers import (attention_causal, attention_decode, rms_norm,
+                     rope_cos_sin, rotate, swiglu)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None          # defaults to d_model // n_heads
+    rope_theta: float = 1e4
+    local_global_period: int = 1            # layers stacked per cycle position
+    tie_embeddings: bool = True
+    param_dtype: Any = torch.float32
+    compute_dtype: Any = torch.bfloat16
+    attn_chunk: int = 1024
+    # Read only by the training loss, which is not ported yet; kept so
+    # that the configs stay verbatim copies of the JAX package's.
+    loss_chunk: int = 2048
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def n_cycles(self) -> int:
+        if self.n_layers % self.local_global_period:
+            raise ValueError(f"{self.n_layers} layers do not split into "
+                             f"cycles of {self.local_global_period}")
+        return self.n_layers // self.local_global_period
+
+    def param_count(self) -> int:
+        d, hd = self.d_model, self.hd
+        attn = d * (self.n_heads * hd) * 2 + d * (self.n_kv_heads * hd) * 2
+        per_layer = attn + 3 * d * self.d_ff + 2 * d
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per_layer + emb + d
+
+    def active_param_count(self) -> int:
+        return self.param_count()
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def _layer_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
+    d, hd = cfg.d_model, cfg.hd
+    return {"ln1": (d,), "ln2": (d,),
+            "wq": (d, cfg.n_heads * hd), "wk": (d, cfg.n_kv_heads * hd),
+            "wv": (d, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, d),
+            "wg": (d, cfg.d_ff), "wu": (d, cfg.d_ff), "wd": (cfg.d_ff, d)}
+
+
+def init_params(cfg: TransformerConfig,
+                generator: Optional[torch.Generator] = None, device=None,
+                dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """Random parameters with the JAX ``init_params`` law (normal x
+    fan_in^-0.5 for matrices, zeros for the norm scales), drawn from
+    ``generator`` on ``device`` (default ``cuda``; the generator must
+    live there, default seed 0) and stored in ``dtype`` (default
+    ``cfg.param_dtype``).  Each layer is drawn in f32 and cast into its
+    slot of the stack, so the full model is made on the card without an
+    f32 copy of it."""
+    device = resolve_device(device)
+    dt = cfg.param_dtype if dtype is None else dtype
+    gen = (torch.Generator(device=device).manual_seed(0)
+           if generator is None else generator)
+    shapes = _layer_shapes(cfg)
+    per_pos: List[Dict[str, torch.Tensor]] = []
+    for _ in range(cfg.local_global_period):
+        stack = {}
+        for name, shp in shapes.items():
+            if name.startswith("ln"):
+                stack[name] = torch.zeros((cfg.n_cycles,) + shp, dtype=dt,
+                                          device=device)
+                continue
+            stack[name] = torch.empty((cfg.n_cycles,) + shp, dtype=dt,
+                                      device=device)
+            for c in range(cfg.n_cycles):
+                stack[name][c] = dense_init(gen, shp, dtype=dt, device=device)
+        per_pos.append(stack)
+    params = {
+        "embed": dense_init(gen, (cfg.vocab, cfg.d_model), dtype=dt,
+                            device=device),
+        "ln_f": torch.zeros(cfg.d_model, dtype=dt, device=device),
+        "layers": per_pos,
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = dense_init(gen, (cfg.d_model, cfg.vocab), dtype=dt,
+                                    device=device)
+    return params
+
+
+def lm_head_weight(params, cfg: TransformerConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["head"]
+
+
+def make_cache(cfg: TransformerConfig, batch: int, seq_len: int,
+               dtype: torch.dtype = torch.bfloat16, device=None
+               ) -> List[Dict[str, torch.Tensor]]:
+    """Cache list: per cycle position, K and V of [n_cycles, B, S, Kh, hd],
+    zero-filled on ``device`` (default ``cuda``)."""
+    device = resolve_device(device)
+    shp = (cfg.n_cycles, batch, seq_len, cfg.n_kv_heads, cfg.hd)
+    return [{"k": torch.zeros(shp, dtype=dtype, device=device),
+             "v": torch.zeros(shp, dtype=dtype, device=device)}
+            for _ in range(cfg.local_global_period)]
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+def _embed(params, tokens: torch.Tensor, cfg: TransformerConfig
+           ) -> torch.Tensor:
+    """Embedding rows in ``compute_dtype`` times ``sqrt(d_model)`` taken
+    in that dtype (a host scalar: no copy to the card, no sync)."""
+    cd = cfg.compute_dtype
+    scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=cd)).item()
+    return params["embed"][tokens].to(cd) * scale
+
+
+def _layers(params, cfg: TransformerConfig):
+    """(cycle, position in cycle, that layer's params cast to
+    ``compute_dtype``) in the order the JAX scan runs them."""
+    cd = cfg.compute_dtype
+    for c in range(cfg.n_cycles):
+        for p_i in range(cfg.local_global_period):
+            yield c, p_i, {name: a[c].to(cd)
+                           for name, a in params["layers"][p_i].items()}
+
+
+def decode_step(params, caches, tokens: torch.Tensor, cur_len: int,
+                cfg: TransformerConfig):
+    """One decode step: tokens [B] int, cur_len int -> (logits [B, V] f32,
+    caches).  The new token sits at position ``cur_len``; entries
+    [0, cur_len) are valid.  The caches are updated in place and
+    returned."""
+    b = tokens.shape[0]
+    hd = cfg.hd
+    x = _embed(params, tokens, cfg)                       # [B, D]
+    pos = torch.full((1,), int(cur_len), dtype=torch.int32,
+                     device=tokens.device)
+    cos, sin = rope_cos_sin(pos, hd, cfg.rope_theta)     # [1, 1, hd/2]
+    for c, p_i, lp in _layers(params, cfg):
+        h = rms_norm(x, lp["ln1"])
+        q = (h @ lp["wq"]).reshape(b, cfg.n_heads, hd)
+        kn = (h @ lp["wk"]).reshape(b, cfg.n_kv_heads, hd)
+        vn = (h @ lp["wv"]).reshape(b, cfg.n_kv_heads, hd)
+        q = rotate(q[:, None], cos, sin)[:, 0]
+        kn = rotate(kn[:, None], cos, sin)[:, 0]
+        o, _, _ = attention_decode(q, caches[p_i]["k"][c],
+                                   caches[p_i]["v"][c], kn, vn, cur_len)
+        x = x + (o.reshape(b, cfg.n_heads * hd) @ lp["wo"])
+        h2 = rms_norm(x, lp["ln2"])
+        x = x + swiglu(h2, lp["wg"], lp["wu"], lp["wd"])
+    cd = cfg.compute_dtype
+    x = rms_norm(x, params["ln_f"].to(cd))
+    logits = (x @ lm_head_weight(params, cfg).to(cd)).float()
+    return logits, caches
+
+
+def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig):
+    """tokens [B, S] -> (last-position logits [B, V] f32, caches filled
+    [0, S) in ``compute_dtype``, laid out as :func:`make_cache`'s)."""
+    b, s = tokens.shape
+    hd = cfg.hd
+    cd = cfg.compute_dtype
+    positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
+    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
+    x = _embed(params, tokens, cfg)
+    caches = make_cache(cfg, b, s, dtype=cd, device=tokens.device)
+    for c, p_i, lp in _layers(params, cfg):
+        h = rms_norm(x, lp["ln1"])
+        q = (h @ lp["wq"]).reshape(b, s, cfg.n_heads, hd)
+        k = (h @ lp["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
+        v = (h @ lp["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+        q = rotate(q, cos, sin)
+        k = rotate(k, cos, sin)
+        o = attention_causal(q, k, v, chunk=cfg.attn_chunk,
+                             q_positions=positions, kv_positions=positions)
+        caches[p_i]["k"][c] = k
+        caches[p_i]["v"][c] = v
+        x = x + (o.reshape(b, s, cfg.n_heads * hd) @ lp["wo"])
+        h2 = rms_norm(x, lp["ln2"])
+        x = x + swiglu(h2, lp["wg"], lp["wu"], lp["wd"])
+    x = rms_norm(x[:, -1], params["ln_f"].to(cd))
+    logits = (x @ lm_head_weight(params, cfg).to(cd)).float()
+    return logits, caches

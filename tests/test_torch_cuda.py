@@ -10,6 +10,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.edge_relax import relax_level_, relax_level_ref_
+from repro_torch.kernels.embedding_bag import bag_sum, bag_sum_ref, take_fill
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
 from repro_torch.kernels.tropical_matmul import minplus, minplus_ref
 from torchsupport import plan_like_level, t
 
@@ -60,6 +62,60 @@ def test_relax_level_kernel_on_card(cuda_device, s, n, m, k):
     assert relax_level_.launches == before + 1
     want = relax_level_ref_(t(dist), t(dst), t(src), t(w), t(valid))
     np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kh,dh,s,kv_len", [
+    (1, 4, 4, 16, 64, 1), (2, 8, 2, 16, 96, 17), (2, 8, 8, 32, 128, 128),
+    (1, 16, 4, 64, 256, 200), (3, 32, 2, 128, 1000, 999),
+    (2, 32, 2, 128, 4096, 4096), (1, 12, 3, 256, 77, 300),
+    (2, 32, 1, 64, 300, 250), (5, 6, 6, 128, 131, 65),
+    (2, 24, 2, 96, 200, 150), (1, 32, 1, 48, 150, 149)])
+@pytest.mark.parametrize("dtype,q_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+def test_flash_decode_kernel_on_card(cuda_device, b, h, kh, dh, s, kv_len,
+                                     dtype, q_dtype):
+    """The split-KV kernel against its plain version; atol 1e-4 on the f32
+    output (both keep scores and p in f32; only the order of the softmax
+    sums differs).  bf16 caches with G <= 16 and dh in {16, 32, 64, 128}
+    take the tensor-core form (an f32 q as three bf16 terms), the rest
+    SIMT.  The last two shapes give the SIMT form more than one
+    accumulator a thread with dh/4 not dividing its 256 threads."""
+    rng = np.random.default_rng(b * h + s)
+    q = t(rng.normal(size=(b, h, dh)).astype(np.float32)).to(q_dtype)
+    kc = t(rng.normal(size=(b, s, kh, dh)).astype(np.float32)).to(dtype)
+    vc = t(rng.normal(size=(b, s, kh, dh)).astype(np.float32)).to(dtype)
+    before = flash_decode.launches
+    got = flash_decode(q.to(cuda_device), kc.to(cuda_device),
+                       vc.to(cuda_device), kv_len).cpu()
+    assert flash_decode.launches == before + 1
+    want = flash_decode_ref(q, kc, vc, kv_len)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,d,b,k", [
+    (10, 8, 3, 2), (50, 24, 9, 6), (100, 128, 32, 4), (7, 64, 17, 1),
+    (1000, 64, 4096, 1), (33, 5, 40, 3), (300, 4096, 5, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bag_sum_kernel_on_card(cuda_device, v, d, b, k, dtype):
+    """Bit-equal to the plain version: both round each product to the
+    table's dtype and sum over k in order in f32.  The ids include
+    ``jnp.take``'s out-of-range cases: -1 and -V wrap, V and -V-1 give
+    zero rows."""
+    rng = np.random.default_rng(v + d + b)
+    tab = t(rng.normal(size=(v, d)).astype(np.float32)).to(dtype)
+    ids = rng.integers(0, v, (b, k)).astype(np.int32)
+    ids.flat[:4] = [-1, v, -v, -v - 1][:ids.size]
+    mask = t(rng.random((b, k)) < 0.7)
+    before = bag_sum.launches
+    got = bag_sum(tab.to(cuda_device), t(ids).to(cuda_device),
+                  mask.to(cuda_device)).cpu()
+    assert bag_sum.launches == before + 1
+    assert got.dtype == dtype
+    want = bag_sum_ref(take_fill(tab, t(ids)), mask)
+    np.testing.assert_array_equal(got.float().numpy(), want.float().numpy())
 
 
 @pytest.mark.cuda

@@ -40,6 +40,14 @@ def test_import_loads_neither_jax_nor_repro():
             "import repro_torch, repro_torch.core, repro_torch.launch.serve\n"
             "import repro_torch.kernels.edge_relax\n"
             "import repro_torch.kernels.tropical_matmul\n"
+            "import repro_torch.kernels.flash_decode\n"
+            "import repro_torch.kernels.embedding_bag\n"
+            "import repro_torch.configs, repro_torch.launch.steps\n"
+            "import repro_torch.models.layers, repro_torch.models.transformer\n"
+            "import repro_torch.models.dlrm, repro_torch.models.common\n"
+            "import repro_torch.models.convert\n"
+            "from repro_torch.configs import get_arch\n"
+            "get_arch('glm4-9b'), get_arch('dlrm-rm2')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
@@ -64,3 +72,23 @@ def test_engine_defaults_to_the_card():
     eng = T.QueryEngine(ix, device="cpu")
     np.testing.assert_array_equal(eng.ssd(np.array([0, 149])),
                                   T.dijkstra_reference(g, [0, 149]))
+
+
+def test_model_entry_points_default_to_the_card():
+    """``init_params`` of both models and ``build_cell`` run on the card
+    unless given ``device="cpu"``; without a card they raise."""
+    from repro_torch.configs import dlrm_rm2, glm4_9b
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import dlrm, transformer
+    calls = [lambda: transformer.init_params(glm4_9b.smoke_config()),
+             lambda: dlrm.init_params(dlrm_rm2.smoke_config()),
+             lambda: build_cell("dlrm-rm2", "serve_p99", smoke=True)]
+    if torch.cuda.is_available():
+        p = calls[0]()
+        assert p["embed"].device.type == "cuda"
+        return
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    p = transformer.init_params(glm4_9b.smoke_config(), device="cpu")
+    assert p["layers"][0]["wq"].device.type == "cpu"
