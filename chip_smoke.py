@@ -12,10 +12,16 @@ never JAX or the JAX package.  Phases, each of which asserts:
 3. kernels: each hand-written kernel against its plain PyTorch version
    on the card, at the full-size shapes of the serving paths, with the
    kernel's, the plain version's and (where one PyTorch call computes
-   the same function) the library call's times (CUDA events).  The HoD
-   kernels and ``bag_sum`` must be bit-equal (``torch.equal``: fp32
-   adds and mins, or sums in the plain version's order);
-   ``flash_decode`` within atol 1e-4 of its f32 output;
+   the same function) the library call's times (CUDA events), ptxas'
+   registers and spills of every kernel (none may spill in the two
+   redesigned split passes), and each redesigned kernel's time at other
+   split counts beside its planned one.  The HoD kernels and ``bag_sum``
+   must be bit-equal (``torch.equal``: fp32 adds and mins, or sums in
+   the plain version's order); ``flash_decode`` within atol 1e-4 of its
+   f32 output.  The split kernels' edge cases run at full width too
+   (M 1 and 33, K below a tile and below the split count, ragged K with
+   a short last chunk, a strided and offset ``a``, all-+inf rows and
+   columns; kv_len 1 and mid-tile, short last splits, f32 and bf16 q);
 4. the HoD slice at full size: the road-network stand-in (grid side 200,
    40,000 nodes), the serve CLI's build config with the closure limit
    raised so the 15,722-node core is closed on the card, and a
@@ -72,12 +78,17 @@ CORE = 15722                # core nodes of this build: the minplus shapes
 PLAN_F_ROWS = 22400         # plan_f's M_pad: the edge_relax level shape
 K_SLOTS = 16
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth,
-# fp32 outside the tensor cores (the HoD kernels, bag_sum), and dense
-# bf16 on the tensor cores (flash_decode's products over bf16 caches).
+# Published peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth and
+# dense bf16 on the tensor cores (flash_decode's products over bf16
+# caches).  The data sheet's 67 TFLOP/s of fp32 counts an FMA as two
+# operations; the SIMT kernels here (min-plus, edge relaxation, bag_sum)
+# do no FMA, and each add, multiply or min is one instruction on one of
+# the SM's 128 fp32 lanes.  Their rate is SMs x 128 x the SM's maximum
+# clock, read from the card (fp32_instr_per_s): 132 x 128 x 1.98 GHz =
+# 33.45e12 on an H100 SXM.
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12
+FP32_LANES_PER_SM = 128
 
 # LM serving: glm4-9b; decode_32k's batch cut from 128 to 32.
 LM_PROMPTS, LM_PROMPT_LEN, LM_SERVE_CACHE, LM_SERVE_STEPS = 4, 512, 1024, 32
@@ -124,13 +135,59 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
+def fp32_instr_per_s(torch) -> "tuple[float, float]":
+    """(fp32 instructions a second on the SIMT lanes, the SM clock in
+    MHz it assumes): SMs x 128 lanes x the card's maximum SM clock."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * FP32_LANES_PER_SM * mhz * 1e6, mhz
+
+
+# Set by main() from the card before any bound is computed.
+FP32_INSTR_PER_S = None
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float = None):
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
-    operations over the peak rate of their type."""
+    operations over the peak rate of their type (by default one fp32
+    instruction an operation, FP32_INSTR_PER_S)."""
+    ops_per_s = ops_per_s or FP32_INSTR_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
+
+
+def ptxas_report(log: str) -> dict:
+    """Per kernel entry function in an ``nvcc -Xptxas -v`` log: registers,
+    static shared memory and spill bytes (dynamic shared memory is set at
+    launch and reported by each wrapper's device_config)."""
+    import re
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {"registers": None, "smem": 0,
+                                "spill_stores": 0, "spill_loads": 0})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[fn]["spill_stores"] = int(m.group(1))
+            out[fn]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[fn]["smem"] = int(m.group(1)) if m else 0
+    return {fn: i for fn, i in out.items() if i["registers"] is not None}
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 1) -> float:
@@ -149,35 +206,79 @@ def time_ms(torch, fn, iters: int, warmup: int = 1) -> float:
 
 
 # ------------------------------------------------------------- phase 3
-def check_minplus(torch, card: str, m: int, k: int, n: int,
-                  lda_pad: int = 0, timed: bool = True) -> dict:
-    from repro_torch.kernels.tropical_matmul import minplus, minplus_ref
+def minplus_inputs(torch, m: int, k: int, n: int, lda_pad: int = 0,
+                   offset: int = 0):
+    """a [m, k] as a column slice (lda = k + offset + lda_pad, starting at
+    column ``offset``, like the label state's core block) and b [k, n],
+    with unreached labels and unreachable pairs at +inf, one all-+inf row
+    of a (when m > 1), a row that is +inf but for its last entry, and two
+    all-+inf columns of b."""
     gen = torch.Generator(device="cuda").manual_seed(m * 7919 + k)
-    wide = torch.rand((m, k + lda_pad), generator=gen, device="cuda") * 100
-    a = wide[:, :k]                      # rows contiguous, lda = k + pad
+    wide = torch.rand((m, k + offset + lda_pad), generator=gen,
+                      device="cuda") * 100
+    a = wide[:, offset:offset + k]
     b = torch.rand((k, n), generator=gen, device="cuda") * 1000
     a[torch.rand(a.shape, generator=gen, device="cuda") < 0.3] = \
         float("inf")                     # unreached labels
     b[torch.rand(b.shape, generator=gen, device="cuda") < 0.01] = \
         float("inf")                     # unreachable core pairs
-    got = minplus(a, b)
+    a[0] = float("inf")
+    a[0, k - 1] = 1.0
+    if m > 1:
+        a[m - 1] = float("inf")
+    b[:, n // 3] = float("inf")
+    b[:, n - 1] = float("inf")
+    return a, b
+
+
+def check_minplus(torch, card: str, m: int, k: int, n: int,
+                  lda_pad: int = 0, offset: int = 0, n_k: int = None,
+                  timed: bool = True) -> dict:
+    """The kernel bit-equal (torch.equal) to the plain version; ``n_k``
+    forces the number of K chunks.  Timed: the wrapper's whole call, the
+    plain version, and the bound."""
+    from repro_torch.kernels.tropical_matmul import minplus, minplus_ref
+    from repro_torch.kernels.tropical_matmul import ops as mp_ops
+    a, b = minplus_inputs(torch, m, k, n, lda_pad, offset)
+    got = minplus(a, b) if n_k is None else mp_ops._launch(a, b, n_k=n_k)
     want = minplus_ref(a, b)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         diff = (got != want).sum().item()
-        raise AssertionError(f"minplus [{m},{k}]x[{k},{n}]: {diff} "
+        raise AssertionError(f"minplus [{m},{k}]x[{k},{n}] n_k={n_k}: {diff} "
                              "entries differ from the plain version")
-    row = {"shape": f"[{m},{k}]x[{k},{n}]", "max_abs_err": 0.0}
+    sms, per_sm, smem = mp_ops.device_config(a.device)
+    plan = mp_ops.plan_split_k(m, n, k, sms, per_sm)
+    lda = a.stride(0)
+    va, vb = mp_ops.copy_widths(n, k, lda, a.data_ptr(), b.data_ptr())
+    row = {"shape": f"[{m},{k}]x[{k},{n}]", "max_abs_err": 0.0,
+           "plan": f"{plan.n_k} chunks of {plan.chunk}, {plan.blocks} "
+                   f"blocks in {plan.waves} waves of {sms} x {per_sm}"}
     if timed:
         row["ms"] = time_ms(torch, lambda: minplus(a, b), iters=20)
         row["plain_ms"] = time_ms(torch, lambda: minplus_ref(a, b), iters=3)
         row["bound_ms"], row["bound_by"] = bound(
             4.0 * (m * k + k * n + m * n), 2.0 * m * k * n)
-    say(f"minplus {row['shape']} lda={k + lda_pad}: equal to plain"
+    say(f"minplus {row['shape']} lda={lda} copies {va}/{vb} B"
+        + (f", forced {n_k} chunks" if n_k else f", {row['plan']}")
+        + ": equal to plain"
         + (f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-           f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}) on {card}"
-           if timed else ""))
+           f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+           f"{smem} B shared a block, on {card}" if timed else ""))
     return row
+
+
+def check_minplus_edges(torch, card: str) -> None:
+    """The split-K edge cases at the core search's full width (N = C)."""
+    for m, k, n, pad, off, n_k in (
+            (1, CORE, CORE, 0, 0, None),         # M = 1
+            (33, CORE, CORE, 0, 0, None),        # M = 33: two row tiles
+            (BATCH, 5, CORE, 0, 0, None),        # K below one tile
+            (BATCH, 5, CORE, 0, 0, 16),          # K below the split count
+            (BATCH, 1001, CORE, 0, 0, 7),        # ragged K, short chunk
+            (BATCH, CORE, CORE, 3, 24279, None),  # strided, offset a
+            (37, 1001, 777, 13, 0, None)):
+        check_minplus(torch, card, m, k, n, pad, off, n_k, timed=False)
 
 
 def synthetic_level(np, torch, s: int, n: int, m_pad: int, k: int,
@@ -434,28 +535,61 @@ def check_flash_decode(torch, card: str) -> dict:
             raise AssertionError(f"flash_decode kv_len={kv_len}: max error "
                                  f"{e} > 1e-4")
         err = max(err, e)
-    # an odd shape: S not a tile multiple, G=3, kv_len 1; f32 caches take
-    # the SIMT form, bf16 ones the tensor-core form
-    for dt in (torch.float32, bf16):
-        qo = torch.randn((3, 9, 64), generator=gen, device="cuda", dtype=dt)
-        ko = torch.randn((3, 1001, 3, 64), generator=gen, device="cuda",
+    # the ring's edges at full width: f32 q (three q terms), kv_len 1,
+    # a kv_len that ends mid-tile and mid-ring, and forced split counts
+    # whose last split is short (512 tiles in 3 or 5 splits)
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    edges = ((q.float(), kv_main, None), (q, 1, None),
+             (q.float(), 1, None), (q, 64 * 300 + 17, None),
+             (q, kv_main, 3), (q.float(), kv_main, 5))
+    for qe, kv_len, n_split in edges:
+        got = (flash_decode(qe, k, v, kv_len) if n_split is None
+               else fd_ops._launch(qe, k, v, kv_len, n_split=n_split))
+        e = (got - flash_decode_ref(qe, k, v, kv_len)).abs().max().item()
+        if not e <= 1e-4:
+            raise AssertionError(f"flash_decode {qe.dtype} q kv_len={kv_len} "
+                                 f"n_split={n_split}: max error {e} > 1e-4")
+        err = max(err, e)
+    say("flash_decode edge cases at full width (f32 and bf16 q; kv_len 1, "
+        "19217 mid-tile, 32761 in 3 and 5 splits): within atol 1e-4")
+    # odd shapes: S not a tile multiple, kv_len 1; f32 caches take the
+    # SIMT form, bf16 ones the tensor-core form, at dh 16 and 32 too with
+    # one and two KV heads a block (TMA boxes of 16, 32 and 64 columns)
+    for dt, (bo, ho, kho, dho) in (
+            (torch.float32, (3, 9, 3, 64)), (bf16, (3, 9, 3, 64)),
+            (bf16, (3, 9, 3, 16)), (bf16, (2, 8, 2, 16)),
+            (bf16, (3, 9, 3, 32)), (bf16, (2, 32, 2, 32))):
+        qo = torch.randn((bo, ho, dho), generator=gen, device="cuda",
                          dtype=dt)
-        vo = torch.randn((3, 1001, 3, 64), generator=gen, device="cuda",
+        ko = torch.randn((bo, 1001, kho, dho), generator=gen, device="cuda",
+                         dtype=dt)
+        vo = torch.randn((bo, 1001, kho, dho), generator=gen, device="cuda",
                          dtype=dt)
         for kv_len in (1, 1000):
             e = (flash_decode(qo, ko, vo, kv_len)
                  - flash_decode_ref(qo, ko, vo, kv_len)).abs().max().item()
             if not e <= 1e-4:
-                raise AssertionError(f"flash_decode odd shape {dt} kv_len="
-                                     f"{kv_len}: max error {e} > 1e-4")
-    say("flash_decode odd shape q [3,9,64] caches [3,1001,3,64] f32 and "
-        "bf16, kv_len 1 and 1000: within atol 1e-4")
+                raise AssertionError(
+                    f"flash_decode odd shape q {list(qo.shape)} caches "
+                    f"{list(ko.shape)} {dt} kv_len={kv_len}: max error {e} "
+                    f"> 1e-4")
+    say("flash_decode odd shapes (S 1001; f32 caches at dh 64, bf16 at dh "
+        "16, 32, 64 with Kh 2 and 3), kv_len 1 and 1000: within atol 1e-4")
 
     row = {"shape": f"q [{FD_B},{FD_H},{FD_DH}] bf16, caches "
                     f"[{FD_B},{FD_S},{FD_KH},{FD_DH}] bf16, kv_len {kv_main}",
            "max_abs_err": err}
+    sms, per_sm, smem, stages, _, heads = fd_ops.device_config(q, k)
+    n_split, split_len = fd_ops.plan_splits(FD_B, FD_KH // heads, kv_main,
+                                            sms, per_sm)
+    row["plan"] = (f"{n_split} splits of {split_len}, {heads} KV heads a "
+                   f"block, {FD_B * FD_KH // heads * n_split} blocks on "
+                   f"{sms} x {per_sm}, {stages} stages, {smem} B shared a "
+                   f"block")
     row["ms"] = time_ms(torch, lambda: flash_decode(q, k, v, kv_main),
                         iters=20)
+    profile_device(torch, lambda: flash_decode(q, k, v, kv_main), 10,
+                   "flash_decode calls at decode_32k's layer", card)
     row["plain_ms"] = time_ms(torch, lambda: flash_decode_ref(
         q, k, v, kv_main), iters=3)
     qs = q.view(FD_B, FD_H, 1, FD_DH)
@@ -475,7 +609,8 @@ def check_flash_decode(torch, card: str) -> dict:
     say(f"flash_decode: kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, SDPA (library, enable_gqa) "
         f"{row['library_ms']:.4f} ms (its max |SDPA - plain| {lib_err:.3e}), "
-        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}) on {card}")
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+        f"{row['plan']}, on {card}")
     return row
 
 
@@ -891,22 +1026,40 @@ def main() -> int:
     say(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
 
+    global FP32_INSTR_PER_S
+    FP32_INSTR_PER_S, mhz = fp32_instr_per_s(torch)
+    say(f"fp32 SIMT instruction rate {FP32_INSTR_PER_S:.4e}/s "
+        f"({torch.cuda.get_device_properties(0).multi_processor_count} SMs x "
+        f"{FP32_LANES_PER_SM} lanes x {mhz:.0f} MHz, clocks.max.sm)")
+
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     _build.build()
     say(f"built kernels {list(_build.KERNELS)} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for name in _build.KERNELS:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"  {name}: {line.strip()}")
+    ptxas = {name: ptxas_report(_build.build_log(name))
+             for name in _build.KERNELS}
+    for name, funcs in ptxas.items():
+        for fn, info in funcs.items():
+            say(f"  ptxas {name}: {fn}: {info['registers']} registers, "
+                f"{info['smem']} B static smem, spill stores "
+                f"{info['spill_stores']} B, loads {info['spill_loads']} B")
+    # The redesigned split passes must not spill (checked after the run,
+    # so that a spilling build still reports its times).
+    spills = {}
+    for name, key in (("tropical_matmul", "minplus_kernel"),
+                      ("flash_decode", "decode_split_tc_kernel")):
+        hit = {fn: i for fn, i in ptxas[name].items() if key in fn}
+        if not hit or any(i["spill_stores"] or i["spill_loads"]
+                          for i in hit.values()):
+            spills[key] = hit
 
     rows = {
         "tropical_matmul": check_minplus(torch, card, BATCH, CORE, CORE),
         "edge_relax": check_relax(np, torch, card, BATCH, 2 * 20000,
                                   PLAN_F_ROWS, K_SLOTS),
     }
-    check_minplus(torch, card, 37, 1001, 777, lda_pad=13, timed=False)
+    check_minplus_edges(torch, card)
     check_relax(np, torch, card, 45, 998, 301, 5, timed=False)
     rows["flash_decode"] = check_flash_decode(torch, card)
     free(torch)
@@ -927,6 +1080,8 @@ def main() -> int:
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
         raise AssertionError("the smoke imported jax or the JAX package")
+    if spills:
+        raise AssertionError(f"ptxas reports spills or no entry: {spills}")
 
     kernels = []
     for name in REPLACES:
@@ -940,7 +1095,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-            "shape": r["shape"]})
+            "shape": r["shape"], "plan": r.get("plan")})
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

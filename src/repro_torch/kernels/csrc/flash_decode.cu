@@ -6,55 +6,89 @@
 // path:
 //
 //   out[b, kh*G+g, :] = sum_{s < n_valid} p[s] v[b, s, kh, :] / sum_s p[s]
-//   p[s] = exp(q[b, kh*G+g, :] . k[b, s, kh, :] - max),  n_valid = kv_len
+//   p[s] = exp(q'[b, kh*G+g, :] . k[b, s, kh, :] - max),  n_valid = kv_len
 //
-// q arrives pre-scaled by dh^-0.5 and rounded to the model's dtype by the
-// wrapper, then widened to f32 (exact).  Caches are [B, S, Kh, dh], bf16 or
-// f32, contiguous.  The output is f32 [B, H, dh], divided by max(l, 1e-30).
+// q' = q * q_scale rounded to q's dtype (JAX's rounding; q_scale is
+// dh^-0.5 already rounded to that dtype), computed as the kernel loads q
+// and widened to f32 (exact).  Caches are [B, S, Kh, dh], bf16 or f32,
+// contiguous.  The output is f32 [B, H, dh], divided by max(l, 1e-30).
 //
 // Deliberate departure from the Pallas body: it casts p to the cache dtype
 // before the PV product (kernel.py:50).  attention_decode (layers.py:333)
 // and flash_decode_ref keep p in f32; so does this kernel.
 //
+// What bounds it: bytes.  A call reads the K and V rows below n_valid once
+// (2*B*Kh*n_valid*dh elements: 1.07 GB, 0.32 ms at 3.35 TB/s for glm4's
+// decode_32k layer).  The products are far below that on the tensor cores,
+// so the design is about keeping enough bytes in flight, in long runs:
+// at 3.35 TB/s and ~1.5 us of loaded memory latency that is ~5 MB on the
+// card, ~38 KB an SM.
+//
 // Design.  The TPU kernel walked the KV blocks of one (b, kh) in order on
 // one core, carrying (max, sum, acc) across grid steps.  Here the G query
-// heads of one KV head are folded into one block's rows, so each K/V row is
-// read once per (b, kh), and S is split across blocks: at decode_32k there
-// are only B*Kh = 64 (b, kh) pairs for 132 SMs.  Pass 1 (grid n_split x Kh
-// x B) walks its split in tiles of 64 positions and writes its
-// unnormalised acc with its (max, sum); pass 2 (one block per (b, kh))
-// rescales the splits to the global max and divides.  Positions >= n_valid
-// are never read: a split covers whole tiles of [0, n_valid), and the last
-// tile's tail is scored -inf with zero V.  All softmax arithmetic is f32
-// with expf (not __expf).  Pass 1 comes in two forms:
+// heads of one KV head are folded into the rows of its warps' products,
+// so each K/V row is read once per (b, kh), and S is split across blocks:
+// at decode_32k there are only B*Kh = 64 (b, kh) pairs for 132 SMs.  A
+// block takes HB KV heads of one batch row (HB = 2 when Kh is even, as
+// glm4's 2): a position's K (and V) record of both heads is 512
+// contiguous bytes, so a 64-position tile is one 32 KB run, not two
+// halves fetched by two blocks at two times.  The wrapper
+// (ops.py::plan_splits) cuts [0, n_valid) into splits of whole 64-position
+// tiles, as many as keep every block resident in one wave, all of one
+// length: at decode_32k 4 splits of 128 tiles, 128 blocks, one an SM, so
+// all of them stream from start to end together (more, shorter blocks
+// measured slower).  Pass 1 (grid n_split x Kh/HB x B) writes each
+// (split, kh)'s unnormalised acc with its (max, sum); pass 2 (a block per
+// (b, kh, g)) rescales the splits to the global max and divides.
+// Positions >= n_valid are never read: a split covers whole tiles of
+// [0, n_valid), and the last tile's tail is zero-filled, scored -inf and
+// meets p = 0.  All softmax arithmetic is f32 with expf (not __expf).
+// Pass 1 comes in two forms:
 //
-// * bf16 caches, G <= 16, dh in {16, 32, 64, 128} (the serving path): tensor
-//   cores.  Four warps take 16 positions of a tile each; cp.async double-
-//   buffers the K and V tiles into shared memory (rows padded by 16 bytes,
-//   so ldmatrix is conflict-free) while the previous tile computes.  QK^T is
-//   mma.m16n8k16 with the G heads as the 16 rows (padded with zero rows).
-//   p stays f32 because it is fed to the PV product as three bf16 terms
+// * bf16 caches, G <= 16, dh in {16, 32, 64, 128} (the serving path at
+//   dh 128): tensor cores, warp-specialised.  One producer thread fills a ring of stages
+//   in shared memory, each one 64-position tile of K and of V for the
+//   block's heads, with TMA: a 3-d tensor map per cache (Kh*dh columns,
+//   n_valid positions, B rows; encoded on the host for each call, so
+//   positions >= n_valid lie outside it and are zero-filled, never read)
+//   cut in boxes of 64 positions x 64 columns (HB*dh columns when the
+//   block's heads span fewer: 16 or 32 at dh 16 and 32), swizzled over
+//   the box's row (128, 64 or 32 bytes), so ldmatrix reads stay
+//   conflict-free without padding.  A tile is HB*dh/64 box requests (4 at
+//   decode_32k; one below 64 columns), each stage's K and V counted in bytes
+//   on their own full mbarrier.  Four consumer warps a head wait on those
+//   barriers and take 16 positions each; K's half is released on its empty
+//   mbarrier right after Q K^T, V's as soon as the V fragments are read,
+//   before the PV products; no block barrier in the loop.  A bf16 q's
+//   fragments stay in registers.  The ring has as many stages (2-4) as fit
+//   in the block's share of shared memory beside q: at dh 128, HB 2 and a
+//   bf16 q, 3 stages of 64 KB, one block an SM.  What was tried first:
+//   one bulk copy a 256-byte row (an SM's TMA unit served such small
+//   copies at about one per 35 cycles; 0.59 ms), then 16-byte cp.async
+//   copies from a producer warp into padded rows (0.377-0.395 ms, 5-7%
+//   slower than SDPA: a block's rate fell as blocks were added, as if an
+//   SM's outstanding 16-byte copies were capped whatever the ring's size;
+//   TMA copies do not count against that).  QK^T is mma.m16n8k16 with
+//   the G heads as the 16 rows (padded with zero rows).  p stays f32
+//   because it is fed to the PV product as three bf16 terms
 //   p = p1 + p2 + p3, which hold its 24 significant bits exactly: every
 //   product with a bf16 V is exact in the f32 accumulator, so PV equals an
 //   f32 PV up to the order of the sums.  An f32 q is split the same way
 //   (one term when the caller's q was bf16).  Each warp keeps its own
-//   running max, sum and acc in registers; the four merge in shared memory.
+//   running max, sum and acc in registers; a head's four merge in shared
+//   memory at the end.
 // * otherwise (f32 caches, G > 16, other dh): SIMT f32.  The tile of K and
 //   V is staged in shared memory as f32, the G x 64 scores are dot products
 //   from shared memory (four heads a thread, K rows padded to dh+4 floats so
 //   the float4 reads are conflict-free), one warp per head updates the
 //   running max and sum, and the PV product accumulates into float4
-//   registers (G*dh/256 of them a thread).
-//
-// What bounds it: bytes.  A step reads the K and V rows below n_valid once
-// (2*B*Kh*n_valid*dh elements).  The tensor-core form issues, per 16
-// positions and 8 columns of dh, one QK^T mma (three for an f32 q) and three
-// PV mma, far below the byte time; the SIMT form needs ~80% of the card's
-// f32 FMA rate to reach it at G=16, dh=128 and does not.
+//   registers (G*dh/256 of them a thread).  It needs ~80% of the card's
+//   f32 FMA rate to keep up with memory at G=16, dh=128 and does not.
 //
 // The kernels allocate nothing (the wrapper passes the split scratch) and
 // launch on the caller's stream; the C entry point returns
 // cudaGetLastError() after both launches.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -65,6 +99,19 @@ constexpr int kTile = 64;    // positions per staged tile (two per lane)
 constexpr int kMaxAcc = 4;   // float4 accumulators a thread: G*dh <= 4096
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+// q[i] * scale rounded to q's dtype (JAX's rounding of the scaled q),
+// then widened to f32 (exact).  scale is dh^-0.5 already rounded to q's
+// dtype, so for bf16 q the product of two bf16 values is exact in f32 and
+// rounds once.
+__device__ __forceinline__ float load_q(const void* q, long long i, int q_bf16,
+                                        float scale) {
+  if (q_bf16) {
+    const float x = __bfloat162float(static_cast<const __nv_bfloat16*>(q)[i]);
+    return __bfloat162float(__float2bfloat16_rn(__fmul_rn(x, scale)));
+  }
+  return __fmul_rn(static_cast<const float*>(q)[i], scale);
+}
 
 // 16 bytes of T at p, widened to f32.
 __device__ __forceinline__ void load16(const float* p, float* out) {
@@ -84,7 +131,8 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-decode_split_kernel(const float* __restrict__ q, const T* __restrict__ kc,
+decode_split_kernel(const void* __restrict__ q, int q_bf16, float q_scale,
+                    const T* __restrict__ kc,
                     const T* __restrict__ vc, float* __restrict__ part_acc,
                     float* __restrict__ part_m, float* __restrict__ part_l,
                     int seq, int n_kv, int n_group, int dh, int n_valid,
@@ -102,8 +150,8 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ kc,
   float* sc = sl + n_group;               // [G] this tile's correction
 
   const long long bk = static_cast<long long>(b) * n_kv + kh;
-  const float* qb = q + bk * n_group * dh;
-  for (int i = tid; i < n_group * dh; i += kThreads) sq[i] = qb[i];
+  for (int i = tid; i < n_group * dh; i += kThreads)
+    sq[i] = load_q(q, bk * n_group * dh + i, q_bf16, q_scale);
   for (int g = tid; g < n_group; g += kThreads) {
     sm[g] = neg_inf();
     sl[g] = 0.f;
@@ -250,24 +298,81 @@ decode_split_kernel(const float* __restrict__ q, const T* __restrict__ kc,
 // ---------------------------------------------------------------------------
 // Pass 1 on tensor cores (bf16 caches, G <= 16, dh in {16, 32, 64, 128}).
 
-constexpr int kTcWarps = 4;                 // 16 positions of a tile each
-constexpr int kTcThreads = kTcWarps * 32;
+// A block takes HB KV heads of one batch row (HB = 2 when Kh is even):
+// 4 consumer warps a head, 16 positions of a tile each, and one producer
+// warp.  With HB = 2 a tile's K (or V) rows of both heads are one run of
+// 64 x 512 contiguous bytes.
+template <int HB>
+__host__ __device__ constexpr int tc_threads() { return (4 * HB + 1) * 32; }
+constexpr int kMaxStages = 4;
+// Shared memory a block may take: half an SM's 228 KB less the 1 KB the
+// runtime reserves for each block when one head a block lets two blocks
+// share an SM, a block's whole 227 KB when two heads fill it alone.
+template <int HB>
+constexpr int tc_budget() { return HB == 1 ? 232448 / 2 - 1024 : 232448; }
+constexpr int kBarBytes = 4 * kMaxStages * 8;
+// A TMA box: kTile positions x BC columns, BC = 64 (128 bytes) or, when
+// the block's heads span fewer, all HB*dh of them (64 or 32 bytes); laid
+// out in shared memory with the swizzle of its row's width, which wants
+// 1024-, 512- or 256-byte alignment.
+template <int DH, int HB>
+__host__ __device__ constexpr int box_cols() { return HB * DH < 64 ? HB * DH : 64; }
+constexpr int kAlign = 1024;
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
-// 16 bytes global -> shared, zero-filled when !valid (nothing is read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
-               "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::
+               "r"(smem_u32(bar)), "r"(count) : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("{\n .reg .b64 state;\n"
+               " mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::
+               "r"(smem_u32(bar)) : "memory");
 }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+// Spin until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(unsigned long long* bar,
+                                                      unsigned bytes) {
+  asm volatile(
+      "{\n .reg .b64 state;\n"
+      " mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n" ::
+      "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// One TMA box of a 3-d tensor map (column, position, batch row) into
+// shared memory; its bytes complete as transactions on `bar`.  Boxes
+// reaching past the map's extent are zero-filled, not read.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2,
+                                         unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::
+      "r"(smem_u32(dst)), "l"(reinterpret_cast<unsigned long long>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar)) : "memory");
+}
+// Byte offset of the 16-byte chunk holding column c (a multiple of 8) of
+// row r in a staged tile: boxes of BC columns side by side, and within a
+// box TMA's swizzle of its row width W (128, 64 or 32 bytes): bits 7 and
+// up of the unswizzled offset, as many as pick a chunk of W, flip the
+// chunk (for W = 128, chunk j of row r lands at j ^ (r % 8)), so the 8
+// rows an ldmatrix reads fall in 8 different banks.
+template <int BC>
+__device__ __forceinline__ int swz(int r, int c) {
+  constexpr int W = BC * 2;
+  const int off = r * W + ((c % BC) >> 3) * 16;
+  return (c / BC) * (W * kTile) + (off ^ (((off >> 7) & (W / 16 - 1)) << 4));
 }
 __device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -304,201 +409,276 @@ __device__ __forceinline__ unsigned pack2(__nv_bfloat16 lo,
   return *reinterpret_cast<unsigned*>(&v);
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kTcThreads, 2)
-decode_split_tc_kernel(const float* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ kc,
-                       const __nv_bfloat16* __restrict__ vc,
+// Shared memory of the tensor-core pass: the barriers, q's terms for each
+// of the HB heads (rows padded by 16 bytes), and, 1024-byte aligned, a
+// ring of `stages` stages of one K and one V tile, each HB*DH/BC TMA
+// boxes of kTile rows of BC columns.
+template <int DH, int HB>
+constexpr int tc_q_bytes(int q_terms) {
+  return HB * q_terms * 16 * (DH + 8) * 2;
+}
+template <int DH, int HB>
+constexpr int tc_stage_bytes() { return 2 * HB * DH * 2 * kTile; }
+template <int DH, int HB>
+int tc_stages(int q_terms) {
+  const int fit = (tc_budget<HB>() - kBarBytes - tc_q_bytes<DH, HB>(q_terms) -
+                   kAlign) / tc_stage_bytes<DH, HB>();
+  return fit < 2 ? 2 : (fit > kMaxStages ? kMaxStages : fit);
+}
+template <int DH, int HB>
+size_t tc_smem(int q_terms) {
+  return kBarBytes + tc_q_bytes<DH, HB>(q_terms) + kAlign +
+         static_cast<size_t>(tc_stages<DH, HB>(q_terms)) *
+             tc_stage_bytes<DH, HB>();
+}
+
+template <int DH, int HB>
+__global__ void __launch_bounds__(tc_threads<HB>(), HB == 1 ? 2 : 1)
+decode_split_tc_kernel(const void* __restrict__ q, int q_bf16, float q_scale,
+                       const __grid_constant__ CUtensorMap tmap_k,
+                       const __grid_constant__ CUtensorMap tmap_v,
                        float* __restrict__ part_acc,
                        float* __restrict__ part_m, float* __restrict__ part_l,
-                       int seq, int n_kv, int n_group, int n_valid,
-                       int n_split, int split_len, int q_terms) {
-  constexpr int RS = DH + 8;          // a staged row: dh bf16 + 16 bytes
-  constexpr int CH = DH / 8;          // 16-byte chunks a row
+                       int n_kv, int n_group, int n_valid, int n_split,
+                       int split_len, int stages) {
+  constexpr int C = 4 * HB;           // consumer warps
+  constexpr int THREADS = tc_threads<HB>();
+  constexpr int RQ = DH + 8;          // a staged q row: dh bf16 + 16 bytes
   constexpr int NT = DH / 8;          // 8-column tiles of the output
+  constexpr int BC = box_cols<DH, HB>();
+  constexpr int NB = HB * DH / BC;    // TMA boxes of a K or V tile
+  constexpr int BOX = BC * 2 * kTile;  // bytes a box
+  constexpr int STAGE = 2 * NB * BOX;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [3][16][RS]
-  __nv_bfloat16* sk = sq + 3 * 16 * RS;                  // [2][kTile][RS]
-  __nv_bfloat16* sv = sk + 2 * kTile * RS;               // [2][kTile][RS]
+  // Per stage, K and V each have a full barrier (their boxes landed) and
+  // an empty one (the consumers are done reading them): K is released
+  // after Q K^T, before the softmax, so it refills sooner.
+  auto* full_k = reinterpret_cast<unsigned long long*>(smem_raw);
+  auto* full_v = full_k + kMaxStages;
+  auto* empty_k = full_v + kMaxStages;
+  auto* empty_v = empty_k + kMaxStages;
+  const int q_terms = q_bf16 ? 1 : 3;
+  // sq: [HB][q_terms][16][RQ]; ring: [stages][K, V][NB boxes], aligned
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw + kBarBytes);
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<unsigned long long>(sq + HB * q_terms * 16 * RQ) +
+       kAlign - 1) & ~static_cast<unsigned long long>(kAlign - 1));
 
-  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, kh0 = blockIdx.y * HB, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gr = lane >> 2, tg = lane & 3;  // fragment row, column pair
 
-  const long long bk = static_cast<long long>(b) * n_kv + kh;
-  const float* qb = q + bk * n_group * DH;
-  for (int i = tid; i < 16 * DH; i += kTcThreads) {
-    const int g = i / DH, d = i - g * DH;
-    __nv_bfloat16 t[3];
-    split3(g < n_group ? qb[g * DH + d] : 0.f, t);
-#pragma unroll
-    for (int j = 0; j < 3; ++j) sq[(j * 16 + g) * RS + d] = t[j];
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], C);
+      mbar_init(&empty_v[s], C);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  const long long bk0 = static_cast<long long>(b) * n_kv + kh0;
+  for (int i = tid; i < HB * 16 * DH; i += THREADS) {
+    const int h = i / (16 * DH), g = i / DH % 16, d = i % DH;
+    __nv_bfloat16 t[3];
+    split3(g < n_group ? load_q(q, ((bk0 + h) * n_group + g) * DH + d,
+                                q_bf16, q_scale)
+                       : 0.f, t);
+    for (int j = 0; j < q_terms; ++j)
+      sq[((h * q_terms + j) * 16 + g) * RQ + d] = t[j];
+  }
+  __syncthreads();                    // barriers and q visible to all warps
 
-  const long long row = static_cast<long long>(n_kv) * DH;
-  const __nv_bfloat16* kb = kc + static_cast<long long>(b) * seq * row + kh * DH;
-  const __nv_bfloat16* vb = vc + static_cast<long long>(b) * seq * row + kh * DH;
   const int lo = split * split_len;
   const int hi = min(lo + split_len, n_valid);
   const int n_tiles = hi > lo ? (hi - lo + kTile - 1) / kTile : 0;
-
-  auto load_tile = [&](int it) {
-    const int t0 = lo + it * kTile;
-    __nv_bfloat16* dk = sk + (it & 1) * kTile * RS;
-    __nv_bfloat16* dv = sv + (it & 1) * kTile * RS;
-    for (int i = tid; i < kTile * CH; i += kTcThreads) {
-      const int t = i / CH, c = (i - t * CH) * 8;
-      const bool ok = t0 + t < hi;
-      const long long off = ok ? (t0 + t) * row + c : 0;
-      cp_async16(dk + t * RS + c, kb + off, ok);
-      cp_async16(dv + t * RS + c, vb + off, ok);
+  if (warp == C && lane == 0) {
+    // Producer: one thread keeps up to `stages` tiles in flight, each K
+    // and V tile NB TMA boxes (a box: 64 positions x BC columns of the
+    // block's heads), counted in bytes on its full barrier.  The maps end
+    // at n_valid, so positions past it are zero-filled, never read: their
+    // scores are set to -inf and their zero V meets p = 0.
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % stages, use = it / stages;
+      const int t0 = lo + it * kTile;
+      unsigned char* dk = ring + s * STAGE;
+      if (use > 0) mbar_wait(&empty_k[s], (use - 1) & 1);
+      mbar_arrive_expect_tx(&full_k[s], NB * BOX);
+      for (int bx = 0; bx < NB; ++bx)
+        tma_load(dk + bx * BOX, &tmap_k, kh0 * DH + bx * BC, t0, b,
+                 &full_k[s]);
+      if (use > 0) mbar_wait(&empty_v[s], (use - 1) & 1);
+      mbar_arrive_expect_tx(&full_v[s], NB * BOX);
+      for (int bx = 0; bx < NB; ++bx)
+        tma_load(dk + (NB + bx) * BOX, &tmap_v, kh0 * DH + bx * BC, t0, b,
+                 &full_v[s]);
     }
-    cp_async_commit();
-  };
+  }
 
   float acc[NT][4];
 #pragma unroll
   for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   float m_run[2] = {neg_inf(), neg_inf()}, l_run[2] = {0.f, 0.f};
 
-  if (n_tiles > 0) load_tile(0);
-  for (int it = 0; it < n_tiles; ++it) {
-    if (it + 1 < n_tiles) {
-      load_tile(it + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();                  // tile it (and q) visible to all warps
-    const __nv_bfloat16* tk = sk + ((it & 1) * kTile + warp * 16) * RS;
-    const __nv_bfloat16* tv = sv + ((it & 1) * kTile + warp * 16) * RS;
+  if (warp < C) {
+    const int h = warp / 4, pw = warp % 4;   // head in the block, positions
+    const __nv_bfloat16* sqh = sq + h * q_terms * 16 * RQ;
+    auto q_frag = [&](unsigned* qf, int j, int ks) {
+      ldsm_x4(qf, sqh + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RQ +
+                      ks * 16 + (lane >> 4) * 8);
+    };
+    // A bf16 q (one term, the serving path) stays in registers.
+    unsigned q1[DH / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks) q_frag(q1[ks], 0, ks);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % stages;
+      const unsigned parity = (it / stages) & 1;
+      mbar_wait(&full_k[s], parity);
+      const unsigned char* tk = ring + s * STAGE;
+      const unsigned char* tv = tk + NB * BOX;
 
-    // S[16 heads x 16 positions] = Q K^T, as two 8-position n-tiles.
-    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      // S[16 heads x 16 positions] = Q K^T, as two 8-position n-tiles.
+      float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-    for (int ks = 0; ks < DH / 16; ++ks) {
-      unsigned kf[4];
-      ldsm_x4(kf, tk + ((lane & 7) + (lane >> 4) * 8) * RS + ks * 16 +
-                      ((lane >> 3) & 1) * 8);
-      for (int j = 0; j < q_terms; ++j) {
-        unsigned qf[4];
-        ldsm_x4(qf, sq + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
-                        ks * 16 + (lane >> 4) * 8);
-        mma_bf16(s[0], qf, kf[0], kf[1]);
-        mma_bf16(s[1], qf, kf[2], kf[3]);
+      for (int ks = 0; ks < DH / 16; ++ks) {
+        unsigned kf[4];
+        ldsm_x4(kf, tk + swz<BC>(pw * 16 + (lane & 7) + (lane >> 4) * 8,
+                                 h * DH + ks * 16 + ((lane >> 3) & 1) * 8));
+        mma_bf16(sc[0], q1[ks], kf[0], kf[1]);
+        mma_bf16(sc[1], q1[ks], kf[2], kf[3]);
+        for (int j = 1; j < q_terms; ++j) {
+          unsigned qf[4];
+          q_frag(qf, j, ks);
+          mma_bf16(sc[0], qf, kf[0], kf[1]);
+          mma_bf16(sc[1], qf, kf[2], kf[3]);
+        }
       }
-    }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty_k[s]);
+      // Online softmax on rows gr (sc[.][0..1]) and gr + 8 (sc[.][2..3]);
+      // the four lanes of a quad hold one row's 16 positions.
+      const int pos0 = lo + it * kTile + pw * 16 + tg * 2;
+      float mt[2] = {neg_inf(), neg_inf()};
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (pos0 + n * 8 + e >= hi) sc[n][e] = sc[n][2 + e] = neg_inf();
+          mt[0] = fmaxf(mt[0], sc[n][e]);
+          mt[1] = fmaxf(mt[1], sc[n][2 + e]);
+        }
+      }
+      float m_safe[2], corr[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+        const float m_new = fmaxf(m_run[r], mt[r]);
+        m_safe[r] = m_new == neg_inf() ? 0.f : m_new;
+        corr[r] = m_run[r] == neg_inf() ? 0.f : expf(m_run[r] - m_safe[r]);
+        m_run[r] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          sc[n][e] = expf(sc[n][e] - m_safe[0]);
+          sc[n][2 + e] = expf(sc[n][2 + e] - m_safe[1]);
+          ps[0] += sc[n][e];
+          ps[1] += sc[n][2 + e];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 1);
+        ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 2);
+        l_run[r] = l_run[r] * corr[r] + ps[r];
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        acc[n][0] *= corr[0];
+        acc[n][1] *= corr[0];
+        acc[n][2] *= corr[1];
+        acc[n][3] *= corr[1];
+      }
 
-    // Online softmax on rows gr (s[.][0..1]) and gr + 8 (s[.][2..3]); the
-    // four lanes of a quad hold one row's 16 positions.
-    const int pos0 = lo + it * kTile + warp * 16 + tg * 2;
-    float mt[2] = {neg_inf(), neg_inf()};
+      // P as the A operand (k = position): a0 = sc[0][0..1], a1 = sc[0][2..3],
+      // a2 = sc[1][0..1], a3 = sc[1][2..3], each as three exact bf16 terms.
+      unsigned pf[3][4];
 #pragma unroll
-    for (int n = 0; n < 2; ++n) {
+      for (int f = 0; f < 4; ++f) {
+        const float* src = &sc[f >> 1][(f & 1) * 2];
+        __nv_bfloat16 lo3[3], hi3[3];
+        split3(src[0], lo3);
+        split3(src[1], hi3);
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (pos0 + n * 8 + e >= hi) s[n][e] = s[n][2 + e] = neg_inf();
-        mt[0] = fmaxf(mt[0], s[n][e]);
-        mt[1] = fmaxf(mt[1], s[n][2 + e]);
+        for (int j = 0; j < 3; ++j) pf[j][f] = pack2(lo3[j], hi3[j]);
+      }
+      // All of this warp's V fragments first, so the stage's V is released
+      // before the PV products run.
+      mbar_wait(&full_v[s], parity);
+      unsigned vf[DH / 16][4];
+#pragma unroll
+      for (int dp = 0; dp < DH / 16; ++dp)
+        ldsm_x4_t(vf[dp],
+                  tv + swz<BC>(pw * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                               h * DH + dp * 16 + (lane >> 4) * 8));
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty_v[s]);
+#pragma unroll
+      for (int dp = 0; dp < DH / 16; ++dp) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          mma_bf16(acc[2 * dp], pf[j], vf[dp][0], vf[dp][1]);
+          mma_bf16(acc[2 * dp + 1], pf[j], vf[dp][2], vf[dp][3]);
+        }
       }
     }
-    float m_safe[2], corr[2], ps[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
-      const float m_new = fmaxf(m_run[r], mt[r]);
-      m_safe[r] = m_new == neg_inf() ? 0.f : m_new;
-      corr[r] = m_run[r] == neg_inf() ? 0.f : expf(m_run[r] - m_safe[r]);
-      m_run[r] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[n][e] = expf(s[n][e] - m_safe[0]);
-        s[n][2 + e] = expf(s[n][2 + e] - m_safe[1]);
-        ps[0] += s[n][e];
-        ps[1] += s[n][2 + e];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 1);
-      ps[r] += __shfl_xor_sync(0xffffffffu, ps[r], 2);
-      l_run[r] = l_run[r] * corr[r] + ps[r];
+  }
+
+  // Merge each head's four consumer warps' (max, sum, acc) in shared
+  // memory (the ring is idle now: every copy landed before its stage was
+  // consumed), then write this split's partials.
+  float* rm = reinterpret_cast<float*>(ring);  // [warps][16] max
+  float* rl = rm + C * 16;                     // [warps][16] sum
+  float* ra = rl + C * 16;                     // [warps][16][DH] acc
+  __syncthreads();
+  if (warp < C) {
+    if (tg == 0) {
+      rm[warp * 16 + gr] = m_run[0];
+      rm[warp * 16 + gr + 8] = m_run[1];
+      rl[warp * 16 + gr] = l_run[0];
+      rl[warp * 16 + gr + 8] = l_run[1];
     }
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
+      const int d = n * 8 + tg * 2;
+      ra[(warp * 16 + gr) * DH + d] = acc[n][0];
+      ra[(warp * 16 + gr) * DH + d + 1] = acc[n][1];
+      ra[(warp * 16 + gr + 8) * DH + d] = acc[n][2];
+      ra[(warp * 16 + gr + 8) * DH + d + 1] = acc[n][3];
     }
-
-    // P as the A operand (k = position): a0 = s[0][0..1], a1 = s[0][2..3],
-    // a2 = s[1][0..1], a3 = s[1][2..3], each as three exact bf16 terms.
-    unsigned pf[3][4];
-#pragma unroll
-    for (int f = 0; f < 4; ++f) {
-      const float* src = &s[f >> 1][(f & 1) * 2];
-      __nv_bfloat16 lo3[3], hi3[3];
-      split3(src[0], lo3);
-      split3(src[1], hi3);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) pf[j][f] = pack2(lo3[j], hi3[j]);
-    }
-#pragma unroll
-    for (int dp = 0; dp < DH / 16; ++dp) {
-      unsigned vf[4];
-      ldsm_x4_t(vf, tv + ((lane & 7) + ((lane >> 3) & 1) * 8) * RS + dp * 16 +
-                        (lane >> 4) * 8);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        mma_bf16(acc[2 * dp], pf[j], vf[0], vf[1]);
-        mma_bf16(acc[2 * dp + 1], pf[j], vf[2], vf[3]);
-      }
-    }
-    __syncthreads();                  // this stage is free for tile it + 2
-  }
-
-  // Merge the four warps' (max, sum, acc) in shared memory (the staging
-  // buffers are idle now), then write this split's partials.
-  float* rm = reinterpret_cast<float*>(sk);   // [warps][16] max
-  float* rl = rm + kTcWarps * 16;             // [warps][16] sum
-  float* ra = rl + kTcWarps * 16;             // [warps][16][DH] acc
-  __syncthreads();
-  if (tg == 0) {
-    rm[warp * 16 + gr] = m_run[0];
-    rm[warp * 16 + gr + 8] = m_run[1];
-    rl[warp * 16 + gr] = l_run[0];
-    rl[warp * 16 + gr + 8] = l_run[1];
-  }
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int d = n * 8 + tg * 2;
-    ra[(warp * 16 + gr) * DH + d] = acc[n][0];
-    ra[(warp * 16 + gr) * DH + d + 1] = acc[n][1];
-    ra[(warp * 16 + gr + 8) * DH + d] = acc[n][2];
-    ra[(warp * 16 + gr + 8) * DH + d + 1] = acc[n][3];
   }
   __syncthreads();
-  const long long part = bk * n_split + split;
-  for (int i = tid; i < n_group * DH; i += kTcThreads) {
-    const int g = i / DH, d = i - g * DH;
+  for (int i = tid; i < HB * n_group * DH; i += THREADS) {
+    const int h = i / (n_group * DH), e = i % (n_group * DH);
+    const int g = e / DH, d = e % DH;
+    const int w0 = h * 4;
     float m = neg_inf();
 #pragma unroll
-    for (int w = 0; w < kTcWarps; ++w) m = fmaxf(m, rm[w * 16 + g]);
+    for (int w = w0; w < w0 + 4; ++w) m = fmaxf(m, rm[w * 16 + g]);
     const float m_safe = m == neg_inf() ? 0.f : m;
     float a = 0.f, l = 0.f;
 #pragma unroll
-    for (int w = 0; w < kTcWarps; ++w) {
+    for (int w = w0; w < w0 + 4; ++w) {
       const float mw = rm[w * 16 + g];
       const float sc = mw == neg_inf() ? 0.f : expf(mw - m_safe);
       a += sc * ra[(w * 16 + g) * DH + d];
       l += sc * rl[w * 16 + g];
     }
-    part_acc[part * n_group * DH + i] = a;
+    const long long part = (bk0 + h) * n_split + split;
+    part_acc[part * n_group * DH + e] = a;
     if (d == 0) {
       part_m[part * n_group + g] = m;
       part_l[part * n_group + g] = l;
@@ -506,29 +686,31 @@ decode_split_tc_kernel(const float* __restrict__ q,
   }
 }
 
-// One block per (b, kh): rescale each split to the global max and divide.
-__global__ void __launch_bounds__(kThreads)
+// One block per (b, kh, g), a thread per column: rescale each split to
+// the global max and divide.
+constexpr int kCombineThreads = 128;
+__global__ void __launch_bounds__(kCombineThreads)
 decode_combine_kernel(const float* __restrict__ part_acc,
                       const float* __restrict__ part_m,
                       const float* __restrict__ part_l,
                       float* __restrict__ out, int n_group, int dh,
                       int n_split) {
   const long long bk = blockIdx.x;
-  for (int i = threadIdx.x; i < n_group * dh; i += kThreads) {
-    const int g = i / dh;
-    const float* pm = part_m + bk * n_split * n_group + g;
-    const float* pl = part_l + bk * n_split * n_group + g;
-    float m = neg_inf();
-    for (int s = 0; s < n_split; ++s) m = fmaxf(m, pm[s * n_group]);
-    const float m_safe = m == neg_inf() ? 0.f : m;
+  const int g = blockIdx.y;
+  const float* pm = part_m + bk * n_split * n_group + g;
+  const float* pl = part_l + bk * n_split * n_group + g;
+  float m = neg_inf();
+  for (int s = 0; s < n_split; ++s) m = fmaxf(m, pm[s * n_group]);
+  const float m_safe = m == neg_inf() ? 0.f : m;
+  for (int d = threadIdx.x; d < dh; d += kCombineThreads) {
     float num = 0.f, den = 0.f;
     for (int s = 0; s < n_split; ++s) {
       const float ms = pm[s * n_group];
       const float w = ms == neg_inf() ? 0.f : expf(ms - m_safe);
-      num += w * part_acc[(bk * n_split + s) * n_group * dh + i];
+      num += w * part_acc[((bk * n_split + s) * n_group + g) * dh + d];
       den += w * pl[s * n_group];
     }
-    out[bk * n_group * dh + i] = num / fmaxf(den, 1e-30f);
+    out[(bk * n_group + g) * dh + d] = num / fmaxf(den, 1e-30f);
   }
 }
 
@@ -545,6 +727,12 @@ cudaError_t raise_smem_limit(size_t smem) {
   return err;
 }
 
+size_t simt_smem(int n_group, int dh) {
+  return sizeof(float) *
+         (static_cast<size_t>(n_group) * dh + kTile * (dh + 4) + kTile * dh +
+          n_group * kTile + 3 * n_group);
+}
+
 int combine(const float* part_acc, const float* part_ml, float* out,
             int batch, int n_kv, int n_group, int dh, int n_split,
             cudaStream_t stream) {
@@ -552,91 +740,225 @@ int combine(const float* part_acc, const float* part_ml, float* out,
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_part = static_cast<long long>(batch) * n_kv * n_split *
                            n_group;
-  decode_combine_kernel<<<batch * n_kv, kThreads, 0, stream>>>(
+  decode_combine_kernel<<<dim3(batch * n_kv, n_group), kCombineThreads, 0,
+                          stream>>>(
       part_acc, part_ml, part_ml + n_part, out, n_group, dh, n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_simt(const float* q, const void* k, const void* v, float* out,
-                float* part_acc, float* part_ml, int batch, int seq, int n_kv,
-                int n_group, int dh, int n_valid, int n_split, int split_len,
-                cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-      (static_cast<size_t>(n_group) * dh + kTile * (dh + 4) + kTile * dh +
-       n_group * kTile + 3 * n_group);
+int launch_simt(const void* q, int q_bf16, float q_scale, const void* k,
+                const void* v, float* out, float* part_acc, float* part_ml,
+                int batch, int seq, int n_kv, int n_group, int dh,
+                int n_valid, int n_split, int split_len, cudaStream_t stream) {
+  const size_t smem = simt_smem(n_group, dh);
   cudaError_t err = raise_smem_limit<decode_split_kernel<T>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_part = static_cast<long long>(batch) * n_kv * n_split *
                            n_group;
   decode_split_kernel<T><<<dim3(n_split, n_kv, batch), kThreads, smem,
                            stream>>>(
-      q, static_cast<const T*>(k), static_cast<const T*>(v), part_acc,
-      part_ml, part_ml + n_part, seq, n_kv, n_group, dh, n_valid, n_split,
-      split_len);
+      q, q_bf16, q_scale, static_cast<const T*>(k), static_cast<const T*>(v),
+      part_acc, part_ml, part_ml + n_part, seq, n_kv, n_group, dh, n_valid,
+      n_split, split_len);
   return combine(part_acc, part_ml, out, batch, n_kv, n_group, dh, n_split,
                  stream);
 }
 
-template <int DH>
-int launch_tc(const float* q, const void* k, const void* v, float* out,
-              float* part_acc, float* part_ml, int batch, int seq, int n_kv,
-              int n_group, int n_valid, int n_split, int split_len,
-              int q_terms, cudaStream_t stream) {
-  constexpr int RS = DH + 8;
-  const size_t smem = sizeof(__nv_bfloat16) * (3 * 16 * RS + 4 * kTile * RS);
-  cudaError_t err = raise_smem_limit<decode_split_tc_kernel<DH>>(smem);
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link
+// against libcuda); null if the driver has none.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) p = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault) != cudaSuccess)
+      p = nullptr;
+#endif
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A cache [B, S, Kh, dh] bf16 as a 3-d tensor (Kh*dh columns, n_valid
+// positions, B rows) cut into boxes of box_cols columns (64, 32 or 16) x
+// kTile positions, swizzled over the box's row: positions >= n_valid lie
+// outside it.
+bool cache_map(CUtensorMap* map, const void* cache, int batch, int seq,
+               int n_kv, int dh, int n_valid, int box_cols) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t row = static_cast<cuuint64_t>(n_kv) * dh;
+  const cuuint64_t dims[3] = {row, static_cast<cuuint64_t>(n_valid),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {row * 2, row * 2 * seq};   // bytes
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols), kTile, 1};
+  const CUtensorMapSwizzle swizzle =
+      box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(cache), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH, int HB>
+int launch_tc(const void* q, int q_bf16, float q_scale, const void* k,
+              const void* v, float* out, float* part_acc, float* part_ml,
+              int batch, int seq, int n_kv, int n_group, int n_valid,
+              int n_split, int split_len, cudaStream_t stream) {
+  const int q_terms = q_bf16 ? 1 : 3;
+  const size_t smem = tc_smem<DH, HB>(q_terms);
+  cudaError_t err = raise_smem_limit<decode_split_tc_kernel<DH, HB>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap map_k, map_v;
+  constexpr int BC = box_cols<DH, HB>();
+  if (!cache_map(&map_k, k, batch, seq, n_kv, DH, n_valid, BC) ||
+      !cache_map(&map_v, v, batch, seq, n_kv, DH, n_valid, BC))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long n_part = static_cast<long long>(batch) * n_kv * n_split *
                            n_group;
-  decode_split_tc_kernel<DH><<<dim3(n_split, n_kv, batch), kTcThreads, smem,
-                               stream>>>(
-      q, static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), part_acc, part_ml,
-      part_ml + n_part, seq, n_kv, n_group, n_valid, n_split, split_len,
-      q_terms);
+  decode_split_tc_kernel<DH, HB><<<dim3(n_split, n_kv / HB, batch),
+                                   tc_threads<HB>(), smem, stream>>>(
+      q, q_bf16, q_scale, map_k, map_v, part_acc, part_ml, part_ml + n_part,
+      n_kv, n_group, n_valid, n_split, split_len, tc_stages<DH, HB>(q_terms));
   return combine(part_acc, part_ml, out, batch, n_kv, n_group, DH, n_split,
                  stream);
 }
 
+template <int DH>
+int launch_tc(int hb, const void* q, int q_bf16, float q_scale,
+              const void* k, const void* v, float* out, float* part_acc,
+              float* part_ml, int batch, int seq, int n_kv, int n_group,
+              int n_valid, int n_split, int split_len, cudaStream_t stream) {
+  return hb == 2
+      ? launch_tc<DH, 2>(q, q_bf16, q_scale, k, v, out, part_acc, part_ml,
+                         batch, seq, n_kv, n_group, n_valid, n_split,
+                         split_len, stream)
+      : launch_tc<DH, 1>(q, q_bf16, q_scale, k, v, out, part_acc, part_ml,
+                         batch, seq, n_kv, n_group, n_valid, n_split,
+                         split_len, stream);
+}
+
+// KV heads a block of the tensor-core form takes: two when Kh is even.
+int tc_heads(int n_kv) { return n_kv % 2 == 0 ? 2 : 1; }
+
+// Which form a call takes: the tensor-core dh, or 0 for SIMT.
+int tc_form(int kv_bf16, int n_group, int dh) {
+  if (!kv_bf16 || n_group > 16) return 0;
+  return (dh == 16 || dh == 32 || dh == 64 || dh == 128) ? dh : 0;
+}
+
+template <int DH, int HB>
+int tc_config(int q_terms, int* out) {
+  const size_t smem = tc_smem<DH, HB>(q_terms);
+  cudaError_t err = raise_smem_limit<decode_split_tc_kernel<DH, HB>>(smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[0], decode_split_tc_kernel<DH, HB>, tc_threads<HB>(), smem);
+  out[1] = static_cast<int>(smem);
+  out[2] = tc_stages<DH, HB>(q_terms);
+  out[3] = DH;
+  out[4] = HB;
+  return static_cast<int>(err);
+}
+
+template <int DH>
+int tc_config(int hb, int q_terms, int* out) {
+  return hb == 2 ? tc_config<DH, 2>(q_terms, out)
+                 : tc_config<DH, 1>(q_terms, out);
+}
+
+template <typename T>
+int simt_config(int n_group, int dh, int* out) {
+  const size_t smem = simt_smem(n_group, dh);
+  cudaError_t err = raise_smem_limit<decode_split_kernel<T>>(smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[0], decode_split_kernel<T>, kThreads, smem);
+  out[1] = static_cast<int>(smem);
+  out[2] = 1;
+  out[3] = 0;
+  out[4] = 1;
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
+// The split pass a call takes, for sizing its splits: out[0] resident
+// blocks an SM, out[1] dynamic shared memory a block, out[2] ring stages
+// (1 for the SIMT form), out[3] the tensor-core form's dh or 0 for SIMT,
+// out[4] the KV heads a block takes.
+extern "C" int flash_decode_config(int kv_bf16, int q_bf16, int n_kv,
+                                   int n_group, int dh, int* out) {
+  const int hb = tc_heads(n_kv), q_terms = q_bf16 ? 1 : 3;
+  switch (tc_form(kv_bf16, n_group, dh)) {
+    case 16: return tc_config<16>(hb, q_terms, out);
+    case 32: return tc_config<32>(hb, q_terms, out);
+    case 64: return tc_config<64>(hb, q_terms, out);
+    case 128: return tc_config<128>(hb, q_terms, out);
+    default: break;
+  }
+  return kv_bf16 ? simt_config<__nv_bfloat16>(n_group, dh, out)
+                 : simt_config<float>(n_group, dh, out);
+}
+
+// q [B, H, dh] (bf16 if q_bf16, else f32), scaled in the kernel by
+// q_scale (dh^-0.5 rounded to q's dtype) and rounded to q's dtype;
+// caches [B, S, Kh, dh] (bf16 if kv_bf16, else f32); out [B, H, dh] f32;
+// part_acc [B*Kh*n_split*G*dh] and part_ml [2*B*Kh*n_split*G] scratch.
+// Split i covers positions [i*split_len, min((i+1)*split_len, n_valid)).
 extern "C" int flash_decode(const void* q, const void* k, const void* v,
                             void* out, void* part_acc, void* part_ml,
-                            int is_bf16, int batch, int seq, int n_kv,
-                            int n_group, int dh, int n_valid, int n_split,
-                            int split_len, int q_terms, void* stream) {
+                            int kv_bf16, int q_bf16, float q_scale, int batch,
+                            int seq, int n_kv, int n_group, int dh,
+                            int n_valid, int n_split, int split_len,
+                            void* stream) {
   if (dh % 8 != 0 || dh > 256 || split_len % kTile != 0 || n_valid < 1 ||
-      n_valid > seq || (q_terms != 1 && q_terms != 3))
+      n_valid > seq || n_split < 1 ||
+      static_cast<long long>(n_split - 1) * split_len >= n_valid ||
+      static_cast<long long>(n_split) * split_len < n_valid)
     return static_cast<int>(cudaErrorInvalidValue);
-  const float* qf = static_cast<const float*>(q);
   float* o = static_cast<float*>(out);
   float* pa = static_cast<float*>(part_acc);
   float* pml = static_cast<float*>(part_ml);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && n_group <= 16) {
-    switch (dh) {
-      case 16: return launch_tc<16>(qf, k, v, o, pa, pml, batch, seq, n_kv,
-                                    n_group, n_valid, n_split, split_len,
-                                    q_terms, st);
-      case 32: return launch_tc<32>(qf, k, v, o, pa, pml, batch, seq, n_kv,
-                                    n_group, n_valid, n_split, split_len,
-                                    q_terms, st);
-      case 64: return launch_tc<64>(qf, k, v, o, pa, pml, batch, seq, n_kv,
-                                    n_group, n_valid, n_split, split_len,
-                                    q_terms, st);
-      case 128: return launch_tc<128>(qf, k, v, o, pa, pml, batch, seq, n_kv,
-                                      n_group, n_valid, n_split, split_len,
-                                      q_terms, st);
-      default: break;
-    }
+  const int hb = tc_heads(n_kv);
+  switch (tc_form(kv_bf16, n_group, dh)) {
+    case 16: return launch_tc<16>(hb, q, q_bf16, q_scale, k, v, o, pa, pml,
+                                  batch, seq, n_kv, n_group, n_valid, n_split,
+                                  split_len, st);
+    case 32: return launch_tc<32>(hb, q, q_bf16, q_scale, k, v, o, pa, pml,
+                                  batch, seq, n_kv, n_group, n_valid, n_split,
+                                  split_len, st);
+    case 64: return launch_tc<64>(hb, q, q_bf16, q_scale, k, v, o, pa, pml,
+                                  batch, seq, n_kv, n_group, n_valid, n_split,
+                                  split_len, st);
+    case 128: return launch_tc<128>(hb, q, q_bf16, q_scale, k, v, o, pa, pml,
+                                    batch, seq, n_kv, n_group, n_valid,
+                                    n_split, split_len, st);
+    default: break;
   }
   if (n_group * dh > kMaxAcc * 4 * kThreads)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (is_bf16)
-    return launch_simt<__nv_bfloat16>(qf, k, v, o, pa, pml, batch, seq, n_kv,
-                                      n_group, dh, n_valid, n_split,
-                                      split_len, st);
-  return launch_simt<float>(qf, k, v, o, pa, pml, batch, seq, n_kv, n_group,
-                            dh, n_valid, n_split, split_len, st);
+  if (kv_bf16)
+    return launch_simt<__nv_bfloat16>(q, q_bf16, q_scale, k, v, o, pa, pml,
+                                      batch, seq, n_kv, n_group, dh, n_valid,
+                                      n_split, split_len, st);
+  return launch_simt<float>(q, q_bf16, q_scale, k, v, o, pa, pml, batch, seq,
+                            n_kv, n_group, dh, n_valid, n_split, split_len,
+                            st);
 }

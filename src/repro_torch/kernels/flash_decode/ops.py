@@ -5,25 +5,71 @@ CPU tensors take the plain version; CUDA tensors launch the kernel or
 raise.  Nothing falls back from one to the other.
 """
 import ctypes
+import functools
 
 import torch
 
 from .._build import load
 from .ref import flash_decode_ref, q_scale
 
-__all__ = ["flash_decode"]
+__all__ = ["flash_decode", "plan_splits"]
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float] \
+    + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 #: KV positions a block stages per step; a split covers whole tiles.
 TILE = 64
-#: Blocks of the split pass resident on one SM (their shared memory,
-#: ~81 KB at dh=128 in either form, allows two); the split count fills
-#: one wave.
-BLOCKS_PER_SM = 2
 #: The SIMT form keeps G*dh/256 float4 accumulators a thread, at most 4
 #: (the tensor-core form, bf16 caches with G <= 16, stays below).
 MAX_G_DH = 4096
+
+
+def plan_splits(b: int, kh: int, n_valid: int, sms: int,
+                blocks_per_sm: int) -> "tuple[int, int]":
+    """``(n_split, split_len)``: cut ``[0, n_valid)`` of each of the
+    ``b * kh`` (batch row, group of KV heads a block takes) units into
+    ``n_split`` splits of ``split_len`` positions (whole tiles; the last
+    split may be shorter, none is empty).  The pass is bound by bytes, so
+    every block should stream from the start to the end of the call: as
+    many splits as keep all blocks resident in one wave of
+    ``sms * blocks_per_sm`` slots, and all of one length.  decode_32k's
+    layer (b 32, both KV heads in a block, n_valid 32761) on 132 SMs x 1:
+    4 splits of 8192 positions, 128 blocks."""
+    if min(b, kh, n_valid, sms, blocks_per_sm) < 1:
+        raise ValueError(f"plan_splits: needs positive sizes, got b={b} "
+                         f"kh={kh} n_valid={n_valid} sms={sms} "
+                         f"blocks_per_sm={blocks_per_sm}")
+    tiles = -(-n_valid // TILE)
+    n_split = max(1, min(tiles, sms * blocks_per_sm // (b * kh)))
+    split_tiles = -(-tiles // n_split)
+    return -(-tiles // split_tiles), split_tiles * TILE
+
+
+@functools.lru_cache(maxsize=None)
+def _device_config(index: int, kv_bf16: bool, q_bf16: bool, kh: int, g: int,
+                   dh: int) -> "tuple[int, int, int, int, int, int]":
+    """(SMs, resident blocks a SM, shared memory bytes a block, ring
+    stages, tensor-core dh or 0 for SIMT, KV heads a block) of the split
+    pass that a call of this kind takes on CUDA device ``index``; asked
+    once."""
+    with torch.cuda.device(index):
+        buf = (ctypes.c_int * 5)()
+        err = load("flash_decode").flash_decode_config(
+            int(kv_bf16), int(q_bf16), kh, g, dh, buf)
+        if err:
+            raise RuntimeError(f"flash_decode: occupancy query failed: CUDA "
+                               f"error {err}")
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return (sms, *buf)
+
+
+def device_config(q: torch.Tensor, k_cache: torch.Tensor):
+    """:func:`_device_config` for these CUDA tensors."""
+    index = q.device.index
+    return _device_config(torch.cuda.current_device() if index is None
+                          else index, k_cache.dtype == torch.bfloat16,
+                          q.dtype == torch.bfloat16, k_cache.shape[2],
+                          q.shape[1] // k_cache.shape[2], q.shape[2])
 
 
 def _check(q, k_cache, v_cache) -> None:
@@ -81,28 +127,39 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu" and k_cache.device.type == "cpu" \
             and v_cache.device.type == "cpu":
         return flash_decode_ref(q, k_cache, v_cache, kv_len)
+    return _launch(q, k_cache, v_cache, kv_len)
+
+
+def _launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+            kv_len: int, n_split: int = None) -> torch.Tensor:
+    """The kernel on CUDA tensors, cut as :func:`plan_splits` plans;
+    ``n_split`` forces another count (for the card tests of the splits'
+    edges)."""
     _check(q, k_cache, v_cache)
+    b, h, dh = q.shape
+    _, s, kh, _ = k_cache.shape
     g = h // kh
-    n_valid = min(kv_len, s)
-    tiles = -(-n_valid // TILE)
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    n_split = max(1, min(tiles, BLOCKS_PER_SM * sms // (b * kh)))
-    split_tiles = -(-tiles // n_split)
-    n_split = -(-tiles // split_tiles)
-    # q is scaled in its own dtype (JAX's rounding), then widened exactly.
-    qs = (q * q_scale(dh, q.dtype)).float().contiguous()
+    n_valid = min(int(kv_len), s)
+    sms, per_sm, *_, heads = device_config(q, k_cache)
+    if n_split is None:
+        n_split, split_len = plan_splits(b, kh // heads, n_valid, sms, per_sm)
+    else:
+        tiles = -(-n_valid // TILE)
+        split_len = -(-tiles // n_split) * TILE
+        n_split = -(-n_valid // split_len)
     out = torch.empty((b, h, dh), dtype=torch.float32, device=q.device)
     part_acc = torch.empty(b * kh * n_split * g * dh, dtype=torch.float32,
                            device=q.device)
     part_ml = torch.empty(2 * b * kh * n_split * g, dtype=torch.float32,
                           device=q.device)
+    qc = q.contiguous()
     fn = load("flash_decode").flash_decode
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    err = fn(qs.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+    err = fn(qc.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-             int(k_cache.dtype == torch.bfloat16), b, s, kh, g, dh,
-             n_valid, n_split, split_tiles * TILE,
-             1 if q.dtype == torch.bfloat16 else 3,
+             int(k_cache.dtype == torch.bfloat16),
+             int(q.dtype == torch.bfloat16), q_scale(dh, q.dtype), b, s, kh,
+             g, dh, n_valid, n_split, split_len,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_decode launch failed: CUDA error {err}")

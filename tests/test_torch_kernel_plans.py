@@ -1,0 +1,148 @@
+"""The split planners of the port's two redesigned kernels, on the CPU.
+
+``flash_decode``'s ``plan_splits`` cuts each (batch, KV head) pair's
+valid positions into splits of whole tiles; ``tropical_matmul``'s
+``plan_split_k`` cuts K into chunks of whole K tiles and ``copy_widths``
+picks the cp.async width each operand allows.  The kernels trust these
+plans (a gap or an overlap would be a wrong answer, an empty split a
+wasted block), so they are checked here as plain Python, over random
+shapes and at the shapes ``PERF.md`` states.
+"""
+import pytest
+
+from hypsupport import given, settings, st
+from repro_torch.kernels.flash_decode.ops import TILE, plan_splits
+from repro_torch.kernels.tropical_matmul.ops import (BK, BM, BN, copy_widths,
+                                                     plan_split_k)
+
+H100_SMS = 132
+
+
+def _cover(n: int, size: int, count: int) -> list:
+    """The ranges [i*size, min((i+1)*size, n)) of ``count`` splits."""
+    return [(i * size, min((i + 1) * size, n)) for i in range(count)]
+
+
+def _assert_partition(ranges, n: int) -> None:
+    """The ranges are non-empty, in order, and cover [0, n) once."""
+    assert ranges[0][0] == 0 and ranges[-1][1] == n
+    for (lo, hi), (nlo, _) in zip(ranges, ranges[1:]):
+        assert hi == nlo
+    assert all(hi > lo for lo, hi in ranges)
+
+
+# ------------------------------------------------------------ flash_decode
+@settings(max_examples=300, deadline=None)
+@given(st.integers(1, 256), st.integers(1, 16), st.integers(1, 70000),
+       st.integers(1, 70000), st.integers(1, 160), st.integers(1, 4))
+def test_flash_plan_covers_every_position_once(b, kh, kv_len, s, sms, per_sm):
+    n_valid = min(kv_len, s)             # what the wrapper plans over
+    n_split, split_len = plan_splits(b, kh, n_valid, sms, per_sm)
+    assert n_split >= 1 and split_len % TILE == 0 and split_len > 0
+    _assert_partition(_cover(n_valid, split_len, n_split), n_valid)
+    # one length for all but the last, which is the only short one
+    assert (n_split - 1) * split_len < n_valid <= n_split * split_len
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.integers(1, 256), st.integers(1, 16), st.integers(1, 70000),
+       st.integers(1, 160), st.integers(1, 4))
+def test_flash_plan_stays_in_one_wave(b, kh, n_valid, sms, per_sm):
+    """Every block is resident at once when the pairs alone fit, and no
+    split is cut finer than one wave asks."""
+    n_split, split_len = plan_splits(b, kh, n_valid, sms, per_sm)
+    slots = sms * per_sm
+    if b * kh <= slots:
+        assert b * kh * n_split <= slots
+    else:
+        assert n_split == 1
+    tiles = -(-n_valid // TILE)
+    assert n_split <= tiles
+
+
+@pytest.mark.parametrize("kv_len,want", [
+    (32761, (4, 8192)),          # decode_32k's timed step (PERF.md)
+    (32768, (4, 8192)), (20001, (4, 5056)), (1, (1, 64))])
+def test_flash_plan_at_decode_32k(kv_len, want):
+    """glm4's decode_32k layer on the H100: B 32, both KV heads in one
+    block, one block an SM (and the same cut with a head a block, two
+    blocks an SM)."""
+    assert plan_splits(32, 1, kv_len, H100_SMS, 1) == want
+    assert plan_splits(32, 2, kv_len, H100_SMS, 2) == want
+
+
+def test_flash_plan_rejects_empty_shapes():
+    with pytest.raises(ValueError):
+        plan_splits(1, 1, 0, H100_SMS, 2)
+
+
+# ---------------------------------------------------------- tropical_matmul
+def _makespan(m, n, k, per, slots):
+    """The planner's cost of chunks of ``per`` K tiles, written out."""
+    k_tiles = -(-k // BK)
+    n_k = -(-k_tiles // per)
+    blocks = -(-n // BN) * -(-m // BM) * n_k
+    return -(-blocks // slots) * (per + 1)
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.integers(1, 80), st.integers(1, 20000), st.integers(1, 20000),
+       st.integers(1, 160), st.integers(1, 4))
+def test_split_k_covers_k_once_in_whole_tiles(m, n, k, sms, per_sm):
+    plan = plan_split_k(m, n, k, sms, per_sm)
+    assert plan.chunk % BK == 0 and plan.n_k >= 1
+    _assert_partition(_cover(k, plan.chunk, plan.n_k), k)
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.integers(1, 80), st.integers(1, 20000), st.integers(1, 20000),
+       st.integers(1, 160), st.integers(1, 4))
+def test_split_k_grid_and_waves(m, n, k, sms, per_sm):
+    """The grid is what the plan claims, in exactly ``waves`` waves of the
+    resident blocks, and no other whole-tile chunking has a shorter
+    makespan."""
+    plan = plan_split_k(m, n, k, sms, per_sm)
+    slots = sms * per_sm
+    assert plan.blocks == -(-n // BN) * -(-m // BM) * plan.n_k
+    assert (plan.waves - 1) * slots < plan.blocks <= plan.waves * slots
+    k_tiles = -(-k // BK)
+    best = min(_makespan(m, n, k, per, slots) for per in range(1, k_tiles + 1))
+    assert _makespan(m, n, k, plan.chunk // BK, slots) == best
+
+
+@pytest.mark.parametrize("m,k,n,per_sm,want", [
+    (32, 15722, 15722, 4, (17, 928, 2091, 4)),   # the HoD core search on
+    (32, 15722, 15722, 3, (16, 992, 1968, 5)),   # the H100 (4 blocks an
+    (32, 15722, 15722, 2, (15, 1056, 1845, 7)),  # SM; fewer for contrast)
+    (1, 5, 3, 3, (1, 32, 1, 1)),                  # K below one tile
+    (33, 1001, 777, 3, (16, 64, 224, 1))])
+def test_split_k_at_main_path_shapes(m, k, n, per_sm, want):
+    assert tuple(plan_split_k(m, n, k, H100_SMS, per_sm)) == want
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.integers(1, 20000), st.integers(1, 20000), st.integers(0, 64),
+       st.integers(0, 1 << 20), st.integers(0, 1 << 20))
+def test_copy_widths_are_the_widest_that_fit(n, k, pad, a_off, b_off):
+    """A copy of ``a`` never straddles K or leaves its row and is aligned;
+    a copy of ``b`` likewise with N; the next wider width breaks one of
+    those."""
+    lda = k + pad
+    a_ptr, b_ptr = 4 * a_off, 4 * b_off
+    va, vb = copy_widths(n, k, lda, a_ptr, b_ptr)
+
+    def fits(v, ptr, *sizes):
+        return ptr % v == 0 and all(s % (v // 4) == 0 for s in sizes)
+
+    assert fits(va, a_ptr, lda, k) and fits(vb, b_ptr, n)
+    assert va == 16 or not fits(2 * va, a_ptr, lda, k)
+    assert vb == 16 or not fits(2 * vb, b_ptr, n)
+
+
+def test_copy_widths_at_the_core_search():
+    """C = 15,722 is even but not a multiple of 4: b's rows take 8-byte
+    copies; the label state's core block keeps the state's alignment."""
+    assert copy_widths(15722, 15722, 15722, 0, 0) == (8, 8)
+    assert copy_widths(15722, 15722, 40000, 4 * 24278, 256) == (8, 8)
+    assert copy_widths(15724, 15724, 15724, 0, 0) == (16, 16)
+    assert copy_widths(7, 5, 9, 4, 12) == (4, 4)
