@@ -14,22 +14,27 @@ never JAX or the JAX package.  Phases, each of which asserts:
    kernel's, the plain version's and (where one PyTorch call computes
    the same function) the library call's times (CUDA events), ptxas'
    registers and spills of every kernel (none may spill in the two
-   redesigned split passes), and each redesigned kernel's time at other
-   split counts beside its planned one.  The HoD kernels and ``bag_sum``
-   must be bit-equal (``torch.equal``: fp32 adds and mins, or sums in
-   the plain version's order); ``flash_decode`` within atol 1e-4 of its
-   f32 output.  The split kernels' edge cases run at full width too
-   (M 1 and 33, K below a tile and below the split count, ragged K with
-   a short last chunk, a strided and offset ``a``, all-+inf rows and
-   columns; kv_len 1 and mid-tile, short last splits, f32 and bf16 q);
+   redesigned split passes nor in the sweep kernel).  The HoD kernels
+   and ``bag_sum`` must be bit-equal (``torch.equal``: fp32 adds and
+   mins, or sums in the plain version's order); ``flash_decode`` within
+   atol 1e-4 of its f32 output.  The split kernels' edge cases run at
+   full width too (M 1 and 33, K below a tile and below the split
+   count, ragged K with a short last chunk, a strided and offset ``a``,
+   all-+inf rows and columns; kv_len 1 and mid-tile, short last splits,
+   f32 and bf16 q).  ``edge_relax`` runs on the served index's real
+   levels (built first, as in phase 4): each whole sweep in one launch
+   and the widest forward level alone, timed at S = 32 and checked at
+   S = 1, 7, 32, 33, 64 and 128, plus two synthetic levels with split
+   and masked rows;
 4. the HoD slice at full size: the road-network stand-in (grid side 200,
    40,000 nodes), the serve CLI's build config with the closure limit
    raised so the 15,722-node core is closed on the card, and a
    ``QueryServer`` answering 256 seeded SSD requests with repeats.  The
    kernel launch counters are zeroed just before ``serve_stream`` and
-   read just after, and must match batches x real plan levels.  Then one
-   SSSP batch with paths, one ``bellman``-mode batch, and checks against
-   host Dijkstra and against the same engine on the CPU;
+   read just after: ``edge_relax`` must launch twice a batch (one sweep
+   each way).  Then one SSSP batch with paths, one ``bellman``-mode
+   batch, and checks against host Dijkstra and against the same engine
+   on the CPU;
 5. profile: ``torch.profiler`` over a few SSD batches prints the device
    time by kernel and the device's idle share (no assertion);
 6. LM serving at full width: first glm4-9b's width at 2 layers in f32,
@@ -75,7 +80,7 @@ REQUESTS = 256
 REQUEST_POOL = 160          # distinct sources: repeats hit the row cache
 CLOSURE_LIMIT = 16384
 CORE = 15722                # core nodes of this build: the minplus shapes
-PLAN_F_ROWS = 22400         # plan_f's M_pad: the edge_relax level shape
+PLAN_F_ROWS = 22400         # plan_f's M_pad: the synthetic level's shape
 K_SLOTS = 16
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth and
@@ -146,8 +151,10 @@ def fp32_instr_per_s(torch) -> "tuple[float, float]":
     return sms * FP32_LANES_PER_SM * mhz * 1e6, mhz
 
 
-# Set by main() from the card before any bound is computed.
-FP32_INSTR_PER_S = None
+# Set by main() from the card before any bound is computed or any
+# queued timing held: the SIMT instruction rate and the SM's maximum
+# clock in Hz.
+FP32_INSTR_PER_S = SM_HZ = None
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = None):
@@ -190,18 +197,32 @@ def ptxas_report(log: str) -> dict:
     return {fn: i for fn, i in out.items() if i["registers"] is not None}
 
 
-def time_ms(torch, fn, iters: int, warmup: int = 1) -> float:
-    """Mean device time of ``fn`` in ms, by CUDA events after warm-up."""
+def time_ms(torch, fn, iters: int, warmup: int = 1,
+            queued: bool = False) -> float:
+    """Mean device time of ``fn`` in ms, by CUDA events after warm-up.
+    ``queued``: a sleep kernel holds the card (1 ms a run) while the host
+    queues the runs, so that a kernel shorter than its launch's host
+    cost is timed on the device and not paced by the host; raises if the
+    host took longer than the hold."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    hold_ms = float(iters) if queued else 0.0
+    if queued:
+        torch.cuda._sleep(int(hold_ms * 1e-3 * SM_HZ))
+    t0 = time.perf_counter()
     start.record()
     for _ in range(iters):
         fn()
     stop.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
+    if queued and host_ms > 0.9 * hold_ms:
+        raise AssertionError(f"queued timing: the host took {host_ms:.1f} "
+                             f"ms to queue what a {hold_ms:.0f} ms hold "
+                             "covers")
     return start.elapsed_time(stop) / iters
 
 
@@ -283,12 +304,13 @@ def check_minplus_edges(torch, card: str) -> None:
 
 def synthetic_level(np, torch, s: int, n: int, m_pad: int, k: int,
                     seed: int):
-    """A level shaped like ``plan_f``'s widest one, built the way a real
-    level is: gathered nodes [0, n/2) and written nodes [n/2, n) are
-    disjoint; destinations repeat (split in-edge lists); valid rows have
-    1..k real slots, the rest sentinel/+inf padding; trailing padding
-    rows are invalid; a few invalid rows carry real, winning edges that
-    the mask must suppress.  ``dist`` has the sentinel column n."""
+    """A bucketed level built the way a real level is: gathered nodes
+    [0, n/2) and written nodes [n/2, n) are disjoint; destinations repeat
+    (split in-edge lists); valid rows have 1..k real slots, the rest
+    sentinel/+inf padding; trailing padding rows are invalid; a few
+    invalid rows carry real, winning edges that the packer must drop.
+    ``dist`` is node-major [n + 1, s] on the card, with the sentinel
+    node n; the level's arrays stay on the host, to be packed."""
     rng = np.random.default_rng(seed)
     n_valid = m_pad - m_pad // 56
     pool = rng.choice(np.arange(n // 2, n), size=n_valid * 5 // 7,
@@ -302,85 +324,200 @@ def synthetic_level(np, torch, s: int, n: int, m_pad: int, k: int,
     w[:n_valid][real] = rng.integers(1, 11, int(real.sum()))
     valid = np.zeros(m_pad, bool)
     valid[:n_valid] = True
-    masked = rng.choice(n_valid, size=64, replace=False)
+    masked = rng.choice(n_valid, size=min(64, n_valid), replace=False)
     valid[masked] = False
     w[masked, 0] = 0.0
-    src[masked, 0] = rng.integers(0, n // 2, 64)
-    dist = rng.integers(0, 200, (s, n + 1)).astype(np.float32)
-    dist[rng.random((s, n + 1)) < 0.25] = np.inf
-    dist[:, n] = np.inf
-    to = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
-    return to(dist), to(dst), to(src), to(w), to(valid)
+    src[masked, 0] = rng.integers(0, n // 2, masked.size)
+    dist = rng.integers(0, 200, (n + 1, s)).astype(np.float32)
+    dist[rng.random((n + 1, s)) < 0.25] = np.inf
+    dist[n] = np.inf
+    return torch.from_numpy(dist).cuda(), (dst, src, w, valid)
 
 
-def check_relax(np, torch, card: str, s: int, n: int, m_pad: int, k: int,
-                timed: bool = True) -> dict:
-    from repro_torch.kernels.edge_relax import relax_level_, relax_level_ref_
-    dist, dst, src, w, valid = synthetic_level(np, torch, s, n, m_pad, k,
-                                               seed=m_pad)
-    got = relax_level_(dist.clone(), dst, src, w, valid)
-    want = relax_level_ref_(dist.clone(), dst, src, w, valid)
+def check_relax_equal(torch, dist, sweep, what: str,
+                      must_change: bool = True) -> None:
+    """``relax_sweep_`` on the card bit-equal (torch.equal) to its plain
+    version on the same card, the sentinel node left +inf, and (unless
+    not ``must_change``) some label changed: the case is not inert."""
+    from repro_torch.kernels.edge_relax import relax_sweep_, relax_sweep_ref_
+    got = relax_sweep_(dist.clone(), sweep)
+    want = relax_sweep_ref_(dist.clone(), sweep)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         diff = (got != want).sum().item()
-        raise AssertionError(f"relax_level_ S={s} M={m_pad} K={k}: {diff} "
-                             "entries differ from the plain version")
-    if not torch.isinf(got[:, n]).all():
-        raise AssertionError("relax_level_ wrote the sentinel column")
-    if torch.equal(got, dist):
-        raise AssertionError("relax_level_ changed nothing: test level "
-                             "is inert")
-    row = {"shape": f"S={s} N={n + 1} M={m_pad} K={k}", "max_abs_err": 0.0}
-    if timed:
-        scratch = dist.clone()
-        copy_ms = time_ms(torch, lambda: scratch.copy_(dist), iters=200)
-        row["ms"] = time_ms(torch, lambda: relax_level_(
-            scratch.copy_(dist), dst, src, w, valid), iters=200) - copy_ms
-        row["plain_ms"] = time_ms(torch, lambda: relax_level_ref_(
-            scratch.copy_(dist), dst, src, w, valid), iters=20) - copy_ms
-        # Bytes: dist read once, the valid rows' plan entries, the
-        # written destination columns; ops: an add and a min per slot.
-        v = int(valid.sum())
-        n_dst = int(torch.unique(dst[valid]).numel())
-        row["bound_ms"], row["bound_by"] = bound(
-            4.0 * s * (n + 1) + v * (4 + 1 + 8 * k) + 4.0 * s * n_dst,
-            2.0 * s * v * k)
-    say(f"relax_level_ {row['shape']}: equal to plain"
-        + (f"; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-           f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}) on {card}"
-           if timed else ""))
+        raise AssertionError(f"relax_sweep_ {what}: {diff} labels differ "
+                             "from the plain version")
+    if not torch.isinf(got[sweep.n_nodes - 1]).all():
+        raise AssertionError(f"relax_sweep_ {what} wrote the sentinel node")
+    if must_change and torch.equal(got, dist):
+        raise AssertionError(f"relax_sweep_ {what} changed nothing: the "
+                             "case is inert")
+
+
+def check_relax_synthetic(np, torch, s: int, n: int, m_pad: int,
+                          k: int) -> None:
+    """A synthetic level (split rows, masked winning rows) as a one-level
+    sweep: a correctness case."""
+    from repro_torch.kernels.edge_relax import pack_sweep
+    dist, level = synthetic_level(np, torch, s, n, m_pad, k, seed=m_pad)
+    check_relax_equal(torch, dist, pack_sweep([level], n + 1, "cuda"),
+                      f"synthetic S={s} N={n + 1} M={m_pad} K={k}")
+    say(f"relax_sweep_ synthetic level S={s} N={n + 1} M={m_pad} K={k}: "
+        "equal to plain")
+
+
+def sweep_bound(torch, sweep, s: int):
+    """(bytes, operations, L2 bytes) of a sweep.  Bytes: what it must
+    move from device memory, all its state fitting in L2 (5.1 MB at
+    N = 40,001, S = 32; L2 is 50 MB): its CSR once (level pointer and
+    ways, a row's destination and pointer, a slot's source and weight,
+    4 bytes each), the S labels of each distinct node it reads (a
+    source, or a destination's old labels) read once, and those of each
+    distinct node it writes written once.  Operations: an add and a min
+    a slot and label.  L2 bytes, a figure with no rate attached: the
+    same summed level by level (each level's CSR, the labels of the
+    distinct nodes it reads, the labels it writes read and written),
+    the traffic that stays in L2 between levels."""
+    r, e, n_lv = sweep.level_rows, sweep.level_slots, sweep.n_levels
+    rows, slots = r[-1] - r[0], e[-1] - e[0]
+    src = sweep.src[e[0]:e[-1]]
+    dst = sweep.row_dst[r[0]:r[-1]]
+    read = int(torch.unique(torch.cat([src, dst])).numel())
+    written = int(torch.unique(dst).numel())
+    csr = 4 * (2 * n_lv + 1) + 8 * rows + 4 + 8 * slots
+    nbytes = csr + 4 * s * (read + written)
+    l2 = 0
+    for i in range(n_lv):
+        reads = int(torch.unique(sweep.src[e[i]:e[i + 1]]).numel())
+        l2 += 8 * (r[i + 1] - r[i]) + 8 * (e[i + 1] - e[i]) \
+            + 4 * s * (reads + 2 * (r[i + 1] - r[i]))
+    return nbytes, 2 * s * slots, l2
+
+
+def check_relax_sweeps(np, torch, card: str, ix) -> dict:
+    """``edge_relax`` on the served index's real levels: each whole sweep
+    (plan_f, plan_b: one launch each, as a served SSD batch runs them),
+    the widest forward level alone as a one-level sweep, and a sweep of
+    8 one-row levels (the floor a level costs), each bit-equal to the
+    plain version at S = 32 and at the edge widths 1, 7, 33, 64 and 128,
+    and timed at S = 32 beside its bound and the plain
+    version (CUDA events, the runs queued behind a hold so the host's
+    launch cost does not pace them; the restore copy of the labels is
+    timed alone and subtracted).  Returns the kernels line's row: one
+    batch's two sweeps."""
+    from repro_torch.core.query import _plan_sweep
+    from repro_torch.kernels.edge_relax import relax_sweep_, relax_sweep_ref_
+    from repro_torch.kernels.edge_relax.ops import (device_config,
+                                                    plan_sweep_launch)
+    from repro_torch.kernels.edge_relax import pack_sweep
+    f = _plan_sweep(ix.plan_f, ix.n_pad, "cuda")
+    b = _plan_sweep(ix.plan_b, ix.n_pad, "cuda")
+    widest = int(np.argmax(f.level_widths))
+    # The floor of a level: 8 levels of one row and one slot each (node
+    # i + 1 from node i), the dependent loads and the grid barrier alone.
+    chain = pack_sweep([(np.array([i + 1], np.int32),
+                         np.array([[i]], np.int32),
+                         np.array([[1.0]], np.float32), np.array([True]))
+                        for i in range(8)], ix.n_pad, "cuda")
+    sweeps = {"plan_f": f, "plan_b": b,
+              f"plan_f level {widest}": f.level(widest),
+              "8 one-row levels": chain}
+    gen = torch.Generator(device="cuda").manual_seed(14)
+
+    def labels(s):
+        d = torch.randint(0, 200, (ix.n_pad, s), generator=gen,
+                          device="cuda").float()
+        d[torch.rand(d.shape, generator=gen, device="cuda") < 0.25] = \
+            float("inf")
+        d[ix.n] = float("inf")
+        return d
+
+    for s in (1, 7, 33, 64, 128):
+        dist = labels(s)
+        for name in ("plan_f", "plan_b"):
+            check_relax_equal(torch, dist, sweeps[name], f"{name} S={s}")
+    say("relax_sweep_ served sweeps at S = 1, 7, 33, 64, 128: equal to "
+        "plain")
+    dist = labels(BATCH)
+    scratch = dist.clone()
+    copy_ms = time_ms(torch, lambda: scratch.copy_(dist), iters=200,
+                      queued=True)
+    sms, threads, per_sm = device_config(dist.device)
+    parts = {}
+    for name, sw in sweeps.items():
+        check_relax_equal(torch, dist, sw, f"{name} S={BATCH}",
+                          must_change=sw is not chain)
+        plan = plan_sweep_launch(BATCH, True, sw.level_widths,
+                                 sw.level_max_slots, threads, sms * per_sm)
+        nbytes, ops, l2 = sweep_bound(torch, sw, BATCH)
+        part = {"levels": sw.n_levels, "rows": sw.level_rows[-1]
+                - sw.level_rows[0], "slots": sw.level_slots[-1]
+                - sw.level_slots[0], "bytes": nbytes, "ops": ops,
+                "l2_bytes": l2,
+                "grid": f"{plan.blocks} blocks of {threads}, "
+                        f"{plan.lanes} lanes a row, ways {list(plan.ways)}"}
+        part["ms"] = time_ms(torch, lambda: relax_sweep_(
+            scratch.copy_(dist), sw), iters=200, queued=True) - copy_ms
+        part["plain_ms"] = time_ms(torch, lambda: relax_sweep_ref_(
+            scratch.copy_(dist), sw), iters=10) - copy_ms
+        part["bound_ms"], part["bound_by"] = bound(nbytes, ops)
+        parts[name] = part
+        say(f"relax_sweep_ {name}: {part['levels']} levels, "
+            f"{part['rows']} rows, {part['slots']} slots, {part['grid']}; "
+            f"equal to plain; kernel {part['ms']:.4f} ms, plain "
+            f"{part['plain_ms']:.4f} ms, bound {part['bound_ms']:.4f} ms "
+            f"({part['bound_by']}; {nbytes} B from memory, {l2} B level "
+            f"by level in L2) on {card}")
+    batch = [parts["plan_f"], parts["plan_b"]]
+    row = {"shape": f"plan_f + plan_b sweeps of one SSD batch (2 "
+                    f"launches), S={BATCH}, N={ix.n_pad}",
+           "max_abs_err": 0.0, "parts": parts,
+           "ms": sum(p["ms"] for p in batch),
+           "plain_ms": sum(p["plain_ms"] for p in batch)}
+    row["bound_ms"], row["bound_by"] = bound(
+        sum(p["bytes"] for p in batch), sum(p["ops"] for p in batch))
+    say(f"relax_sweep_ one batch's sweeps: kernel {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}) on {card}")
     return row
 
 
 # ------------------------------------------------------------- phase 4
-def drive_slice(np, torch, card: str, side: int, closure_limit: int,
-                dev: str = "cuda") -> dict:
-    from repro_torch.core import (BuildConfig, QueryEngine, build_hod_fast,
-                                  dijkstra_reference, grid_road_graph,
-                                  pack_index)
-    from repro_torch.kernels.edge_relax import relax_level_
-    from repro_torch.kernels.tropical_matmul import minplus
-    from repro_torch.launch.serve import QueryServer
-
+def served_index(torch, card: str, side: int, closure_limit: int):
+    """The serve CLI's build on the road stand-in, with the core closed
+    on the card: (graph, index)."""
+    from repro_torch.core import (BuildConfig, build_hod_fast,
+                                  grid_road_graph, pack_index)
     g = grid_road_graph(side, seed=0)
     t0 = time.perf_counter()
     res = build_hod_fast(g, BuildConfig(max_core_nodes=512,
                                         max_core_edges=1 << 15))
     t1 = time.perf_counter()
     ix = pack_index(g, res, chunk=2048, k_cap=K_SLOTS,
-                    closure_limit=closure_limit, device=dev)
+                    closure_limit=closure_limit, device="cuda")
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    eng = QueryEngine(ix, device=dev)
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
     say(f"graph n={g.n} m={g.m}; core {ix.n_core} nodes, "
         f"{ix.core_dst.shape[0]} edges; plan_f {list(ix.plan_f.w.shape)} "
         f"plan_b {list(ix.plan_b.w.shape)} "
-        f"plan_core {list(ix.plan_core.w.shape)}; core_mode "
-        f"{eng.core_mode}")
+        f"plan_core {list(ix.plan_core.w.shape)}; real levels "
+        f"{ix.plan_f.n_real_levels} + {ix.plan_b.n_real_levels}")
     say(f"build {t1 - t0:.2f} s (host), pack+closure {t2 - t1:.2f} s "
-        f"(closure on the card), upload {t3 - t2:.2f} s, on {card}")
+        f"(closure on the card), on {card}")
+    return g, ix
+
+
+def drive_slice(np, torch, card: str, g, ix, dev: str = "cuda") -> dict:
+    from repro_torch.core import QueryEngine, dijkstra_reference
+    from repro_torch.kernels.edge_relax import relax_sweep_
+    from repro_torch.kernels.tropical_matmul import minplus
+    from repro_torch.launch.serve import QueryServer
+
+    t0 = time.perf_counter()
+    eng = QueryEngine(ix, device=dev)
+    torch.cuda.synchronize()
+    say(f"engine upload and sweep packing {time.perf_counter() - t0:.2f} "
+        f"s; core_mode {eng.core_mode}, on {card}")
     if eng.core_mode != "closure":
         raise AssertionError("the full-size index must serve in closure "
                              "mode (raise closure_limit)")
@@ -391,23 +528,22 @@ def drive_slice(np, torch, card: str, side: int, closure_limit: int,
     requests = rng.choice(pool, size=REQUESTS).astype(np.int32)
 
     torch.cuda.reset_peak_memory_stats()
-    relax_level_.launches = 0
+    relax_sweep_.launches = 0
     minplus.launches = 0
     t0 = time.perf_counter()
     results = server.serve_stream(requests)
     wall = time.perf_counter() - t0
-    launches = {"edge_relax": relax_level_.launches,
+    launches = {"edge_relax": relax_sweep_.launches,
                 "tropical_matmul": minplus.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     st = server.stats
-    levels = ix.plan_f.n_real_levels + ix.plan_b.n_real_levels
     say(f"served {st.requests} SSD requests in {st.batches} batches, "
         f"{st.cache_hits} cache hits, {st.padded_slots} padded slots; "
-        f"launches {launches} (real levels f+b = {levels})")
-    if launches["edge_relax"] != st.batches * levels:
+        f"launches {launches} (one edge_relax a sweep, 2 a batch)")
+    if launches["edge_relax"] != st.batches * 2:
         raise AssertionError(f"edge_relax launched {launches['edge_relax']}"
-                             f" times, expected {st.batches} x {levels}")
+                             f" times, expected {st.batches} x 2")
     if launches["tropical_matmul"] < st.batches or st.batches == 0:
         raise AssertionError("tropical_matmul launched fewer times than "
                              "there were closure batches")
@@ -475,9 +611,12 @@ def drive_slice(np, torch, card: str, side: int, closure_limit: int,
     return launches
 
 
-def profile_device(torch, step, reps: int, what: str, card: str) -> None:
+def profile_device(torch, step, reps: int, what: str, card: str) -> dict:
     """Where the time of ``step`` goes: device time by kernel, and the
-    share of the wall time the device sits idle (torch.profiler)."""
+    share of the wall time the device sits idle (torch.profiler).
+    Returns them a call: ``wall_us``, ``busy_us``, ``idle_share`` and
+    ``device_us`` by event name (empty if the profiler saw no device
+    time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     step()
@@ -498,7 +637,7 @@ def profile_device(torch, step, reps: int, what: str, card: str) -> None:
     busy_us = sum(us for us, _, _ in rows)
     if not rows:
         say("profile: the profiler saw no device time (not measured)")
-        return
+        return {}
     say(f"profile of {reps} {what}: wall "
         f"{wall_us / reps / 1e3:.3f} ms/call, device busy "
         f"{busy_us / reps / 1e3:.3f} ms/call, device idle share "
@@ -507,6 +646,9 @@ def profile_device(torch, step, reps: int, what: str, card: str) -> None:
     for us, count, key in sorted(rows, reverse=True)[:10]:
         say(f"  {us / reps:10.1f} us/call {us / busy_us:6.1%} of busy  "
             f"{count // reps:5d} calls/call  {key[:80]}")
+    return {"wall_us": wall_us / reps, "busy_us": busy_us / reps,
+            "idle_share": 1 - busy_us / wall_us,
+            "device_us": {key: us / reps for us, _, key in rows}}
 
 
 # ------------------------------------------- phase 3, the models' kernels
@@ -1026,8 +1168,9 @@ def main() -> int:
     say(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
 
-    global FP32_INSTR_PER_S
+    global FP32_INSTR_PER_S, SM_HZ
     FP32_INSTR_PER_S, mhz = fp32_instr_per_s(torch)
+    SM_HZ = mhz * 1e6
     say(f"fp32 SIMT instruction rate {FP32_INSTR_PER_S:.4e}/s "
         f"({torch.cuda.get_device_properties(0).multi_processor_count} SMs x "
         f"{FP32_LANES_PER_SM} lanes x {mhz:.0f} MHz, clocks.max.sm)")
@@ -1044,30 +1187,32 @@ def main() -> int:
             say(f"  ptxas {name}: {fn}: {info['registers']} registers, "
                 f"{info['smem']} B static smem, spill stores "
                 f"{info['spill_stores']} B, loads {info['spill_loads']} B")
-    # The redesigned split passes must not spill (checked after the run,
-    # so that a spilling build still reports its times).
+    # The redesigned split passes and the sweep kernel must not spill
+    # (checked after the run, so that a spilling build still reports its
+    # times).
     spills = {}
     for name, key in (("tropical_matmul", "minplus_kernel"),
-                      ("flash_decode", "decode_split_tc_kernel")):
+                      ("flash_decode", "decode_split_tc_kernel"),
+                      ("edge_relax", "relax_sweep_kernel")):
         hit = {fn: i for fn, i in ptxas[name].items() if key in fn}
         if not hit or any(i["spill_stores"] or i["spill_loads"]
                           for i in hit.values()):
             spills[key] = hit
 
-    rows = {
-        "tropical_matmul": check_minplus(torch, card, BATCH, CORE, CORE),
-        "edge_relax": check_relax(np, torch, card, BATCH, 2 * 20000,
-                                  PLAN_F_ROWS, K_SLOTS),
-    }
+    rows = {"tropical_matmul": check_minplus(torch, card, BATCH, CORE, CORE)}
     check_minplus_edges(torch, card)
-    check_relax(np, torch, card, 45, 998, 301, 5, timed=False)
+    g, ix = served_index(torch, card, SIDE, CLOSURE_LIMIT)
+    rows["edge_relax"] = check_relax_sweeps(np, torch, card, ix)
+    check_relax_synthetic(np, torch, BATCH, 2 * 20000, PLAN_F_ROWS, K_SLOTS)
+    check_relax_synthetic(np, torch, 45, 998, 301, 5)
     rows["flash_decode"] = check_flash_decode(torch, card)
     free(torch)
     rows["embedding_bag"] = check_bag_sum(torch, card)
     free(torch)
 
     paths = {name: {"hod_serve_stream": n} for name, n in
-             drive_slice(np, torch, card, SIDE, CLOSURE_LIMIT).items()}
+             drive_slice(np, torch, card, g, ix).items()}
+    del g, ix
     free(torch)
     t0 = time.perf_counter()
     paths["flash_decode"] = drive_lm(torch, card)
@@ -1095,7 +1240,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-            "shape": r["shape"], "plan": r.get("plan")})
+            "shape": r["shape"], "plan": r.get("plan"),
+            "parts": r.get("parts")})
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

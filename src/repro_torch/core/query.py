@@ -16,16 +16,20 @@ Every phase is one sequential scan of a static-shape
 
 This is the PyTorch counterpart of the JAX package's ``QueryEngine``,
 with the same public methods and bit-identical answers.  The JAX
-``lax.scan`` over plan levels becomes a host loop over the plan's *real*
-levels (padding levels are inert and skipped); each level of a distance
-sweep is one launch of the fused in-place ``edge_relax`` kernel, and the
-core search is one ``tropical_matmul`` launch.  Which path runs is
-decided by the engine's device: CUDA runs the kernels, the CPU their
-plain versions.  SSSP reconstruction, the P2P backward labels and the
-threshold mask stay plain torch, as they are plain jnp in the JAX
-package.
+``lax.scan`` over plan levels becomes, for a distance sweep, one launch
+of the in-place ``edge_relax`` kernel over the whole sweep (its real
+levels packed once per engine into compacted rows,
+:func:`~repro_torch.kernels.edge_relax.sweep.pack_sweep`), and for the
+other level bodies a host loop over the plan's *real* levels (padding
+levels are inert and skipped); the core search is one
+``tropical_matmul`` launch.  Which path runs is decided by the engine's
+device: CUDA runs the kernels, the CPU their plain versions.  SSSP
+reconstruction, the P2P backward labels and the threshold mask stay
+plain torch, as they are plain jnp in the JAX package.
 
-Queries are batched over sources (``dist`` is ``[S, n_pad]``).
+Queries are batched over sources.  The label state on the device is
+node-major, ``[n_pad, S]`` (one node's S labels contiguous, the layout
+the kernel reads); answers leave in the JAX package's ``[S, n]``.
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.edge_relax.ops import relax_level_
+from ..kernels.edge_relax import Sweep, pack_sweep, relax_sweep_
 from ..kernels.tropical_matmul.ops import minplus
 from .index import HoDIndex, SweepPlan
 
@@ -87,6 +91,16 @@ def _plan_levels(plan: SweepPlan, n_pad: int,
     return levels
 
 
+def _plan_sweep(plan: SweepPlan, n_pad: int, device: torch.device) -> Sweep:
+    """The plan's real levels, in scan order, packed for ``relax_sweep_``
+    on ``device``: one row per distinct destination a level, finite
+    slots only."""
+    return pack_sweep([(plan.dst[lvl], plan.src_idx[lvl], plan.w[lvl],
+                        plan.row_valid[lvl])
+                       for lvl in np.flatnonzero(plan.level_mask)],
+                      n_pad, device)
+
+
 def _dense_core_adjacency(ix: HoDIndex) -> np.ndarray:
     """Dense [C, C] core adjacency from the raw CSR (scatter, no Python
     loop) — only the paper-faithful Bellman core mode reads it."""
@@ -132,6 +146,8 @@ class QueryEngine:
         self._levels_f = _plan_levels(index.plan_f, index.n_pad, dev)
         self._levels_b = _plan_levels(index.plan_b, index.n_pad, dev)
         self._levels_c = _plan_levels(index.plan_core, index.n_pad, dev)
+        self._sweep_f = _plan_sweep(index.plan_f, index.n_pad, dev)
+        self._sweep_b = _plan_sweep(index.plan_b, index.n_pad, dev)
         self._perm = torch.from_numpy(index.perm.astype(np.int64)).to(dev)
         self._closure = (torch.from_numpy(index.core_closure).to(dev)
                          if core_mode == "closure" else None)
@@ -153,13 +169,21 @@ class QueryEngine:
         return state
 
     @staticmethod
-    def _relax_level(dist, dst, src_idx, w, assoc, valid):
-        """Distance relaxation for one level (SSD sweeps, DESIGN.md §5):
-        one fused in-place ``edge_relax`` launch on CUDA.  The level's
-        gathered sources and scattered destinations are disjoint
-        (DESIGN.md §3), so updating ``dist`` in place is race-free; rows
-        that split one destination's in-edge list merge by min."""
-        return relax_level_(dist, dst, src_idx, w, valid)
+    def _relax_sweep(dist: torch.Tensor, sweep: Sweep,
+                     d: float = None) -> torch.Tensor:
+        """Distance relaxation over a whole sweep (SSD sweeps, DESIGN.md
+        §5), in place: one ``edge_relax`` launch on CUDA.  A level's
+        gathered sources and written destinations are disjoint (DESIGN.md
+        §3).  With a threshold ``d`` (DESIGN.md §7) each level runs on
+        its own and is followed by the mask: any label that exceeds ``d``
+        is snapped back to ``+inf`` inside the sweep, so it never seeds
+        further relaxations (sound because weights are positive)."""
+        if d is None:
+            return relax_sweep_(dist, sweep)
+        for i in range(sweep.n_levels):
+            relax_sweep_(dist, sweep.level(i))
+            dist.masked_fill_(~(dist <= d), INF)
+        return dist
 
     @staticmethod
     def _relax_level_rev(dlab, dst, src_idx, w, assoc, valid):
@@ -168,38 +192,26 @@ class QueryEngine:
         backward edge ``(x -> v, w)``: gather at ``dst``, scatter-min
         into the higher-rank ``src_idx`` slots.  Padding slots carry
         ``+inf`` weight and sentinel sources — absorbing."""
-        s = dlab.shape[0]
-        cand = dlab.index_select(1, dst.long())[:, :, None] + w[None]
-        cand = torch.where(valid[None, :, None], cand, INF)
-        idx = src_idx.reshape(1, -1).long().expand(s, -1)
-        return dlab.scatter_reduce_(1, idx, cand.reshape(s, -1), "amin",
+        s = dlab.shape[1]
+        cand = dlab.index_select(0, dst.long())[:, None, :] + w[:, :, None]
+        cand = torch.where(valid[:, None, None], cand, INF)   # [M, K, S]
+        idx = src_idx.reshape(-1, 1).long().expand(-1, s)
+        return dlab.scatter_reduce_(0, idx, cand.reshape(-1, s), "amin",
                                     include_self=True)
-
-    @staticmethod
-    def _relax_level_thresh(d: float):
-        """:meth:`_relax_level` with the distance-threshold mask applied
-        after every level (DESIGN.md §7): any label that exceeds ``d`` is
-        snapped back to ``+inf`` inside the sweep, so it never seeds
-        further relaxations.  Sound because weights are positive."""
-        def body(dist, dst, src_idx, w, assoc, valid):
-            dist = relax_level_(dist, dst, src_idx, w, valid)
-            return dist.masked_fill_(~(dist <= d), INF)
-
-        return body
 
     def _recon_level(self, pred, dist, dst, src_idx, w, assoc, valid):
         """SSSP predecessor reconstruction for one level (§6): scatter
         the assoc of every tight edge, max-merged (-1 = none)."""
-        s = dist.shape[0]
-        cand = dist.index_select(1, src_idx.reshape(-1).long()) \
-            .reshape(s, *src_idx.shape) + w[None]            # [S, M, K]
-        tgt = dist.index_select(1, dst.long())                # [S, M]
+        s = dist.shape[1]
+        cand = dist.index_select(0, src_idx.reshape(-1).long()) \
+            .reshape(*src_idx.shape, s) + w[:, :, None]       # [M, K, S]
+        tgt = dist.index_select(0, dst.long())                # [M, S]
         tight = torch.isfinite(cand) \
-            & (cand <= (tgt + self.eps * (1.0 + tgt))[..., None])
-        tight &= valid[None, :, None]
-        pcand = torch.where(tight, assoc[None], -1).amax(dim=-1)
-        return pred.scatter_reduce_(1, dst.long().expand(s, -1), pcand,
-                                    "amax", include_self=True)
+            & (cand <= (tgt + self.eps * (1.0 + tgt))[:, None, :])
+        tight &= valid[:, None, None]
+        pcand = torch.where(tight, assoc[:, :, None], -1).amax(dim=1)
+        return pred.scatter_reduce_(0, dst.long()[:, None].expand(-1, s),
+                                    pcand, "amax", include_self=True)
 
     def _recon_level_body(self, dist):
         """:meth:`_recon_level` with ``dist`` bound, in the executor's
@@ -213,55 +225,56 @@ class QueryEngine:
     # ------------------------------------------------------------------ SSD
     def _core_update(self, dist: torch.Tensor) -> torch.Tensor:
         """Core search (§5.2) on the core block of ``dist``, written back
-        into that view in place."""
+        into that view in place.  The min-plus product takes the block
+        source-major (``[S, C]``, rows contiguous), so it is transposed
+        on the way in and out."""
         ix = self.index
         c = ix.n_core
         if c == 0:
             return dist
-        core = dist[:, ix.n_noncore:ix.n_noncore + c]   # a view of dist
+        core = dist[ix.n_noncore:ix.n_noncore + c]      # a view of dist
+        d = core.t().contiguous()                       # [S, C]
         if self.core_mode == "bellman":
             # Iterate min-plus relaxation to fixpoint — the closest
             # analogue of the paper's in-memory core scan.  Converges in
             # at most C-1 rounds; one host sync per round.
-            d = core.clone()
             for _ in range(c):
                 nd = torch.minimum(d, minplus(d, self._core_adj))
                 changed = bool((nd < d).any())
                 d = nd
                 if not changed:
                     break
-            core.copy_(d)
         else:  # closure
-            core.copy_(minplus(core, self._closure))
+            d = minplus(d, self._closure)
+        core.copy_(d.t())
         return dist
 
     def _init_state(self, nodes_perm: np.ndarray) -> torch.Tensor:
-        """[S, n_pad] all-+inf label state with 0 at each row's node."""
+        """[n_pad, S] all-+inf label state with 0 at each column's
+        node."""
         s = len(nodes_perm)
-        state = torch.full((s, self.index.n_pad), INF, dtype=torch.float32,
+        state = torch.full((self.index.n_pad, s), INF, dtype=torch.float32,
                            device=self.device)
-        rows = torch.arange(s, device=self.device)
-        cols = torch.from_numpy(np.asarray(nodes_perm, np.int64)) \
+        rows = torch.from_numpy(np.asarray(nodes_perm, np.int64)) \
             .to(self.device)
-        state[rows, cols] = 0.0
+        state[rows, torch.arange(s, device=self.device)] = 0.0
         return state
 
     def _forward_core(self, sources_perm: np.ndarray,
-                      level_body=None) -> torch.Tensor:
+                      d: float = None) -> torch.Tensor:
         """Forward search (§5.1) + core search (§5.2): the shared first
-        two phases of SSD, P2P, and threshold queries."""
-        dist = self._run_plan(self._init_state(sources_perm),
-                              self._levels_f,
-                              level_body or self._relax_level)
+        two phases of SSD, P2P, and threshold queries (``d``)."""
+        dist = self._relax_sweep(self._init_state(sources_perm),
+                                 self._sweep_f, d)
         if self.core_mode == "dijkstra":
-            host = self._core_dijkstra_host(dist.cpu().numpy())
+            host = dist.cpu().numpy()                   # [n_pad, S]
+            self._core_dijkstra_host(host.T)
             return torch.from_numpy(host).to(self.device)
         return self._core_update(dist)
 
     def _ssd_dev(self, sources_perm: np.ndarray) -> torch.Tensor:
         dist = self._forward_core(sources_perm)
-        return self._run_plan(dist, self._levels_b,     # backward (§5.3)
-                              self._relax_level)
+        return self._relax_sweep(dist, self._sweep_b)   # backward (§5.3)
 
     def _sssp_dev(self, sources_perm: np.ndarray):
         dist = self._ssd_dev(sources_perm)
@@ -275,9 +288,10 @@ class QueryEngine:
         return dist, pred
 
     def _to_host(self, state: torch.Tensor) -> np.ndarray:
-        """``[S, n_pad]`` device state -> ``[S, n]`` host array in
-        original node order."""
-        return state.index_select(1, self._perm).cpu().numpy()
+        """``[n_pad, S]`` device state -> ``[S, n]`` host array in
+        original node order (gathered and transposed on the device, in
+        one launch: ``index_select`` writes a contiguous result)."""
+        return state.t().index_select(1, self._perm).cpu().numpy()
 
     def _perm_ids(self, nodes) -> np.ndarray:
         return self.index.perm[np.asarray(nodes, dtype=np.int32)]
@@ -303,7 +317,7 @@ class QueryEngine:
         bwd = self._run_plan(self._init_state(self._perm_ids(targets)),
                              self._levels_b, self._relax_level_rev,
                              reverse=True)
-        return (fwd + bwd).amin(dim=1).cpu().numpy()
+        return (fwd + bwd).amin(dim=0).cpu().numpy()
 
     def ssd_within(self, sources: np.ndarray, d: float) -> np.ndarray:
         """Distance-threshold query (DESIGN.md §7): distances from each
@@ -311,10 +325,9 @@ class QueryEngine:
         masked to ``+inf`` — nodes within the threshold carry exactly
         their SSD distance."""
         d = float(np.float32(d))
-        body = self._relax_level_thresh(d)
-        dist = self._forward_core(self._perm_ids(sources), level_body=body)
+        dist = self._forward_core(self._perm_ids(sources), d)
         dist.masked_fill_(~(dist <= d), INF)            # mask core output
-        return self._to_host(self._run_plan(dist, self._levels_b, body))
+        return self._to_host(self._relax_sweep(dist, self._sweep_b, d))
 
     def knn(self, sources: np.ndarray, k: int
             ) -> Tuple[np.ndarray, np.ndarray]:
@@ -346,7 +359,7 @@ class QueryEngine:
     def _core_dijkstra_host(self, dist: np.ndarray) -> np.ndarray:
         """Host heap Dijkstra on the core CSR for every batch row — the
         literal §5.2 in-memory core search.  Mutates and returns the
-        writable ``[S, n_pad]`` host array."""
+        writable ``[S, n_pad]`` host array (a transposed view will do)."""
         ix = self.index
         lo, c = ix.n_noncore, ix.n_core
         for i in range(dist.shape[0]):

@@ -1,79 +1,145 @@
-"""Wrapper of the fused in-place level relaxation (``csrc/edge_relax.cu``).
+"""Wrapper of the one-launch sweep relaxation (``csrc/edge_relax.cu``).
 
 CPU tensors take the plain version; CUDA tensors launch the kernel or
-raise.  Nothing falls back from one to the other.
+raise.  Nothing falls back from one to the other.  The launch's shape
+is planned here, in plain Python the CPU tests reach.
 """
 import ctypes
+import functools
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
 from .._build import load
-from .ref import relax_level_ref_
+from .ref import relax_sweep_ref_
+from .sweep import Sweep, ways_of
 
-__all__ = ["relax_level_"]
+__all__ = ["relax_sweep_", "plan_sweep_launch", "SweepLaunch"]
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
-    + [ctypes.c_longlong, ctypes.c_void_p]
-
-
-def _check(dist, dst, src_idx, w, row_valid) -> None:
-    dev = dist.device
-    if dev.type != "cuda":
-        raise ValueError(f"relax_level_: dist must be on the CPU or a CUDA "
-                         f"device, got {dev}")
-    for name, t, dtype, ndim in (("dist", dist, torch.float32, 2),
-                                 ("dst", dst, torch.int32, 1),
-                                 ("src_idx", src_idx, torch.int32, 2),
-                                 ("w", w, torch.float32, 2),
-                                 ("row_valid", row_valid, torch.bool, 1)):
-        if t.device != dev:
-            raise ValueError(f"relax_level_: {name} is on {t.device}, "
-                             f"dist on {dev}")
-        if t.dtype != dtype or t.dim() != ndim:
-            raise ValueError(f"relax_level_: {name} must be {ndim}-d "
-                             f"{dtype}, got {t.dim()}-d {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"relax_level_: {name} must be contiguous")
-    m = dst.shape[0]
-    if src_idx.shape[0] != m or w.shape != src_idx.shape \
-            or row_valid.shape[0] != m:
-        raise ValueError(
-            f"relax_level_: shapes disagree: dst {tuple(dst.shape)}, "
-            f"src_idx {tuple(src_idx.shape)}, w {tuple(w.shape)}, "
-            f"row_valid {tuple(row_valid.shape)}")
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] \
+    + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
-def relax_level_(dist: torch.Tensor, dst: torch.Tensor,
-                 src_idx: torch.Tensor, w: torch.Tensor,
-                 row_valid: torch.Tensor) -> torch.Tensor:
-    """Relax one sweep-plan level into ``dist`` in place and return it:
+class SweepLaunch(NamedTuple):
+    """``vec`` labels a load (4: 16 bytes, or 1); ``lanes`` threads
+    cover a row's labels, and at level ``l`` ``ways[l]`` groups of them
+    split its slots (``lanes x ways`` a power of two, at most 32); a
+    cooperative grid of ``blocks``."""
+    vec: int
+    lanes: int
+    ways: Tuple[int, ...]
+    blocks: int
 
-        for each valid row m and each source s:
-            dist[s, dst[m]] = min(dist[s, dst[m]],
-                                  min_k dist[s, src_idx[m, k]] + w[m, k])
 
-    ``dist`` [S, N] f32; ``dst`` [M] int32; ``src_idx`` [M, K] int32
-    with indices in ``[0, N)``; ``w`` [M, K] f32 (+inf padding);
-    ``row_valid`` [M] bool.  The level's gathered and written nodes must
-    be disjoint, as every plan level's are.  ``relax_level_.launches``
-    counts kernel launches.
+def plan_sweep_launch(n_cols: int, aligned: bool, level_rows: Sequence[int],
+                      level_max_slots: Sequence[int], threads: int,
+                      resident: int) -> SweepLaunch:
+    """16-byte loads when a node's ``n_cols`` labels split into them
+    (and ``dist`` is 16-byte ``aligned``); as many lanes a row as it has
+    loads, rounded up to a power of two and capped at a warp; at each
+    level, :func:`~.sweep.ways_of` its longest row (the kernel reads the
+    same from ``Sweep.ways``); and no more blocks than the widest level
+    fills, nor than are ``resident`` at once (a cooperative grid must
+    be).  At S = 32: 8 lanes a row, and 64 rows a block of 512 threads
+    where a level's rows are short."""
+    if min(n_cols, threads, resident, len(level_rows)) < 1 \
+            or len(level_rows) != len(level_max_slots):
+        raise ValueError(f"plan_sweep_launch: needs positive sizes, got "
+                         f"n_cols={n_cols} levels={len(level_rows)} "
+                         f"max_slots={len(level_max_slots)} "
+                         f"threads={threads} resident={resident}")
+    vec = 4 if aligned and n_cols % 4 == 0 else 1
+    lanes = min(32, 1 << (n_cols // vec - 1).bit_length())
+    ways = tuple(ways_of(longest, lanes) for longest in level_max_slots)
+    need = max(rows * lanes * k for rows, k in zip(level_rows, ways))
+    blocks = min(resident, max(1, -(-need // threads)))
+    return SweepLaunch(vec, lanes, ways, blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """The kernel's library, built if needed, with its argument types
+    set once."""
+    lib = load("edge_relax")
+    lib.edge_relax_sweep.argtypes = _ARGTYPES
+    lib.edge_relax_sweep.restype = ctypes.c_int
+    lib.edge_relax_config.argtypes = [ctypes.c_void_p]
+    lib.edge_relax_config.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _device_config(index: int) -> "tuple[int, int, int]":
+    """(SMs, threads a block, resident blocks an SM of either form) on
+    CUDA device ``index``, asked once."""
+    with torch.cuda.device(index):
+        buf = (ctypes.c_int * 2)()
+        err = _lib().edge_relax_config(buf)
+        if err:
+            raise RuntimeError(f"edge_relax: occupancy query failed: "
+                               f"CUDA error {err}")
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms, buf[0], buf[1]
+
+
+def device_config(device: torch.device) -> "tuple[int, int, int]":
+    """(SMs, threads a block, resident blocks an SM)."""
+    index = torch.device(device).index
+    return _device_config(torch.cuda.current_device() if index is None
+                          else index)
+
+
+def _check(dist: torch.Tensor, sweep: Sweep) -> None:
+    if dist.device.type != "cuda":
+        raise ValueError(f"relax_sweep_: dist must be on the CPU or a CUDA "
+                         f"device, got {dist.device}")
+    if dist.dtype != torch.float32 or dist.dim() != 2 \
+            or not dist.is_contiguous():
+        raise ValueError(f"relax_sweep_: dist must be a contiguous 2-d "
+                         f"float32 [N, S], got {dist.dim()}-d {dist.dtype}")
+    if dist.shape[0] < sweep.n_nodes:
+        raise ValueError(f"relax_sweep_: dist has {dist.shape[0]} nodes, "
+                         f"the sweep indexes {sweep.n_nodes}")
+    if sweep.src.device != dist.device:
+        raise ValueError(f"relax_sweep_: the sweep is on "
+                         f"{sweep.src.device}, dist on {dist.device}")
+
+
+def relax_sweep_(dist: torch.Tensor, sweep: Sweep) -> torch.Tensor:
+    """Relax every level of ``sweep`` into ``dist`` in place, in order,
+    and return it:
+
+        for each level, for each row r and each source s:
+            dist[row_dst[r], s] = min(dist[row_dst[r], s],
+                                      min over r's slots e of
+                                      dist[src[e], s] + w[e])
+
+    ``dist`` is node-major, [N, S] f32 contiguous; ``sweep`` comes from
+    :func:`~repro_torch.kernels.edge_relax.sweep.pack_sweep` (one level:
+    ``sweep.level(i)``).  One launch a sweep; a sweep without slots
+    launches nothing.  ``relax_sweep_.launches`` counts kernel launches.
     """
     if dist.device.type == "cpu":
-        return relax_level_ref_(dist, dst, src_idx, w, row_valid)
-    _check(dist, dst, src_idx, w, row_valid)
-    s, m = dist.shape[0], dst.shape[0]
-    if s == 0 or m == 0:
+        return relax_sweep_ref_(dist, sweep)
+    _check(dist, sweep)
+    n_cols = dist.shape[1]
+    if n_cols == 0 or sweep.level_slots[0] == sweep.level_slots[-1]:
         return dist
-    fn = load("edge_relax").edge_relax_level
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    err = fn(dist.data_ptr(), dst.data_ptr(), src_idx.data_ptr(),
-             w.data_ptr(), row_valid.data_ptr(), s, m, src_idx.shape[1],
-             dist.stride(0), torch.cuda.current_stream(dist.device)
-             .cuda_stream)
+    sms, threads, per_sm = device_config(dist.device)
+    plan = plan_sweep_launch(n_cols, dist.data_ptr() % 16 == 0,
+                             sweep.level_widths, sweep.level_max_slots,
+                             threads, sms * per_sm)
+    ways = sweep.ways[plan.lanes.bit_length() - 1]   # plan.ways, on device
+    err = _lib().edge_relax_sweep(
+        dist.data_ptr(), sweep.levels.data_ptr(), ways.data_ptr(),
+        sweep.n_levels, sweep.row_dst.data_ptr(), sweep.row_ptr.data_ptr(),
+        sweep.src.data_ptr(), sweep.w.data_ptr(), n_cols, plan.vec,
+        plan.lanes, plan.blocks,
+        torch.cuda.current_stream(dist.device).cuda_stream)
     if err:
         raise RuntimeError(f"edge_relax launch failed: CUDA error {err}")
-    relax_level_.launches += 1
+    relax_sweep_.launches += 1
     return dist
 
 
-relax_level_.launches = 0
+relax_sweep_.launches = 0

@@ -1,7 +1,10 @@
-"""Plain PyTorch versions of the bucketed edge relaxation."""
+"""Plain PyTorch versions of the edge relaxation: the JAX kernel's
+bucketed contract, and a packed sweep (what ``relax_sweep_`` runs)."""
 from typing import Optional
 
 import torch
+
+from .sweep import Sweep
 
 
 def relax_bucketed_ref(gathered: torch.Tensor, w: torch.Tensor,
@@ -20,18 +23,21 @@ def relax_bucketed_ref(gathered: torch.Tensor, w: torch.Tensor,
     return torch.where(row_valid[None, :], new, cur)
 
 
-def relax_level_ref_(dist: torch.Tensor, dst: torch.Tensor,
-                     src_idx: torch.Tensor, w: torch.Tensor,
-                     row_valid: torch.Tensor) -> torch.Tensor:
-    """One plan level, in place on ``dist`` ([S, N]): gather
-    ``dist[:, src_idx]``, relax with :func:`relax_bucketed_ref`, then
-    scatter-min the rows into ``dist[:, dst]`` (split rows of one
-    destination merge there).  Returns ``dist``."""
-    s = dist.shape[0]
-    src = src_idx.reshape(-1).long()
-    gathered = dist.index_select(1, src).reshape(s, *src_idx.shape)
-    dst = dst.long()
-    cur = dist.index_select(1, dst)
-    new = relax_bucketed_ref(gathered, w, cur, row_valid)
-    return dist.scatter_reduce_(1, dst.expand(s, -1), new, "amin",
-                                include_self=True)
+def relax_sweep_ref_(dist: torch.Tensor, sweep: Sweep) -> torch.Tensor:
+    """A packed sweep, level by level, in place on the node-major
+    ``dist`` ([N, S]): gather ``dist[src]``, add ``w``, and segment-min
+    the slots into their rows' destinations (``scatter_reduce_`` with
+    ``include_self``).  Returns ``dist``."""
+    s = dist.shape[1]
+    for i in range(sweep.n_levels):
+        r0, r1 = sweep.level_rows[i:i + 2]
+        e0, e1 = sweep.level_slots[i:i + 2]
+        if e0 == e1:
+            continue
+        counts = (sweep.row_ptr[r0 + 1:r1 + 1] - sweep.row_ptr[r0:r1]).long()
+        dst = sweep.row_dst[r0:r1].long().repeat_interleave(counts)
+        cand = dist.index_select(0, sweep.src[e0:e1].long()) \
+            + sweep.w[e0:e1, None]
+        dist.scatter_reduce_(0, dst[:, None].expand(-1, s), cand, "amin",
+                             include_self=True)
+    return dist

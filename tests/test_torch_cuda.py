@@ -9,13 +9,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.edge_relax import relax_level_, relax_level_ref_
+from repro_torch.kernels.edge_relax import (pack_sweep, relax_sweep_,
+                                            relax_sweep_ref_)
 from repro_torch.kernels.embedding_bag import bag_sum, bag_sum_ref, take_fill
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.tropical_matmul import minplus, minplus_ref
 from repro_torch.kernels.tropical_matmul import ops as mp_ops
-from torchsupport import plan_like_level, t
+from torchsupport import plan_like_level, plan_like_sweep, t
 
 MINPLUS_SHAPES = [(1, 1, 1), (4, 7, 9), (8, 128, 128), (64, 130, 257),
                   (128, 128, 384), (33, 65, 5), (32, 1000, 777)]
@@ -130,13 +131,105 @@ def test_flash_decode_ring_edge_cases_on_card(cuda_device, b, h, kh, dh, s,
                                      (70, 2000, 300, 40),
                                      (32, 4000, 2240, 16)])
 def test_relax_level_kernel_on_card(cuda_device, s, n, m, k):
+    """One level as a one-level sweep, on the node-major state."""
     dist, dst, src, w, valid = plan_like_level(s, n, m, k, seed=m)
-    args = [t(x).to(cuda_device) for x in (dst, src, w, valid)]
-    before = relax_level_.launches
-    got = relax_level_(t(dist).to(cuda_device), *args).cpu()
-    assert relax_level_.launches == before + 1
-    want = relax_level_ref_(t(dist), t(dst), t(src), t(w), t(valid))
-    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    sweep = pack_sweep([(dst, src, w, valid)], n + 1)
+    before = relax_sweep_.launches
+    got = relax_sweep_(t(dist.T).to(cuda_device),
+                       pack_sweep([(dst, src, w, valid)], n + 1,
+                                  cuda_device)).cpu()
+    assert relax_sweep_.launches == before + 1
+    want = relax_sweep_ref_(t(dist.T), sweep)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 7, 32, 33, 64, 128])
+@pytest.mark.parametrize("n,n_levels,m,k,empty", [
+    (20000, 6, 3000, 16, ()),          # many blocks a level, split rows
+    (3000, 5, 400, 40, (2,)),          # long rows; an empty level inside
+    (900, 3, 8, 2, (0, 2))])           # empty first and last levels
+def test_relax_sweep_kernel_on_card(cuda_device, s, n, n_levels, m, k,
+                                    empty):
+    """A multi-level sweep in one launch equals the plain version: each
+    level reads what the one before it wrote, across blocks, so a
+    missing or leaky grid barrier shows.  S covers the 16-byte form
+    (32, 64, 128) and the 4-byte form (1, 7, 33)."""
+    dist, levels = plan_like_sweep(s, n, n_levels, m, k, seed=n + s,
+                                   empty=empty)
+    want = relax_sweep_ref_(t(dist.copy()), pack_sweep(levels, n + 1))
+    before = relax_sweep_.launches
+    got = relax_sweep_(t(dist).to(cuda_device),
+                       pack_sweep(levels, n + 1, cuda_device)).cpu()
+    assert relax_sweep_.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.isinf(got[n]).all()
+    assert not torch.equal(got, t(dist))
+
+
+@pytest.mark.cuda
+def test_relax_sweep_of_many_levels(cuda_device):
+    """A chain of 1,030 one-row levels, each reading what the one before
+    wrote, in one launch: 1,029 grid barriers, and the plain version's
+    answer."""
+    n = 1031
+    levels = [(np.array([i + 1], np.int32), np.array([[i]], np.int32),
+               np.array([[1.0]], np.float32), np.array([True]))
+              for i in range(n - 1)]
+    dist = np.full((n + 1, 5), np.inf, np.float32)
+    dist[0] = 0.0
+    want = relax_sweep_ref_(t(dist.copy()), pack_sweep(levels, n + 1))
+    assert want[n - 1].tolist() == [n - 1.0] * 5
+    before = relax_sweep_.launches
+    got = relax_sweep_(t(dist).to(cuda_device),
+                       pack_sweep(levels, n + 1, cuda_device)).cpu()
+    assert relax_sweep_.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_relax_sweep_without_slots_launches_nothing(cuda_device):
+    dist = torch.rand(50, 32, device=cuda_device)
+    before = relax_sweep_.launches
+    for sweep in (pack_sweep([], 50, cuda_device),
+                  pack_sweep(plan_like_sweep(32, 49, 2, 8, 3, seed=0,
+                                             empty=(0, 1))[1], 50,
+                             cuda_device)):
+        assert torch.equal(relax_sweep_(dist.clone(), sweep), dist)
+    assert relax_sweep_.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("forward", [True, False])
+def test_relax_served_sweeps_on_card(cuda_device, forward):
+    """The full served index's sweep (grid side 200, the serve CLI's
+    build) in one launch, bit-equal to the plain version on the card,
+    from random labels and from a batch's initial state."""
+    from repro_torch.core import BuildConfig, build_hod_fast, grid_road_graph
+    from repro_torch.core import pack_index
+    from repro_torch.core.query import _plan_sweep
+    g = grid_road_graph(200, seed=0)
+    res = build_hod_fast(g, BuildConfig(max_core_nodes=512,
+                                        max_core_edges=1 << 15))
+    ix = pack_index(g, res, chunk=2048, k_cap=16, closure_limit=0,
+                    device="cpu")
+    sweep = _plan_sweep(ix.plan_f if forward else ix.plan_b, ix.n_pad,
+                        cuda_device)
+    assert sweep.n_levels == 8
+    gen = torch.Generator(device=cuda_device).manual_seed(int(forward))
+    rand = torch.randint(0, 200, (ix.n_pad, 32), generator=gen,
+                         device=cuda_device).float()
+    rand[torch.rand(rand.shape, generator=gen, device=cuda_device)
+         < 0.25] = float("inf")
+    init = torch.full((ix.n_pad, 32), float("inf"), device=cuda_device)
+    init[torch.randint(0, ix.n, (32,), generator=gen, device=cuda_device),
+         torch.arange(32, device=cuda_device)] = 0.0
+    for dist in (rand, init):
+        dist[ix.n] = float("inf")
+        got = relax_sweep_(dist.clone(), sweep)
+        want = relax_sweep_ref_(dist.clone(), sweep)
+        assert torch.equal(got, want)
+        assert not torch.equal(got, dist)
 
 
 @pytest.mark.cuda
@@ -205,7 +298,13 @@ def test_wrappers_reject_bad_cuda_inputs(cuda_device):
     with pytest.raises(ValueError):
         minplus(a, torch.ones(3, 5, device=cuda_device).t())  # b strided
     dist, dst, src, w, valid = plan_like_level(2, 10, 4, 1, seed=0)
-    args = [t(x).to(cuda_device) for x in (dist, dst, src, w, valid)]
-    args[2] = args[2].long()
-    with pytest.raises(ValueError, match="int32"):
-        relax_level_(*args)
+    on_card = pack_sweep([(dst, src, w, valid)], 11, cuda_device)
+    labels = t(dist.T).to(cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        relax_sweep_(labels.double(), on_card)
+    with pytest.raises(ValueError, match="contiguous"):
+        relax_sweep_(t(dist).to(cuda_device).t(), on_card)
+    with pytest.raises(ValueError, match="nodes"):
+        relax_sweep_(labels[:10], on_card)
+    with pytest.raises(ValueError, match="the sweep is on"):
+        relax_sweep_(labels, pack_sweep([(dst, src, w, valid)], 11))

@@ -13,7 +13,7 @@ import repro_torch.core as T
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 
 
 def _forbidden(name: str) -> bool:

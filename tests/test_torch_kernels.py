@@ -3,10 +3,12 @@
 On the CPU the port's wrappers run their plain versions; these are held
 bit-exactly (``assert_array_equal``) against the JAX ``ref`` functions
 and the Pallas kernels in interpret mode: every operation is an fp32
-add or a min, which give the same bits in any order.  The CUDA kernels
-themselves run only on a card: ``tests/test_torch_cuda.py`` and
-``chip_smoke.py``.
+add or a min, which give the same bits in any order.  The port's label
+state is node-major (``[N, S]``), the JAX package's ``[S, N]``: the
+comparisons transpose.  The CUDA kernels themselves run only on a card:
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
+import io
 import subprocess
 import sys
 
@@ -15,11 +17,16 @@ import numpy as np
 import pytest
 import torch
 
+import repro.core as J
+import repro_torch.core as T
+from repro.core.build_fast import build_hod_fast as jax_build_hod_fast
 from repro.kernels.edge_relax.ops import relax_bucketed as jax_relax_bucketed
 from repro.kernels.edge_relax.ref import relax_bucketed_ref as jax_relax_ref
 from repro.kernels.tropical_matmul.ops import minplus as jax_minplus
 from repro.kernels.tropical_matmul.ref import minplus_ref as jax_minplus_ref
-from repro_torch.kernels.edge_relax import relax_bucketed_ref, relax_level_
+from repro_torch.core.query import _plan_sweep
+from repro_torch.kernels.edge_relax import (pack_sweep, relax_bucketed_ref,
+                                            relax_sweep_)
 from repro_torch.kernels.tropical_matmul import minplus, minplus_ref
 from torchsupport import plan_like_level, t as _t
 
@@ -106,11 +113,12 @@ def test_relax_bucketed_row_validity_mask(s, n, m, k):
                                      (8, 300, 128, 9), (3, 64, 200, 2),
                                      (33, 500, 96, 16)])
 def test_relax_level_matches_jax_gather_scatter(s, n, m, k):
-    """The fused in-place level update equals the JAX executor's level
-    body, ``dist.at[:, dst].min(relax_bucketed(...))``."""
+    """One level, packed as a one-level sweep and relaxed in place on the
+    node-major state, equals the JAX executor's level body,
+    ``dist.at[:, dst].min(relax_bucketed(...))``."""
     dist, dst, src, w, valid = plan_like_level(s, n, m, k, seed=n + m)
-    got = relax_level_(_t(dist.copy()), _t(dst), _t(src), _t(w),
-                       _t(valid)).numpy()
+    sweep = pack_sweep([(dst, src, w, valid)], n + 1)
+    got = relax_sweep_(_t(dist.T), sweep).numpy().T
     jd = jnp.asarray(dist)
     new = jax_relax_bucketed(jd, jnp.asarray(src), jnp.asarray(w),
                              jd[:, dst], row_valid=jnp.asarray(valid),
@@ -121,12 +129,56 @@ def test_relax_level_matches_jax_gather_scatter(s, n, m, k):
     assert not np.array_equal(got, dist) or m < 8
 
 
+_SWEEP_INDEXES = {}
+
+
+def _sweep_index(name):
+    """(JAX index, the port's index read from its .npz roster)."""
+    if name not in _SWEEP_INDEXES:
+        g = (J.grid_road_graph(10, seed=4) if name == "grid10"
+             else J.power_law_digraph(200, 3, seed=5, weighted=True))
+        res = jax_build_hod_fast(g, J.BuildConfig(max_core_nodes=32,
+                                                  max_core_edges=1024))
+        ixj = J.pack_index(g, res, chunk=64)
+        buf = io.BytesIO()
+        ixj.save(buf)
+        buf.seek(0)
+        with np.load(buf) as z:
+            _SWEEP_INDEXES[name] = (ixj, T.index_from_numpy(z))
+    return _SWEEP_INDEXES[name]
+
+
+@pytest.mark.parametrize("name,forward,use_pallas", [
+    ("grid10", True, True), ("grid10", False, True),
+    ("powerlaw200", True, False), ("powerlaw200", False, False)])
+def test_sweep_matches_jax_run_plan(name, forward, use_pallas):
+    """A whole packed sweep of a real index, in one ``relax_sweep_``
+    call, equals the JAX engine's ``_run_plan`` over the same plan with
+    its ``_relax_level`` body (a ``lax.scan`` over every level)."""
+    ixj, ixt = _sweep_index(name)
+    ej = J.QueryEngine(ixj, use_pallas=use_pallas)
+    plan_t = ixt.plan_f if forward else ixt.plan_b
+    assert plan_t.n_real_levels > 1
+    rng = np.random.default_rng(len(name) + forward)
+    dist = rng.integers(0, 40, (6, ixt.n_pad)).astype(np.float32)
+    dist[rng.random(dist.shape) < 0.4] = np.inf
+    dist[:, ixt.n] = np.inf
+    want = np.asarray(ej._run_plan(jnp.asarray(dist),
+                                   ej._plan_f if forward else ej._plan_b,
+                                   ej._relax_level))
+    sweep = _plan_sweep(plan_t, ixt.n_pad, torch.device("cpu"))
+    got = relax_sweep_(_t(dist.T), sweep).numpy().T
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(got, dist)
+
+
 def test_cpu_tensors_never_launch():
     dist, dst, src, w, valid = plan_like_level(4, 100, 37, 5, seed=0)
-    before = (relax_level_.launches, minplus.launches)
-    relax_level_(_t(dist), _t(dst), _t(src), _t(w), _t(valid))
+    sweep = pack_sweep([(dst, src, w, valid)], 101)
+    before = (relax_sweep_.launches, minplus.launches)
+    relax_sweep_(_t(dist.T), sweep)
     minplus(_t(dist[:, :20]), _t(np.ones((20, 30), np.float32)))
-    assert (relax_level_.launches, minplus.launches) == before
+    assert (relax_sweep_.launches, minplus.launches) == before
 
 
 def test_wrappers_raise_off_the_cpu_path():
@@ -135,12 +187,10 @@ def test_wrappers_raise_off_the_cpu_path():
     meta = dict(device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         minplus(torch.empty(2, 3, **meta), torch.empty(3, 4, **meta))
+    _, dst, src, w, valid = plan_like_level(2, 10, 4, 1, seed=0)
     with pytest.raises(ValueError, match="CUDA"):
-        relax_level_(torch.empty(2, 5, **meta),
-                     torch.empty(3, dtype=torch.int32, **meta),
-                     torch.empty(3, 2, dtype=torch.int32, **meta),
-                     torch.empty(3, 2, **meta),
-                     torch.empty(3, dtype=torch.bool, **meta))
+        relax_sweep_(torch.empty(11, 2, **meta),
+                     pack_sweep([(dst, src, w, valid)], 11))
 
 
 def test_kernel_modules_import_without_toolchain():
