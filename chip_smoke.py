@@ -33,10 +33,22 @@ never JAX or the JAX package.  Phases, each of which asserts:
    kernel launch counters are zeroed just before ``serve_stream`` and
    read just after: ``edge_relax`` must launch twice a batch (one sweep
    each way).  Then one SSSP batch with paths, one ``bellman``-mode
-   batch, and checks against host Dijkstra and against the same engine
-   on the CPU;
-5. profile: ``torch.profiler`` over a few SSD batches prints the device
-   time by kernel and the device's idle share (no assertion);
+   batch, checks against host Dijkstra and against the same engine on
+   the CPU, and a ``torch.profiler`` pass over a few SSD batches
+   (device time by kernel, the device's idle share; no assertion);
+5. the same index served from its block store: ``save_store`` with the
+   raw, delta and f16 codecs into a temporary directory (removed at the
+   end), then phase 4's request stream through
+   ``QueryServer(store_path=...)`` on the card at page-cache budgets of
+   5% and 25% of the decompressed segments (raw), 25% (delta, f16), at
+   queue depth 4, and the raw 25% run again at depth 1.  Each run's
+   answers, cache hits and padded slots must equal phase 4's,
+   ``edge_relax`` must launch once a streamed level, ``tropical_matmul``
+   at least once a batch, and the device must meter the cache's bytes;
+   the hit rate must be below 1 at 5% and above 0 at 25%, delta must
+   read fewer bytes than raw, and depth 1 must equal depth 4 in answers
+   and counters.  One batch of each other query equals the in-memory
+   engine, and a profile of streamed batches follows;
 6. LM serving at full width: first glm4-9b's width at 2 layers in f32,
    whose decode must equal prefill of the extended sequences at atol
    1e-4 (the logic); then all 40 layers, random bf16 weights (18.8 GB)
@@ -113,6 +125,13 @@ LM_REL_L2, LM_F32_ATOL = 2.5e-2, 1e-4
 FD_B, FD_H, FD_KH, FD_DH, FD_S = 32, 32, 2, 128, 32768
 # DLRM rm2: 26 tables of 10^6 rows; serve_bulk's lookups
 RM2_ROWS, RM2_DIM, BULK_BAGS = 26 * 10 ** 6, 64, 262144 * 26
+
+# Phase 5: the phase 4 index saved as a block store with each codec, and
+# phase 4's request stream served from it at page-cache budgets of 5% and
+# 25% of the decompressed segments, at queue depths 4 and 1.
+STORE_CODECS = ("raw", "delta", "f16")
+STORE_RUNS = (("raw", 0.05, 4), ("raw", 0.25, 4), ("delta", 0.25, 4),
+              ("f16", 0.25, 4), ("raw", 0.25, 1))
 
 # The served run whose launch count the kernels line reports: the one at
 # the shape each kernel is timed at.
@@ -508,6 +527,9 @@ def served_index(torch, card: str, side: int, closure_limit: int):
 
 
 def drive_slice(np, torch, card: str, g, ix, dev: str = "cuda") -> dict:
+    """Phase 4: the in-memory server and engine at full size.  Returns
+    the served run's ``launches``, ``requests``, ``results`` and
+    ``stats``, and the ``engine`` (phase 5 holds the store to them)."""
     from repro_torch.core import QueryEngine, dijkstra_reference
     from repro_torch.kernels.edge_relax import relax_sweep_
     from repro_torch.kernels.tropical_matmul import minplus
@@ -608,7 +630,209 @@ def drive_slice(np, torch, card: str, g, ix, dev: str = "cuda") -> dict:
     if dev == "cuda":
         profile_device(torch, lambda: eng.ssd(batch), 8,
                        f"SSD batches of {len(batch)}", card)
-    return launches
+    return {"launches": launches, "requests": requests, "results": results,
+            "stats": st, "engine": eng}
+
+
+# ------------------------------------------------------------- phase 5
+def save_stores(ix, root: str) -> dict:
+    """``ix`` saved as one store a codec under ``root``, the saves run
+    side by side (numpy's zlib releases the interpreter lock); prints
+    each store's bytes on disk and decompressed.  codec -> path."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.storage import segment_bytes, segment_logical_bytes
+
+    def save(codec):
+        path = os.path.join(root, codec)
+        t0 = time.perf_counter()
+        ix.save_store(path, codec=codec)
+        return path, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(STORE_CODECS)) as pool:
+        saved = dict(zip(STORE_CODECS, pool.map(save, STORE_CODECS)))
+    say(f"saved {len(saved)} stores in {time.perf_counter() - t0:.1f} s")
+    for codec, (path, secs) in saved.items():
+        say(f"store {codec}: segments {segment_bytes(path)} bytes on disk, "
+            f"{segment_logical_bytes(path)} decompressed; resident tier "
+            f"{os.path.getsize(os.path.join(path, 'resident.npz'))} bytes; "
+            f"written in {secs:.1f} s")
+    return {codec: path for codec, (path, _) in saved.items()}
+
+
+def serve_store(np, torch, card: str, path: str, budget: int, depth: int,
+                mem: dict, what: str, dev: str = "cuda") -> dict:
+    """Phase 4's request stream through a store-backed server on the
+    card; every answer, cache hit and padded slot must equal phase 4's,
+    ``edge_relax`` launch once a streamed level and the device meter
+    the cache's bytes.  Returns the run's numbers, and its open
+    ``server``."""
+    from repro_torch.kernels.edge_relax import relax_sweep_
+    from repro_torch.kernels.tropical_matmul import minplus
+    from repro_torch.launch.serve import QueryServer
+
+    server = QueryServer(store_path=path, cache_bytes=budget,
+                         batch_size=BATCH, queue_depth=depth,
+                         engine_opts={"device": dev}, warm_start=True)
+    eng, store = server.engine, server.store
+    eng.times.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    relax_sweep_.launches = 0
+    minplus.launches = 0
+    t0 = time.perf_counter()
+    results = server.serve_stream(mem["requests"])
+    wall = time.perf_counter() - t0
+    launches = {"edge_relax": relax_sweep_.launches,
+                "tropical_matmul": minplus.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    st, cs, io = server.stats, store.cache.stats, store.device.stats
+    levels = store.n_real("plan_f") + store.n_real("plan_b")
+    for a, b in zip(mem["results"], results):
+        if (a.source, a.cached) != (b.source, b.cached):
+            raise AssertionError(f"{what}: request {a.source} served "
+                                 "otherwise than in memory")
+        np.testing.assert_array_equal(b.dist, a.dist)
+    ms = mem["stats"]
+    if (st.requests, st.cache_hits, st.padded_slots, st.batches) != (
+            ms.requests, ms.cache_hits, ms.padded_slots, ms.batches):
+        raise AssertionError(f"{what}: served {st}, in memory {ms}")
+    if launches["edge_relax"] != st.batches * levels:
+        raise AssertionError(f"{what}: edge_relax launched "
+                             f"{launches['edge_relax']} times, expected "
+                             f"{st.batches} batches x {levels} levels")
+    if launches["tropical_matmul"] < st.batches:
+        raise AssertionError(f"{what}: tropical_matmul launched fewer "
+                             "times than there were batches")
+    metered = io.bytes_seq + io.bytes_rand
+    if not metered == cs.bytes_read == st.store_bytes_read:
+        raise AssertionError(f"{what}: the device metered {metered} bytes, "
+                             f"the cache read {cs.bytes_read}, the server "
+                             f"{st.store_bytes_read}")
+    lat = np.array([r.latency_s for r in results]) * 1e3
+    t = eng.times
+    run = {"qps": st.requests / wall, "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)),
+           "hit_rate": st.page_hit_rate(), "bytes_read": cs.bytes_read,
+           "bytes_filled": cs.bytes_filled, "peak_gb": peak_gb,
+           "launches": launches, "server": server, "results": results,
+           "counters": (cs.hits, cs.misses, cs.evictions, cs.bytes_read,
+                        cs.bytes_filled),
+           "io": (io.seq_blocks, io.rand_blocks, io.bytes_seq,
+                  io.bytes_rand)}
+    say(f"{what}: {run['qps']:.1f} q/s over {wall:.3f} s, latency p50 "
+        f"{run['p50_ms']:.3f} ms p99 {run['p99_ms']:.3f} ms; page cache "
+        f"hit rate {run['hit_rate']:.4f} ({cs.hits} hits, {cs.misses} "
+        f"misses), {cs.bytes_read} bytes read, {cs.bytes_filled} filled; "
+        f"peak device memory {peak_gb:.3f} GB; launches {launches}; "
+        f"stall (modeled) {st.stall_seconds * 1e3:.1f} ms, measured wait "
+        f"{st.stall_wall_seconds * 1e3:.1f} ms; on {card}")
+    n = max(t.levels, 1)
+    say(f"  host time a streamed level ({t.levels} levels): read "
+        f"{t.read_s / n * 1e6:.1f} us (the reap wait "
+        f"{st.stall_wall_seconds / n * 1e6:.1f} us of it), pack "
+        f"{t.pack_s / n * 1e6:.1f} us, upload {t.upload_s / n * 1e6:.1f} us "
+        f"(buffer wait {eng._stager.wait_s / n * 1e6:.1f} us), launch "
+        f"{t.launch_s / n * 1e6:.1f} us; largest copy "
+        f"{eng._stager.peak_bytes} bytes; pinned host buffers "
+        f"{sum(b is not None and b.is_pinned() for b in eng._stager._bufs)}"
+        " of 2")
+    return run
+
+
+def check_store_modes(np, torch, card: str, eng, mem_eng, batch) -> None:
+    """One batch of each other query of the streaming engine against
+    the in-memory engine on the card."""
+    rng = np.random.default_rng(1)
+    targets = rng.integers(0, mem_eng.index.n, len(batch)).astype(np.int32)
+    d, p = eng.sssp(batch)
+    dm, pm = mem_eng.sssp(batch)
+    np.testing.assert_array_equal(d, dm)
+    np.testing.assert_array_equal(p, pm)
+    want = mem_eng.p2p(batch, targets)
+    for early_term in (True, False):
+        np.testing.assert_array_equal(
+            eng.p2p(batch, targets, early_term=early_term), want)
+    np.testing.assert_array_equal(eng.ssd_within(batch, 60.0),
+                                  mem_eng.ssd_within(batch, 60.0))
+    for a, b in zip(eng.knn(batch, 10), mem_eng.knn(batch, 10)):
+        np.testing.assert_array_equal(a, b)
+    full = mem_eng.ssd(batch)
+    got, done = eng.ssd_bounded(batch, float("inf"))
+    if not done:
+        raise AssertionError("ssd_bounded pruned at an infinite bound")
+    np.testing.assert_array_equal(got, full)
+    farness = np.where(np.isfinite(full), full, 0.0).sum(axis=1,
+                                                        dtype=np.float64)
+    bound_at = float(np.median(farness))
+    got, done = eng.ssd_bounded(batch, bound_at)
+    if done:
+        np.testing.assert_array_equal(got, full)
+    elif not np.all(farness > bound_at):
+        raise AssertionError("ssd_bounded pruned a batch within its bound")
+    say(f"store engine: sssp (dist, pred), p2p (early stop on and off), "
+        f"ssd_within, knn and ssd_bounded ({'completed' if done else 'pruned'}"
+        f" at the median farness) equal the in-memory engine on "
+        f"{len(batch)} sources, on {card}")
+
+
+def drive_store(np, torch, card: str, ix, mem: dict,
+                dev: str = "cuda") -> dict:
+    """Phase 5: phase 4's index served from its block store.  Returns
+    the launches of the raw store's run at 25%."""
+    import shutil
+    import tempfile
+
+    from repro_torch.storage import segment_logical_bytes
+    root = tempfile.mkdtemp(prefix="hod_store_")
+    try:
+        paths = save_stores(ix, root)
+        logical = segment_logical_bytes(paths["raw"])
+        runs = {}
+        for codec, frac, depth in STORE_RUNS:
+            what = f"store {codec} at {frac:.0%}, queue depth {depth}"
+            runs[codec, frac, depth] = run = serve_store(
+                np, torch, card, paths[codec], int(frac * logical), depth,
+                mem, what, dev)
+            if (codec, frac, depth) != ("raw", 0.25, 4):
+                run.pop("server").close()
+            free(torch)
+        raw5, raw25 = runs["raw", 0.05, 4], runs["raw", 0.25, 4]
+        if not raw5["hit_rate"] < 1.0 or not raw25["hit_rate"] > 0.0:
+            raise AssertionError(f"hit rates {raw5['hit_rate']} at 5%, "
+                                 f"{raw25['hit_rate']} at 25%")
+        if not runs["delta", 0.25, 4]["bytes_read"] < raw25["bytes_read"]:
+            raise AssertionError("the delta store read no fewer bytes than "
+                                 "the raw one")
+        sync = runs["raw", 0.25, 1]
+        if (sync["counters"], sync["io"]) != (raw25["counters"],
+                                              raw25["io"]):
+            raise AssertionError(f"queue depth 1 read {sync['counters']} "
+                                 f"{sync['io']}, depth 4 {raw25['counters']}"
+                                 f" {raw25['io']}")
+        for a, b in zip(sync["results"], raw25["results"]):
+            np.testing.assert_array_equal(a.dist, b.dist)
+        say("queue depth 1 equals depth 4: answers, cache counters, I/O")
+
+        eng = raw25["server"].engine
+        batch = np.unique(mem["requests"])[:BATCH].astype(np.int32)
+        check_store_modes(np, torch, card, eng, mem["engine"], batch)
+        if dev == "cuda":
+            split = profile_device(torch, lambda: eng.ssd(batch), 4,
+                                   f"streamed SSD batches of {len(batch)} "
+                                   "(raw store at 25%)", card)
+            copies = sum(us for key, us in
+                         split.get("device_us", {}).items() if "HtoD" in key)
+            say(f"  H2D slab copies {copies:.1f} us/call of "
+                f"{split.get('busy_us', 0.0):.1f} us busy, idle share "
+                f"{split.get('idle_share', float('nan')):.3f}")
+        raw25.pop("server").close()
+        return raw25["launches"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def profile_device(torch, step, reps: int, what: str, card: str) -> dict:
@@ -1210,9 +1434,14 @@ def main() -> int:
     rows["embedding_bag"] = check_bag_sum(torch, card)
     free(torch)
 
-    paths = {name: {"hod_serve_stream": n} for name, n in
-             drive_slice(np, torch, card, g, ix).items()}
-    del g, ix
+    mem = drive_slice(np, torch, card, g, ix)
+    paths = {name: {"hod_serve_stream": n}
+             for name, n in mem["launches"].items()}
+    t0 = time.perf_counter()
+    for name, n in drive_store(np, torch, card, ix, mem).items():
+        paths[name]["hod_store_stream"] = n
+    say(f"store phase took {time.perf_counter() - t0:.1f} s")
+    del g, ix, mem
     free(torch)
     t0 = time.perf_counter()
     paths["flash_decode"] = drive_lm(torch, card)

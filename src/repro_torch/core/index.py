@@ -33,8 +33,9 @@ closure differs in how it is computed: plain torch on the build device.
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
-from typing import List, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,8 +74,8 @@ def core_scan_bytes(ix: "HoDIndex", core_mode: str) -> int:
 #: Index layout version, as the JAX package numbers it.  v1 = chunk
 #: arrays only (plans re-derived at load time); v2 = chunk arrays +
 #: serialized SweepPlans; v3–v5 changed only the disk-resident block
-#: store, which this package does not read yet: their ``.npz`` keys are
-#: those of v2.  Every version's ``.npz`` loads here.
+#: store (``storage/blockfile.py``): their ``.npz`` keys are those of v2.
+#: Every version's ``.npz`` and every v3–v5 store loads here.
 FORMAT_VERSION = 5
 
 
@@ -387,14 +388,34 @@ class HoDIndex:
                      "core_closure", "core_ptr", "core_dst", "core_w",
                      "core_assoc")
 
+    def resident_arrays(self) -> Dict[str, np.ndarray]:
+        """name -> array for every non-plan field (the store's
+        always-in-memory tier)."""
+        return {k: getattr(self, k) for k in self._ARRAY_FIELDS}
+
     def _meta_array(self) -> np.ndarray:
         return np.array([self.n, self.n_pad, self.n_noncore, self.n_core,
                          self.n_levels, self.chunk, self.core_diameter],
                         dtype=np.int64)
 
+    @classmethod
+    def _from_npz(cls, z: Mapping[str, np.ndarray]) -> "HoDIndex":
+        """The plan-less index from an open ``.npz`` mapping (shared by
+        :func:`index_from_numpy` and ``storage.IndexStore``)."""
+        meta = np.asarray(z["meta"])
+        return cls(
+            n=int(meta[0]), n_pad=int(meta[1]), n_noncore=int(meta[2]),
+            n_core=int(meta[3]), n_levels=int(meta[4]), chunk=int(meta[5]),
+            core_diameter=int(meta[6]),
+            **{k: np.asarray(z[k]) for k in cls._ARRAY_FIELDS},
+            format_version=(int(z["format_version"])
+                            if "format_version" in z else 1),
+            k_cap=int(z["k_cap"]) if "k_cap" in z else 16)
+
     def save(self, path: str) -> None:
         """Write the monolithic ``.npz`` layout: chunk arrays + sweep
-        plans (one blob, fully resident on load)."""
+        plans (one blob, fully resident on load).  For the disk-resident
+        serving format see :meth:`save_store`."""
         self.ensure_plans()
         plans = {}
         for field, pre in self._PLAN_PREFIXES:
@@ -409,13 +430,34 @@ class HoDIndex:
             path, meta=self._meta_array(),
             format_version=np.int64(FORMAT_VERSION),
             k_cap=np.int64(self.k_cap),
-            **{k: getattr(self, k) for k in self._ARRAY_FIELDS}, **plans)
+            **self.resident_arrays(), **plans)
+
+    def save_store(self, path: str, block_bytes: int = 65536,
+                   codec: str = "raw") -> None:
+        """Write the disk-resident block store (a directory): the small
+        resident tier plus one block segment file per sweep plan,
+        readable level by level without loading the whole index, and
+        byte-identical to the JAX package's.  ``codec`` picks the
+        per-block compression (``"raw"`` / ``"delta"`` / ``"f16"``; see
+        ``storage/blockfile.py`` and DESIGN.md §6)."""
+        from ..storage.blockfile import save_store
+        save_store(self, path, block_bytes=block_bytes, codec=codec)
+
+    @staticmethod
+    def load_store(path: str) -> "HoDIndex":
+        """Fully materialize a store directory (plans bit-exact).
+        Serving streams through ``storage.IndexStore`` instead."""
+        from ..storage.blockfile import load_store
+        return load_store(path)
 
     @staticmethod
     def load(path: str) -> "HoDIndex":
-        """Load a ``.npz`` index of any format version (v1–v5), written
-        by this package or by the JAX package.  The ``NpzFile`` is closed
-        before return; every array is materialized."""
+        """Load a ``.npz`` index of any format version (v1–v5), or a
+        v3–v5 store directory, written by this package or by the JAX
+        package.  The ``NpzFile`` is closed before return; every array is
+        materialized."""
+        if os.path.isdir(path):
+            return HoDIndex.load_store(path)
         with np.load(path) as z:
             return index_from_numpy(z)
 
@@ -427,21 +469,12 @@ def index_from_numpy(arrays: Mapping[str, np.ndarray]) -> HoDIndex:
     The JAX package writes the same keys, so its index arrays (a loaded
     ``.npz`` or a dict) carry across unchanged.  Version-1 rosters have
     no plans; they are rebuilt here with a warning."""
-    meta = np.asarray(arrays["meta"])
-    version = (int(arrays["format_version"]) if "format_version" in arrays
-               else 1)
-    ix = HoDIndex(
-        n=int(meta[0]), n_pad=int(meta[1]), n_noncore=int(meta[2]),
-        n_core=int(meta[3]), n_levels=int(meta[4]), chunk=int(meta[5]),
-        core_diameter=int(meta[6]),
-        **{k: np.asarray(arrays[k]) for k in HoDIndex._ARRAY_FIELDS},
-        format_version=version,
-        k_cap=int(arrays["k_cap"]) if "k_cap" in arrays else 16)
+    ix = HoDIndex._from_npz(arrays)
     if f"{HoDIndex._PLAN_PREFIXES[0][1]}_dst" not in arrays:
         warnings.warn(
-            f"old-format (v{version}) HoD index without sweep plans — "
-            "rebuilding the SweepPlan layout on the fly; re-save the "
-            "index to persist it.", stacklevel=2)
+            f"old-format (v{ix.format_version}) HoD index without sweep "
+            "plans — rebuilding the SweepPlan layout on the fly; re-save "
+            "the index to persist it.", stacklevel=2)
         return ix.ensure_plans()
     for field, pre in HoDIndex._PLAN_PREFIXES:
         setattr(ix, field, SweepPlan(

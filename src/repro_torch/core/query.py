@@ -22,8 +22,12 @@ levels packed once per engine into compacted rows,
 :func:`~repro_torch.kernels.edge_relax.sweep.pack_sweep`), and for the
 other level bodies a host loop over the plan's *real* levels (padding
 levels are inert and skipped); the core search is one
-``tropical_matmul`` launch.  Which path runs is decided by the engine's
-device: CUDA runs the kernels, the CPU their plain versions.  SSSP
+``tropical_matmul`` launch.  The store-backed engine
+(``storage/stream.py``) shares the plan-independent state
+(:meth:`QueryEngine._init_engine`) and feeds the same level bodies one
+streamed level at a time (:meth:`QueryEngine._run_plan_stream`).
+Which path runs is decided by the engine's device: CUDA runs the
+kernels, the CPU their plain versions.  SSSP
 reconstruction, the P2P backward labels and the threshold mask stay
 plain torch, as they are plain jnp in the JAX package.
 
@@ -41,8 +45,9 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.edge_relax import Sweep, pack_sweep, relax_sweep_
+from ..kernels.edge_relax.sweep import PinnedStager
 from ..kernels.tropical_matmul.ops import minplus
-from .index import HoDIndex, SweepPlan
+from .index import HoDIndex, SweepPlan, plan_level_ids
 
 __all__ = ["QueryEngine", "dijkstra_reference"]
 
@@ -82,13 +87,32 @@ def _plan_levels(plan: SweepPlan, n_pad: int,
             raise ValueError(f"plan {name} index outside [0, {n_pad})")
     levels = []
     for lvl in np.flatnonzero(plan.level_mask):
-        valid = np.flatnonzero(plan.row_valid[lvl])
-        m = int(valid[-1]) + 1 if valid.size else 0
+        m = _real_rows(plan.row_valid[lvl])
         levels.append(tuple(
             torch.from_numpy(np.ascontiguousarray(a[lvl, :m])).to(device)
             for a in (plan.dst, plan.src_idx, plan.w, plan.assoc,
                       plan.row_valid)))
     return levels
+
+
+def _real_rows(valid: np.ndarray) -> int:
+    """Rows of a level up to its last valid one (trailing padding rows
+    are inert)."""
+    rows = np.flatnonzero(valid)
+    return int(rows[-1]) + 1 if rows.size else 0
+
+
+def _upload_slab(slab: Tuple[np.ndarray, ...], n_pad: int,
+                 stager: PinnedStager) -> Level:
+    """One streamed level slab ``(dst, src_idx, w, assoc, row_valid)``
+    on the stager's device, as :func:`_plan_levels` keeps a level: rows
+    up to the last valid one, indices checked on the host."""
+    dst, src_idx = slab[:2]
+    m = _real_rows(slab[4])
+    for name, idx in (("dst", dst[:m]), ("src_idx", src_idx[:m])):
+        if idx.size and (idx.min() < 0 or idx.max() >= n_pad):
+            raise ValueError(f"slab {name} index outside [0, {n_pad})")
+    return tuple(stager.stage([a[:m] for a in slab]))
 
 
 def _plan_sweep(plan: SweepPlan, n_pad: int, device: torch.device) -> Sweep:
@@ -131,6 +155,22 @@ class QueryEngine:
 
     def __init__(self, index: HoDIndex, core_mode: str = "closure",
                  eps: float = 0.0, k_cap: int = 16, device=None):
+        self._init_engine(index, core_mode, eps, device)
+        index.ensure_plans(k_cap)   # no-op for pack_index/v2+-load indexes
+        dev = self.device
+        self._levels_f = _plan_levels(index.plan_f, index.n_pad, dev)
+        self._levels_b = _plan_levels(index.plan_b, index.n_pad, dev)
+        self._levels_c = _plan_levels(index.plan_core, index.n_pad, dev)
+        self._sweep_f = _plan_sweep(index.plan_f, index.n_pad, dev)
+        self._sweep_b = _plan_sweep(index.plan_b, index.n_pad, dev)
+
+    def _init_engine(self, index: HoDIndex, core_mode: str, eps: float,
+                     device) -> None:
+        """Plan-independent engine state: everything a level body or the
+        core search needs that is not a plan on the device.  Shared with
+        the store-backed ``storage.StreamingQueryEngine``, which feeds
+        plan levels from the page cache instead of uploading them
+        whole."""
         if core_mode not in ("closure", "bellman", "dijkstra"):
             raise ValueError(core_mode)
         self.device = resolve_device(device)
@@ -140,14 +180,7 @@ class QueryEngine:
         self.index = index
         self.core_mode = core_mode
         self.eps = float(eps)
-
-        index.ensure_plans(k_cap)   # no-op for pack_index/v2+-load indexes
         dev = self.device
-        self._levels_f = _plan_levels(index.plan_f, index.n_pad, dev)
-        self._levels_b = _plan_levels(index.plan_b, index.n_pad, dev)
-        self._levels_c = _plan_levels(index.plan_core, index.n_pad, dev)
-        self._sweep_f = _plan_sweep(index.plan_f, index.n_pad, dev)
-        self._sweep_b = _plan_sweep(index.plan_b, index.n_pad, dev)
         self._perm = torch.from_numpy(index.perm.astype(np.int64)).to(dev)
         self._closure = (torch.from_numpy(index.core_closure).to(dev)
                          if core_mode == "closure" else None)
@@ -155,6 +188,12 @@ class QueryEngine:
         # scans it; closure/dijkstra engines skip the [C, C] build.
         self._core_adj = (torch.from_numpy(_dense_core_adjacency(index))
                           .to(dev) if core_mode == "bellman" else None)
+        # The graph level behind each real plan level, in scan order
+        # (DESIGN.md §7), from the resident chunk arrays: the bounded
+        # sweeps of the store-backed engine skip provably inert levels
+        # by it without materializing a plan.
+        self._level_ids_f = plan_level_ids(index, forward=True)
+        self._level_ids_b = plan_level_ids(index, forward=False)
 
     # ------------------------------------------------------- plan executor
     @staticmethod
@@ -166,6 +205,20 @@ class QueryEngine:
         backward-label sweep walks ``plan_b`` in ascending rank)."""
         for lvl in (reversed(levels) if reverse else levels):
             state = level_body(state, *lvl)
+        return state
+
+    def _run_plan_stream(self, state: torch.Tensor, slabs, level_body,
+                         stager: PinnedStager) -> torch.Tensor:
+        """The streamed twin of :meth:`_run_plan`: ``slabs`` yields host
+        ``(dst, src_idx, w, assoc, valid)`` level slabs in scan order
+        (from the store's page cache, DESIGN.md §6); each one's rows up
+        to its last valid row move to the device in one copy
+        (:func:`_upload_slab`) and ``level_body`` runs on them.  One
+        level lives on the device at a time."""
+        for slab in slabs:
+            level = _upload_slab(slab, self.index.n_pad, stager)
+            state = level_body(state, *level)
+            del level
         return state
 
     @staticmethod
@@ -260,17 +313,23 @@ class QueryEngine:
         state[rows, torch.arange(s, device=self.device)] = 0.0
         return state
 
-    def _forward_core(self, sources_perm: np.ndarray,
-                      d: float = None) -> torch.Tensor:
-        """Forward search (§5.1) + core search (§5.2): the shared first
-        two phases of SSD, P2P, and threshold queries (``d``)."""
-        dist = self._relax_sweep(self._init_state(sources_perm),
-                                 self._sweep_f, d)
+    def _core_search(self, dist: torch.Tensor) -> torch.Tensor:
+        """The core search (§5.2) in the engine's core mode: the host
+        heap for ``dijkstra``, else :meth:`_core_update`."""
+        if not self.index.n_core:
+            return dist
         if self.core_mode == "dijkstra":
             host = dist.cpu().numpy()                   # [n_pad, S]
             self._core_dijkstra_host(host.T)
             return torch.from_numpy(host).to(self.device)
         return self._core_update(dist)
+
+    def _forward_core(self, sources_perm: np.ndarray,
+                      d: float = None) -> torch.Tensor:
+        """Forward search (§5.1) + core search (§5.2): the shared first
+        two phases of SSD, P2P, and threshold queries (``d``)."""
+        return self._core_search(self._relax_sweep(
+            self._init_state(sources_perm), self._sweep_f, d))
 
     def _ssd_dev(self, sources_perm: np.ndarray) -> torch.Tensor:
         dist = self._forward_core(sources_perm)

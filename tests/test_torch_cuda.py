@@ -308,3 +308,97 @@ def test_wrappers_reject_bad_cuda_inputs(cuda_device):
         relax_sweep_(labels[:10], on_card)
     with pytest.raises(ValueError, match="the sweep is on"):
         relax_sweep_(labels, pack_sweep([(dst, src, w, valid)], 11))
+
+
+# ------------------------------------------------- the store-backed engine
+_STORES = {}
+
+
+def _small_store(tmp_path_factory):
+    """A road-grid index (900 nodes) and its raw block store, built once
+    on the CPU: (store path, index)."""
+    if not _STORES:
+        from repro_torch.core import (BuildConfig, build_hod_fast,
+                                      grid_road_graph, pack_index)
+        g = grid_road_graph(30, seed=1)
+        res = build_hod_fast(g, BuildConfig(max_core_nodes=64,
+                                            max_core_edges=4096))
+        ix = pack_index(g, res, chunk=256, k_cap=16, closure_limit=4096,
+                        device="cpu")
+        path = str(tmp_path_factory.mktemp("store") / "raw")
+        ix.save_store(path, block_bytes=4096)
+        _STORES["raw"] = (path, ix)
+    return _STORES["raw"]
+
+
+def _stream_engine(path, device, cache_bytes=None, **kw):
+    from repro_torch.storage import (IndexStore, PageCache,
+                                     StreamingQueryEngine)
+    return StreamingQueryEngine(IndexStore(path,
+                                           cache=PageCache(cache_bytes)),
+                                device=device, **kw)
+
+
+@pytest.mark.cuda
+def test_pinned_stager_waits_for_its_copies(cuda_device):
+    """Levels staged while the stream is held by a long kernel: a buffer
+    refilled before its copy ran would hand the card another level's
+    bytes."""
+    from repro_torch.kernels.edge_relax.sweep import PinnedStager
+    stager = PinnedStager(cuda_device)
+    torch.cuda._sleep(100_000_000)          # hold the stream ~50 ms
+    staged = [stager.stage([np.full(4099, i, np.int32),
+                            np.full((3, 5), i, np.float32)])
+              for i in range(8)]
+    for i, (a, b) in enumerate(staged):
+        assert (a == i).all().item() and (b == i).all().item()
+    assert stager.copies == 8 and stager.wait_s > 0
+    assert all(b.is_pinned() for b in stager._bufs)
+
+
+@pytest.mark.cuda
+def test_streaming_engine_on_card_equals_cpu(cuda_device, tmp_path_factory):
+    """24 batches at a page cache of 0 bytes (every level misses, so
+    every level is read, packed and copied anew) through the pinned
+    double buffer: the card's answers equal the CPU engine's."""
+    path, ix = _small_store(tmp_path_factory)
+    gpu = _stream_engine(path, cuda_device, 0, queue_depth=4)
+    cpu = _stream_engine(path, "cpu", 0, prefetch=False)
+    try:
+        rng = np.random.default_rng(0)
+        for i in range(24):
+            src = rng.integers(0, ix.n, 32).astype(np.int32)
+            np.testing.assert_array_equal(gpu.ssd(src), cpu.ssd(src))
+            if i % 6 == 0:
+                for a, b in zip(gpu.sssp(src), cpu.sssp(src)):
+                    np.testing.assert_array_equal(a, b)
+        assert gpu.store.cache.stats.hits == 0
+        assert all(b is not None and b.is_pinned()
+                   for b in gpu._stager._bufs)
+    finally:
+        gpu.close()
+        cpu.close()
+
+
+@pytest.mark.cuda
+def test_edge_relax_launches_once_a_streamed_level(cuda_device,
+                                                   tmp_path_factory):
+    path, ix = _small_store(tmp_path_factory)
+    eng = _stream_engine(path, cuda_device)
+    try:
+        levels = 0
+        for plan in (ix.plan_f, ix.plan_b):
+            for lvl in np.flatnonzero(plan.level_mask):
+                keep = plan.row_valid[lvl][:, None] \
+                    & np.isfinite(plan.w[lvl])
+                levels += bool(keep.any())
+        assert levels == eng.store.n_real("plan_f") \
+            + eng.store.n_real("plan_b")
+        src = np.arange(16, dtype=np.int32)
+        before, copies = relax_sweep_.launches, eng._stager.copies
+        eng.ssd(src)
+        assert relax_sweep_.launches - before == levels
+        assert eng._stager.copies - copies == levels
+        assert eng.times.levels == levels
+    finally:
+        eng.close()

@@ -46,6 +46,9 @@ def test_import_loads_neither_jax_nor_repro():
             "import repro_torch.models.layers, repro_torch.models.transformer\n"
             "import repro_torch.models.dlrm, repro_torch.models.common\n"
             "import repro_torch.models.convert\n"
+            "import repro_torch.storage, repro_torch.storage.stream\n"
+            "import repro_torch.storage.pipeline\n"
+            "from repro_torch.storage import StreamingQueryEngine\n"
             "from repro_torch.configs import get_arch\n"
             "get_arch('glm4-9b'), get_arch('dlrm-rm2')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -92,3 +95,33 @@ def test_model_entry_points_default_to_the_card():
             call()
     p = transformer.init_params(glm4_9b.smoke_config(), device="cpu")
     assert p["layers"][0]["wq"].device.type == "cpu"
+
+
+def test_store_engine_defaults_to_the_card(tmp_path):
+    """The store-backed engine and server run on the card unless told
+    ``device="cpu"``; without a card they raise, and leave no segment
+    file open."""
+    from repro_torch.launch.serve import QueryServer
+    from repro_torch.storage import IndexStore, StreamingQueryEngine
+    g = T.grid_road_graph(8, seed=2)
+    res = T.build_hod_fast(g, T.BuildConfig(max_core_nodes=16,
+                                            max_core_edges=1024))
+    ix = T.pack_index(g, res, chunk=64, device="cpu")
+    path = str(tmp_path / "store")
+    ix.save_store(path, block_bytes=1024)
+    if torch.cuda.is_available():
+        eng = StreamingQueryEngine(IndexStore(path))
+        assert eng.device.type == "cuda"
+        eng.close()
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamingQueryEngine(IndexStore(path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        QueryServer(store_path=path)
+    server = QueryServer(store_path=path, engine_opts={"device": "cpu"})
+    try:
+        np.testing.assert_array_equal(
+            server.engine.ssd(np.array([0, 63])),
+            T.dijkstra_reference(g, [0, 63]))
+    finally:
+        server.close()
