@@ -49,6 +49,27 @@ never JAX or the JAX package.  Phases, each of which asserts:
    read fewer bytes than raw, and depth 1 must equal depth 4 in answers
    and counters.  One batch of each other query equals the in-memory
    engine, and a profile of streamed batches follows;
+8. the serving front end at full width, after phase 5 and on its
+   engine and raw store: ``configs/serve_mixed.yaml`` (ssd:p2p = 1:3,
+   400 requests at 400 req/s Poisson, batch 16, ``max_wait_ms`` 60, ssd
+   deadline 200 ms, p2p 60 ms with a class batch of 8) through
+   ``server_from_config`` and the serve CLI's ``_open_loop`` over
+   ``mixed_request_stream``: in memory under ``slo`` and under
+   ``fifo``, and from the raw store at 25% under ``slo``.  Every
+   future must resolve to phase 4's engine's answer, bit for bit, and
+   ``slo_report`` must hold the ``ssd``, ``p2p`` and ``p2p.cached``
+   classes (per-class p50/p99 and misses printed).  Then the tracer as
+   a pure observer: phase 4's stream served closed-loop with a
+   ``Tracer`` and without, in memory and from the raw store at 25%,
+   must give the same answers, ``ServerStats``, ``CacheStats`` and
+   ``IOStats``, a trace that ``validate_chrome_trace`` accepts, the
+   whole span taxonomy from the store, and the same query-thread
+   sequence at queue depths 1 and 4 (traced and untraced q/s over warm
+   passes printed, not asserted).  Last, the paper's closeness
+   application: ``topk_closeness(k=10)`` over 2,048 seeded candidates
+   in memory and from the store (bounded sweeps) must agree in nodes
+   and farness, and ``estimate_closeness(eps=0.1, batch_size=64)``
+   runs in memory;
 6. LM serving at full width: first glm4-9b's width at 2 layers in f32,
    whose decode must equal prefill of the extended sequences at atol
    1e-4 (the logic); then all 40 layers, random bf16 weights (18.8 GB)
@@ -71,14 +92,18 @@ Each path frees its memory before the next.  Every launch counter is
 zeroed just before a served run and read just after it.  It prints one
 JSON line with every kernel's numbers (``launches`` is the count of the
 run at the kernel's timed shape, ``launches_by_path`` each served run's
-own count), the card's name and power limit, and, last,
+own count, phase 8's paths ``hod_mixed_slo``,
+``hod_store_mixed_slo`` and ``hod_topk_store`` included), the card's
+name and power limit, and, last,
 ``{"ok": true, "device": {...}}``.  Any failure
 exits non-zero before those lines; without a card, or outside a
 checkout, it exits non-zero at once.
 """
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -132,6 +157,14 @@ RM2_ROWS, RM2_DIM, BULK_BAGS = 26 * 10 ** 6, 64, 262144 * 26
 STORE_CODECS = ("raw", "delta", "f16")
 STORE_RUNS = (("raw", 0.05, 4), ("raw", 0.25, 4), ("delta", 0.25, 4),
               ("f16", 0.25, 4), ("raw", 0.25, 1))
+
+# Phase 8: the serving front end. The mixed config, top-k closeness over
+# a seeded candidate set, closeness estimation, and the warm passes of
+# the tracer's q/s comparison.
+MIXED_CONFIG = "configs/serve_mixed.yaml"
+TOPK_K, TOPK_CANDIDATES = 10, 2048
+CLOSENESS_EPS, CLOSENESS_BATCH = 0.1, 64
+OVERHEAD_PASSES = 5
 
 # The served run whose launch count the kernels line reports: the one at
 # the shape each kernel is timed at.
@@ -779,60 +812,338 @@ def check_store_modes(np, torch, card: str, eng, mem_eng, batch) -> None:
         f"{len(batch)} sources, on {card}")
 
 
-def drive_store(np, torch, card: str, ix, mem: dict,
-                dev: str = "cuda") -> dict:
-    """Phase 5: phase 4's index served from its block store.  Returns
-    the launches of the raw store's run at 25%."""
-    import shutil
-    import tempfile
-
+def drive_store(np, torch, card: str, ix, mem: dict, root: str,
+                dev: str = "cuda") -> tuple:
+    """Phase 5: phase 4's index served from its block store, saved under
+    ``root`` (left for phase 8; the caller removes it).  Returns the
+    launches of the raw store's run at 25% and the raw store's path."""
     from repro_torch.storage import segment_logical_bytes
-    root = tempfile.mkdtemp(prefix="hod_store_")
-    try:
-        paths = save_stores(ix, root)
-        logical = segment_logical_bytes(paths["raw"])
-        runs = {}
-        for codec, frac, depth in STORE_RUNS:
-            what = f"store {codec} at {frac:.0%}, queue depth {depth}"
-            runs[codec, frac, depth] = run = serve_store(
-                np, torch, card, paths[codec], int(frac * logical), depth,
-                mem, what, dev)
-            if (codec, frac, depth) != ("raw", 0.25, 4):
-                run.pop("server").close()
-            free(torch)
-        raw5, raw25 = runs["raw", 0.05, 4], runs["raw", 0.25, 4]
-        if not raw5["hit_rate"] < 1.0 or not raw25["hit_rate"] > 0.0:
-            raise AssertionError(f"hit rates {raw5['hit_rate']} at 5%, "
-                                 f"{raw25['hit_rate']} at 25%")
-        if not runs["delta", 0.25, 4]["bytes_read"] < raw25["bytes_read"]:
-            raise AssertionError("the delta store read no fewer bytes than "
-                                 "the raw one")
-        sync = runs["raw", 0.25, 1]
-        if (sync["counters"], sync["io"]) != (raw25["counters"],
-                                              raw25["io"]):
-            raise AssertionError(f"queue depth 1 read {sync['counters']} "
-                                 f"{sync['io']}, depth 4 {raw25['counters']}"
-                                 f" {raw25['io']}")
-        for a, b in zip(sync["results"], raw25["results"]):
-            np.testing.assert_array_equal(a.dist, b.dist)
-        say("queue depth 1 equals depth 4: answers, cache counters, I/O")
+    paths = save_stores(ix, root)
+    logical = segment_logical_bytes(paths["raw"])
+    runs = {}
+    for codec, frac, depth in STORE_RUNS:
+        what = f"store {codec} at {frac:.0%}, queue depth {depth}"
+        runs[codec, frac, depth] = run = serve_store(
+            np, torch, card, paths[codec], int(frac * logical), depth,
+            mem, what, dev)
+        if (codec, frac, depth) != ("raw", 0.25, 4):
+            run.pop("server").close()
+        free(torch)
+    raw5, raw25 = runs["raw", 0.05, 4], runs["raw", 0.25, 4]
+    if not raw5["hit_rate"] < 1.0 or not raw25["hit_rate"] > 0.0:
+        raise AssertionError(f"hit rates {raw5['hit_rate']} at 5%, "
+                             f"{raw25['hit_rate']} at 25%")
+    if not runs["delta", 0.25, 4]["bytes_read"] < raw25["bytes_read"]:
+        raise AssertionError("the delta store read no fewer bytes than "
+                             "the raw one")
+    sync = runs["raw", 0.25, 1]
+    if (sync["counters"], sync["io"]) != (raw25["counters"],
+                                          raw25["io"]):
+        raise AssertionError(f"queue depth 1 read {sync['counters']} "
+                             f"{sync['io']}, depth 4 {raw25['counters']}"
+                             f" {raw25['io']}")
+    for a, b in zip(sync["results"], raw25["results"]):
+        np.testing.assert_array_equal(a.dist, b.dist)
+    say("queue depth 1 equals depth 4: answers, cache counters, I/O")
 
-        eng = raw25["server"].engine
-        batch = np.unique(mem["requests"])[:BATCH].astype(np.int32)
-        check_store_modes(np, torch, card, eng, mem["engine"], batch)
-        if dev == "cuda":
-            split = profile_device(torch, lambda: eng.ssd(batch), 4,
-                                   f"streamed SSD batches of {len(batch)} "
-                                   "(raw store at 25%)", card)
-            copies = sum(us for key, us in
-                         split.get("device_us", {}).items() if "HtoD" in key)
-            say(f"  H2D slab copies {copies:.1f} us/call of "
-                f"{split.get('busy_us', 0.0):.1f} us busy, idle share "
-                f"{split.get('idle_share', float('nan')):.3f}")
-        raw25.pop("server").close()
-        return raw25["launches"]
+    eng = raw25["server"].engine
+    batch = np.unique(mem["requests"])[:BATCH].astype(np.int32)
+    check_store_modes(np, torch, card, eng, mem["engine"], batch)
+    if dev == "cuda":
+        split = profile_device(torch, lambda: eng.ssd(batch), 4,
+                               f"streamed SSD batches of {len(batch)} "
+                               "(raw store at 25%)", card)
+        copies = sum(us for key, us in
+                     split.get("device_us", {}).items() if "HtoD" in key)
+        say(f"  H2D slab copies {copies:.1f} us/call of "
+            f"{split.get('busy_us', 0.0):.1f} us busy, idle share "
+            f"{split.get('idle_share', float('nan')):.3f}")
+    raw25.pop("server").close()
+    return raw25["launches"], paths["raw"]
+
+
+# ------------------------------------------------------------- phase 8
+def launch_counts(reset: bool = False) -> dict:
+    """The HoD kernels' launch counters (zeroed first with ``reset``)."""
+    from repro_torch.kernels.edge_relax import relax_sweep_
+    from repro_torch.kernels.tropical_matmul import minplus
+    if reset:
+        relax_sweep_.launches = 0
+        minplus.launches = 0
+    return {"edge_relax": relax_sweep_.launches,
+            "tropical_matmul": minplus.launches}
+
+
+def mixed_oracle(np, eng, stream) -> dict:
+    """Phase 4's engine's answer to every distinct request of a mixed
+    stream: an ``ssd`` row per source, a ``p2p`` scalar per pair."""
+    srcs = sorted({a[0] for m, a in stream if m == "ssd"})
+    pairs = sorted({a for m, a in stream if m == "p2p"})
+    want = {}
+    for lo in range(0, len(srcs), BATCH):
+        chunk = np.asarray(srcs[lo:lo + BATCH], np.int32)
+        for s_, row in zip(chunk.tolist(), eng.ssd(chunk)):
+            want["ssd", (s_,)] = row
+    if pairs:
+        pa = np.asarray(pairs, np.int32)
+        for pair, d in zip(pairs, eng.p2p(pa[:, 0], pa[:, 1])):
+            want["p2p", pair] = np.float32(d)
+    return want
+
+
+def serve_mixed(np, torch, card: str, server, stream, rate: float,
+                want: dict, what: str, dev: str) -> dict:
+    """``stream`` through ``server``'s async path at Poisson ``rate``
+    (``_open_loop``, the serve CLI's load generator); every future must
+    resolve to phase 4's answer, and the SLO report must hold the ssd,
+    p2p and cached p2p classes.  Prints each class's p50/p99 and misses.
+    Returns the run's launches, q/s and rows."""
+    import asyncio
+
+    from repro_torch.launch.serve import _open_loop
+    server.warmup()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    results = asyncio.run(_open_loop(server, stream, rate))
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    if len(results) != len(stream):
+        raise AssertionError(f"{what}: {len(results)} of {len(stream)} "
+                             "requests answered")
+    for (mode, args), r in zip(stream, results):
+        if (r.mode, (r.source,) if r.target is None
+                else (r.source, r.target)) != (mode, args):
+            raise AssertionError(f"{what}: request {mode}{args} answered "
+                                 f"as {r.mode} {r.source} {r.target}")
+        np.testing.assert_array_equal(r.dist, want[mode, args])
+    rows = {r["cls"]: r for r in server.slo_report()}
+    if not {"ssd", "p2p", "p2p.cached"} <= set(rows):
+        raise AssertionError(f"{what}: slo_report rows {sorted(rows)}")
+    if dev == "cuda" and not (launches["edge_relax"] > 0
+                              and launches["tropical_matmul"] > 0):
+        raise AssertionError(f"{what}: kernel launches {launches}")
+    st = server.stats
+    say(f"{what}: {len(stream)} requests in {wall:.3f} s at "
+        f"{rate:g} req/s offered = {len(stream) / wall:.1f} q/s; "
+        f"{st.batches} batches, {st.cache_hits} row-cache hits, "
+        f"{st.padded_slots} padded slots, {st.deadline_misses} deadline "
+        f"misses; engine busy {st.busy_seconds:.3f} s "
+        f"({st.throughput():.1f} q/s busy basis); launches {launches}; "
+        f"on {card}")
+    for cls, r in rows.items():
+        missed = (f", {r['deadline_misses']} past {r['deadline_ms']:g} ms"
+                  if r["deadline_ms"] and cls == r["mode"] else "")
+        say(f"  class {cls:<11} p50 {r['p50_ms']:9.3f} ms  p99 "
+            f"{r['p99_ms']:9.3f} ms  ({r['requests']} answered{missed})")
+    return {"launches": launches, "qps": len(stream) / wall,
+            "rows": rows, "stats": st}
+
+
+def traced_pair(np, torch, card: str, make, requests, what: str,
+                store: bool) -> None:
+    """The tracer is a pure observer: ``requests`` served closed-loop by
+    ``make(tracer, depth)`` with a tracer and without give the same
+    answers, ``ServerStats`` counters, ``CacheStats`` and ``IOStats``;
+    the trace validates; a store trace holds the whole span taxonomy,
+    and its query-thread sequence is the same at queue depths 1 and 4.
+    Then the same two servers serve the stream again, row cache cleared
+    before each pass (the tracer too): traced and untraced q/s over the
+    warm passes, the third on."""
+    import dataclasses
+    import threading
+
+    from repro_torch.obs import Tracer, validate_chrome_trace
+    me = threading.current_thread().name
+
+    def counters(server):
+        st = dataclasses.asdict(server.stats)
+        for f in ("busy_seconds", "stall_seconds", "stall_wall_seconds",
+                  "ttfl_seconds"):
+            st.pop(f)
+        cs = (dataclasses.astuple(server.store.cache.stats) if store
+              else None)
+        return st, cs, dataclasses.astuple(server.modeled_io())
+
+    tr = Tracer()
+    servers = {True: make(tr, 4), False: make(None, 4)}
+    qps = {True: [], False: []}
+    try:
+        first = {}
+        for traced_on, server in servers.items():
+            t0 = time.perf_counter()
+            res = server.serve_stream(requests)
+            qps[traced_on].append(len(requests) / (time.perf_counter() - t0))
+            first[traced_on] = (res, counters(server))
+        for a, b in zip(first[True][0], first[False][0]):
+            if (a.source, a.cached) != (b.source, b.cached):
+                raise AssertionError(f"{what}: traced request {a.source} "
+                                     "served otherwise")
+            np.testing.assert_array_equal(a.dist, b.dist)
+        if first[True][1] != first[False][1]:
+            raise AssertionError(f"{what}: traced counters "
+                                 f"{first[True][1]} differ from untraced "
+                                 f"{first[False][1]}")
+        problems = validate_chrome_trace(tr.chrome())
+        if problems:
+            raise AssertionError(f"{what}: invalid Chrome trace "
+                                 f"{problems[:5]}")
+        names = {e["name"] for e in tr.events()}
+        need = {"query.ssd", "jit.dispatch"}
+        if store:
+            need |= {"pipe.submit", "level.read", "level.decode",
+                     "level.wait", "level.relax", "core.search",
+                     "cache.hit", "cache.miss", "device.read"}
+            tr1 = Tracer()
+            server = make(tr1, 1)
+            try:
+                server.serve_stream(requests)
+            finally:
+                server.close()
+            if tr1.sequence(me) != tr.sequence(me):
+                raise AssertionError(f"{what}: the query thread's span "
+                                     "sequence differs between depths 1 "
+                                     "and 4")
+        if not need <= names:
+            raise AssertionError(f"{what}: trace lacks "
+                                 f"{sorted(need - names)}")
+        say(f"{what}: traced run equals untraced (answers, ServerStats, "
+            f"{'CacheStats, ' if store else ''}IOStats); "
+            f"{len(tr.events())} events, valid Chrome trace"
+            + ("; query-thread sequence equal at depths 1 and 4" if store
+               else ""))
+        for _ in range(OVERHEAD_PASSES - 1):
+            for traced_on, server in servers.items():
+                server._cache.clear()
+                tr.clear()
+                t0 = time.perf_counter()
+                server.serve_stream(requests)
+                qps[traced_on].append(len(requests)
+                                      / (time.perf_counter() - t0))
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        for server in servers.values():
+            server.close()
+    warm = {k: float(np.median(v[2:])) for k, v in qps.items()}
+    say(f"  {what}, passes 3-{OVERHEAD_PASSES} (median, the row cache "
+        f"cleared before each): untraced {warm[False]:.1f} q/s, traced "
+        f"{warm[True]:.1f} q/s ({warm[True] / warm[False] - 1:+.1%}); "
+        f"every pass untraced {[round(x, 1) for x in qps[False]]}, traced "
+        f"{[round(x, 1) for x in qps[True]]}; on {card}")
+
+
+def drive_mixed(np, torch, card: str, g, mem: dict, raw_path: str,
+                dev: str = "cuda") -> dict:
+    """Phase 8: the serving front end at full width — the mixed ssd:p2p
+    config under both schedulers in memory and under ``slo`` from the
+    raw store at 25%, the tracer as a pure observer, and the paper's
+    closeness application.  Returns the launches of each new path."""
+    from repro_torch.config import SERVE_DEFAULTS, Config
+    from repro_torch.core import estimate_closeness, topk_closeness
+    from repro_torch.launch.serve import (QueryServer, mixed_request_stream,
+                                          server_from_config)
+    from repro_torch.storage import segment_logical_bytes
+    eng = mem["engine"]
+    budget = int(0.25 * segment_logical_bytes(raw_path))
+    path = str(ROOT / MIXED_CONFIG)
+    base = Config(path, defaults=SERVE_DEFAULTS)
+    n_req, rate = int(base.get("serve.requests")), float(base.get("serve.rate"))
+    stream = mixed_request_stream(base, g.n, n_req, np.random.default_rng(0))
+    want = mixed_oracle(np, eng, stream)
+    say(f"mixed stream ({MIXED_CONFIG}): {n_req} requests, "
+        f"{sum(m == 'p2p' for m, _ in stream)} p2p over "
+        f"{sum(k[0] == 'p2p' for k in want)} pairs, "
+        f"{sum(m == 'ssd' for m, _ in stream)} ssd; batch "
+        f"{base.get('serve.batch')}, max_wait_ms "
+        f"{base.get('serve.max_wait_ms')}, slo {base.get('serve.slo')}")
+    paths = {}
+    runs = {}
+    for sched in ("slo", "fifo"):
+        cfg = Config(path, defaults=SERVE_DEFAULTS,
+                     overrides={"serve": {"scheduler": sched}})
+        server = server_from_config(cfg, engine=eng)
+        runs[sched] = serve_mixed(np, torch, card, server, stream, rate,
+                                  want, f"mixed in memory, {sched}", dev)
+        server.close()
+    paths["hod_mixed_slo"] = runs["slo"]["launches"]
+
+    cfg = Config(path, defaults=SERVE_DEFAULTS)
+    server = server_from_config(cfg, store_path=raw_path,
+                                cache_bytes=budget,
+                                engine_opts={"device": dev})
+    try:
+        run = serve_mixed(np, torch, card, server, stream, rate, want,
+                          "mixed from the raw store at 25%, slo", dev)
+        st = run["stats"]
+        say(f"  page cache hit rate {st.page_hit_rate():.4f} "
+            f"({st.page_hits} hits, {st.page_misses} misses), "
+            f"{st.store_bytes_read} bytes read")
+    finally:
+        server.close()
+    paths["hod_store_mixed_slo"] = run["launches"]
+    free(torch)
+
+    requests = mem["requests"]
+
+    def in_memory(tracer, depth):
+        return QueryServer(eng, batch_size=BATCH, tracer=tracer,
+                           warm_start=True)
+
+    def from_store(tracer, depth):
+        return QueryServer(store_path=raw_path, cache_bytes=budget,
+                           batch_size=BATCH, queue_depth=depth,
+                           tracer=tracer, engine_opts={"device": dev},
+                           warm_start=True)
+
+    traced_pair(np, torch, card, in_memory, requests,
+                "tracer, in memory", store=False)
+    eng.tracer = None
+    traced_pair(np, torch, card, from_store, requests,
+                "tracer, raw store at 25%", store=True)
+    free(torch)
+
+    cand = np.random.default_rng(0).choice(g.n, TOPK_CANDIDATES,
+                                           replace=False)
+    t0 = time.perf_counter()
+    full = topk_closeness(eng, k=TOPK_K, candidates=cand)
+    full_s = time.perf_counter() - t0
+    server = QueryServer(store_path=raw_path, cache_bytes=budget,
+                         batch_size=BATCH, engine_opts={"device": dev},
+                         warm_start=True)
+    try:
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        bounded = topk_closeness(server.engine, k=TOPK_K, candidates=cand)
+        bounded_s = time.perf_counter() - t0
+        paths["hod_topk_store"] = launch_counts()
+        cs = server.store.cache.stats
+    finally:
+        server.close()
+    np.testing.assert_array_equal(bounded.nodes, full.nodes)
+    np.testing.assert_array_equal(bounded.farness, full.farness)
+    if full.pruned:
+        raise AssertionError("full sweeps pruned a candidate")
+    say(f"top-{TOPK_K} closeness over {TOPK_CANDIDATES} candidates: in "
+        f"memory {full.batches} batches in {full_s:.3f} s; from the raw "
+        f"store at 25% (bounded sweeps) {bounded.batches} batches, "
+        f"{bounded.pruned} candidates pruned, {bounded_s:.3f} s, "
+        f"{cs.bytes_read} bytes read; nodes and farness equal; best "
+        f"{bounded.nodes[:3].tolist()} farness "
+        f"{bounded.farness[:3].tolist()}; launches "
+        f"{paths['hod_topk_store']}; on {card}")
+    t0 = time.perf_counter()
+    est = estimate_closeness(eng, eps=CLOSENESS_EPS,
+                             batch_size=CLOSENESS_BATCH)
+    est_s = time.perf_counter() - t0
+    if est.closeness.shape != (g.n,) or not np.isfinite(
+            est.closeness).all() or not (est.closeness > 0).all():
+        raise AssertionError("estimate_closeness: bad closeness vector")
+    say(f"estimate_closeness(eps={CLOSENESS_EPS}, batch_size="
+        f"{CLOSENESS_BATCH}) in memory: {est.k} sources, {est.batches} "
+        f"batches, {est_s:.3f} s (query {est.query_seconds:.3f} s); "
+        f"on {card}")
+    if dev == "cuda" and not all(
+            n["edge_relax"] and n["tropical_matmul"] for n in paths.values()):
+        raise AssertionError(f"phase 8 paths without launches: {paths}")
+    return paths
 
 
 def profile_device(torch, step, reps: int, what: str, card: str) -> dict:
@@ -1437,10 +1748,21 @@ def main() -> int:
     mem = drive_slice(np, torch, card, g, ix)
     paths = {name: {"hod_serve_stream": n}
              for name, n in mem["launches"].items()}
-    t0 = time.perf_counter()
-    for name, n in drive_store(np, torch, card, ix, mem).items():
-        paths[name]["hod_store_stream"] = n
-    say(f"store phase took {time.perf_counter() - t0:.1f} s")
+    root = tempfile.mkdtemp(prefix="hod_store_")
+    try:
+        t0 = time.perf_counter()
+        launches, raw_path = drive_store(np, torch, card, ix, mem, root)
+        for name, n in launches.items():
+            paths[name]["hod_store_stream"] = n
+        say(f"store phase took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        for path, counts in drive_mixed(np, torch, card, g, mem,
+                                        raw_path).items():
+            for name, n in counts.items():
+                paths[name][path] = n
+        say(f"front-end phase took {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     del g, ix, mem
     free(torch)
     t0 = time.perf_counter()

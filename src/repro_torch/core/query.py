@@ -47,6 +47,7 @@ from ..device import resolve_device
 from ..kernels.edge_relax import Sweep, pack_sweep, relax_sweep_
 from ..kernels.edge_relax.sweep import PinnedStager
 from ..kernels.tropical_matmul.ops import minplus
+from ..obs.trace import span_if
 from .index import HoDIndex, SweepPlan, plan_level_ids
 
 __all__ = ["QueryEngine", "dijkstra_reference"]
@@ -153,6 +154,12 @@ class QueryEngine:
     the hand-written kernels) or ``"cpu"`` (their plain versions).
     """
 
+    #: Optional :class:`repro_torch.obs.trace.Tracer` (DESIGN.md §11),
+    #: set by the server or the streaming engine; ``None`` keeps every
+    #: hook inert.  An in-memory sweep is one launch and emits no
+    #: per-level span, as the reference's ``lax.scan`` emits none.
+    tracer = None
+
     def __init__(self, index: HoDIndex, core_mode: str = "closure",
                  eps: float = 0.0, k_cap: int = 16, device=None):
         self._init_engine(index, core_mode, eps, device)
@@ -208,17 +215,24 @@ class QueryEngine:
         return state
 
     def _run_plan_stream(self, state: torch.Tensor, slabs, level_body,
-                         stager: PinnedStager) -> torch.Tensor:
+                         stager: PinnedStager,
+                         label: str = None) -> torch.Tensor:
         """The streamed twin of :meth:`_run_plan`: ``slabs`` yields host
         ``(dst, src_idx, w, assoc, valid)`` level slabs in scan order
         (from the store's page cache, DESIGN.md §6); each one's rows up
         to its last valid row move to the device in one copy
         (:func:`_upload_slab`) and ``level_body`` runs on them.  One
-        level lives on the device at a time."""
-        for slab in slabs:
-            level = _upload_slab(slab, self.index.n_pad, stager)
-            state = level_body(state, *level)
-            del level
+        level lives on the device at a time.  With a tracer and a
+        ``label`` (the plan name of a full sweep) each level's upload
+        and body run inside a ``level.relax`` span; a bounded sweep's
+        single level passes no label and emits none, as in the
+        reference."""
+        tracer = self.tracer if label is not None else None
+        for lvl, slab in enumerate(slabs):
+            with span_if(tracer, "level.relax", plan=label, level=lvl):
+                level = _upload_slab(slab, self.index.n_pad, stager)
+                state = level_body(state, *level)
+                del level
         return state
 
     @staticmethod

@@ -1,10 +1,10 @@
 """Queue-depth-N async read pipeline with off-thread decompression
 (DESIGN.md §6).
 
-The JAX package's ``storage/pipeline.py`` for one store, without its
-fleet routing and its tracer hooks (the spans come back with the
-port's ``obs/trace``).  It is plain Python: no worker thread here ever
-touches a tensor, let alone one on the card.
+The JAX package's ``storage/pipeline.py`` for one store, with its
+tracer hooks; the fleet routing (per-shard worker pools and devices) is
+not ported.  It is plain Python: no worker thread here ever touches a
+tensor, let alone one on the card.
 
 The sweep visits a segment's levels in a fixed order (the paper's §4
 sequential-scan invariant), which makes deep read-ahead safe:
@@ -42,6 +42,14 @@ The price: a read that then *fails* has already been charged — the
 fault path only.  Only payload materialization is asynchronous; the
 slabs are byte-identical, and so are the answers.
 
+**Tracing** (DESIGN.md §11): given a ``tracer``, each submitted level
+draws a span id that stitches its story across threads — a
+``pipe.submit`` span (synthetic ``submit`` track, so the query
+thread's own sequence stays the same at every depth), a ``level.read``
+span on the io thread, ``level.decode`` spans on the decode pool, and a
+``level.wait`` span around the reaper's collect.  ``tracer=None``
+leaves every hook one attribute check.
+
 **Stall accounting.** Per reaped level the pipeline records the
 measured consumer time and the level's *modeled* device time (an
 ``IOStats`` delta around its reads — deterministic), then runs a small
@@ -60,6 +68,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import List
 
 from ..core.io_sim import IOStats
+from ..obs.trace import span_if
 from .pagecache import PendingBlock
 
 __all__ = ["PipelineStats", "ReadPipeline"]
@@ -93,16 +102,21 @@ class PipelineStats:
 
 class _LevelTicket:
     """One submitted level: its cache entries (bytes or in-flight
-    :class:`PendingBlock` placeholders) and the modeled device seconds
+    :class:`PendingBlock` placeholders), the modeled device seconds
     of the reads it caused (computed at submit time, before the ticket
-    is visible to any other thread; 0 for a zero-row level)."""
+    is visible to any other thread; 0 for a zero-row level), and the
+    trace span id stitching its read/decode/wait events together."""
 
-    __slots__ = ("seg", "lvl", "skip", "entries", "io_s")
+    __slots__ = ("seg", "name", "lvl", "skip", "entries", "io_s",
+                 "span_id")
 
-    def __init__(self, seg, lvl: int, entries: list, skip: int):
+    def __init__(self, seg, lvl: int, entries: list, skip: int,
+                 name: str = "", span_id: int = 0):
         self.seg, self.lvl, self.skip = seg, lvl, skip
+        self.name = name
         self.entries = entries
         self.io_s = 0.0
+        self.span_id = span_id
 
     def collect(self):
         """Wait for every entry, assemble + parse the slab.  Returns
@@ -136,12 +150,13 @@ class ReadPipeline:
     """
 
     def __init__(self, store, queue_depth: int = 4,
-                 decode_workers: int = 2):
+                 decode_workers: int = 2, tracer=None):
         if queue_depth < 1:
             raise ValueError("queue_depth must be >= 1")
         if decode_workers < 1:
             raise ValueError("decode_workers must be >= 1")
         self.store = store
+        self.tracer = tracer
         self.queue_depth = int(queue_depth)
         self.decode_workers = int(decode_workers)
         self.stats = PipelineStats()
@@ -177,53 +192,66 @@ class ReadPipeline:
         enqueues one batched pread per contiguous missed-block run."""
         seg = self.store.segments[name]
         self.stats.submitted += 1
+        tr = self.tracer
+        sid = tr.new_id() if tr is not None else 0
         if seg.version >= 4 and seg.extents[lvl][1] == 0:
-            return _LevelTicket(seg, lvl, [], 0)   # zero-row level
+            return _LevelTicket(seg, lvl, [], 0, name=name,
+                                span_id=sid)   # zero-row level
         b0, b1, skip = seg._level_blocks(lvl)
         pin = pin or seg.pin_blocks
         dev = seg.device
         seq0, rand0 = dev.stats.seq_blocks, dev.stats.rand_blocks
         entries: list = []
         runs: list = []     # [(b_lo, [(block, key, holder), ...])]
-        for b in range(b0, b1 + 1):
-            key = (seg._cache_ns, b)
-            size, disk = seg.frame_info(b)
-            entry, owner = self.store.cache.begin_fill(
-                key, size, disk, pin=pin,
-                charge=(lambda b=b, d=disk:
-                        dev.access_block(seg.base_block + b, d)))
-            entries.append(entry)
-            if owner:
-                if runs and runs[-1][1][-1][0] == b - 1:
-                    runs[-1][1].append((b, key, entry))
-                else:
-                    runs.append((b, [(b, key, entry)]))
-        ticket = _LevelTicket(seg, lvl, entries, skip)
+        with span_if(tr, "pipe.submit", track="submit", plan=name,
+                     level=lvl, span=sid, blocks=b1 - b0 + 1):
+            for b in range(b0, b1 + 1):
+                key = (seg._cache_ns, b)
+                size, disk = seg.frame_info(b)
+                entry, owner = self.store.cache.begin_fill(
+                    key, size, disk, pin=pin,
+                    charge=(lambda b=b, d=disk:
+                            dev.access_block(seg.base_block + b, d)))
+                entries.append(entry)
+                if owner:
+                    if runs and runs[-1][1][-1][0] == b - 1:
+                        runs[-1][1].append((b, key, entry))
+                    else:
+                        runs.append((b, [(b, key, entry)]))
+        ticket = _LevelTicket(seg, lvl, entries, skip, name=name,
+                              span_id=sid)
         ticket.io_s = IOStats(
             seq_blocks=dev.stats.seq_blocks - seq0,
             rand_blocks=dev.stats.rand_blocks - rand0,
         ).modeled_seconds(block_bytes=dev.block_bytes)
         if runs:
-            self._io.submit(self._read_job, seg, runs)
+            self._io.submit(self._read_job, seg, ticket, runs)
         return ticket
 
-    def _read_job(self, seg, runs: list) -> None:
+    def _read_job(self, seg, ticket: _LevelTicket, runs: list) -> None:
         """io thread: batched extent preads, then fan the frames out to
         the decode pool.  Cache and device accounting already happened
         at submit time — this thread only moves bytes."""
         try:
-            for b_lo, owned in runs:
-                try:
-                    raw = seg.read_frames(b_lo, owned[-1][0])
-                except Exception as exc:
-                    for _b, key, holder in owned:
-                        self.store.cache.discard(key, holder)
-                        holder.fail(exc)
-                    continue
-                for b, key, holder in owned:
-                    self._decode.submit(self._decode_job, seg, b, key,
-                                        holder,
-                                        seg.frame_slice(raw, b_lo, b))
+            decode_jobs = []
+            with span_if(self.tracer, "level.read", plan=ticket.name,
+                         level=ticket.lvl, parent=ticket.span_id,
+                         runs=len(runs)):
+                for b_lo, owned in runs:
+                    try:
+                        raw = seg.read_frames(b_lo, owned[-1][0])
+                    except Exception as exc:
+                        for _b, key, holder in owned:
+                            self.store.cache.discard(key, holder)
+                            holder.fail(exc)
+                        continue
+                    for b, key, holder in owned:
+                        decode_jobs.append(
+                            (seg, b, key, holder,
+                             seg.frame_slice(raw, b_lo, b)))
+            for job in decode_jobs:
+                self._decode.submit(self._decode_job, *job,
+                                    ticket.span_id)
         except BaseException as exc:
             # Never leave a holder unset: every waiter would deadlock.
             for _b_lo, owned in runs:
@@ -234,17 +262,19 @@ class ReadPipeline:
             raise
 
     def _decode_job(self, seg, block: int, key, holder: PendingBlock,
-                    raw: bytes) -> None:
+                    raw: bytes, span_id: int = 0) -> None:
         """decode pool: CRC verify + codec decode, completing the
         placeholder.  A corrupt frame is dropped from the cache and the
         error re-raises in the waiting query thread."""
-        try:
-            data = seg.decode_frame(block, raw)
-        except BaseException as exc:
-            self.store.cache.discard(key, holder)
-            holder.fail(exc)
-        else:
-            holder.set(data)
+        with span_if(self.tracer, "level.decode", block=block,
+                     parent=span_id):
+            try:
+                data = seg.decode_frame(block, raw)
+            except BaseException as exc:
+                self.store.cache.discard(key, holder)
+                holder.fail(exc)
+            else:
+                holder.set(data)
 
     # ----------------------------------------------------------------- reap
     def reap(self, ticket: _LevelTicket):
@@ -252,7 +282,9 @@ class ReadPipeline:
         its fills, parse the slab, and advance the stall simulation."""
         t0 = time.perf_counter()
         compute = t0 - self._last_reap_wall
-        slab, stall_wall = ticket.collect()
+        with span_if(self.tracer, "level.wait", plan=ticket.name,
+                     level=ticket.lvl, span=ticket.span_id):
+            slab, stall_wall = ticket.collect()
         # Discrete-event model of the spindle under the depth-N submit
         # window (module docstring).
         i = len(self._reap_virtual)

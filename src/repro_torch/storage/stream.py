@@ -39,12 +39,19 @@ order of reads is the reference's:
 * The bounded sweeps (P2P, threshold, kNN, the top-k prune) read
   synchronously, so a skipped level skips its device I/O.
 
-The tracer hooks of the reference (spans, cache and device instants)
-come with the port's ``obs/trace``.
+With a tracer (:meth:`StreamingQueryEngine.set_tracer`) the engine
+emits the reference's events: the pipeline's spans, ``level.read`` on
+a synchronous read, ``level.relax`` around each level of a full sweep
+(a distance level's pack, staging and launch; a reconstruction level's
+upload and body), ``core.search``, and the cache and device instants on
+the synthetic ``submit`` and ``device`` tracks.  The bounded sweeps
+relax their levels without a ``level.relax`` span, as the reference's
+do.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from collections import deque
 from typing import Iterator, Optional, Tuple
@@ -56,6 +63,7 @@ from ..core.index import node_levels
 from ..core.query import INF, QueryEngine, _knn_select
 from ..kernels.edge_relax import relax_sweep_
 from ..kernels.edge_relax.sweep import PinnedStager, pack_level
+from ..obs.trace import span_if
 from .blockfile import IndexStore
 from .pipeline import PipelineStats, ReadPipeline
 
@@ -96,7 +104,7 @@ class StreamingQueryEngine(QueryEngine):
     def __init__(self, store: IndexStore, core_mode: str = "closure",
                  eps: float = 0.0, prefetch: bool = True,
                  queue_depth: int = 4, decode_workers: int = 2,
-                 device=None):
+                 device=None, tracer=None):
         self.store = store
         self.prefetch = bool(prefetch)
         self._init_engine(store.resident, core_mode, eps, device)
@@ -105,6 +113,50 @@ class StreamingQueryEngine(QueryEngine):
         self._pipe = (ReadPipeline(store, queue_depth=queue_depth,
                                    decode_workers=decode_workers)
                       if self.prefetch else None)
+        if tracer is not None:
+            self.set_tracer(tracer)
+
+    # --------------------------------------------------------- observability
+    def set_tracer(self, tracer) -> None:
+        """Attach a :class:`repro_torch.obs.trace.Tracer` (DESIGN.md §11)
+        to every layer this engine drives: the level spans, the
+        pipeline's submit/read/decode/wait spans, the cache's
+        hit/miss/evict instants (``PageCache.on_event``, on the
+        synthetic ``submit`` track so that the query thread's own span
+        sequence is the same at every queue depth) and the modeled
+        device's reads (``BlockDevice.on_access``, ``device`` track).
+        ``None`` detaches everything."""
+        self.tracer = tracer
+        self._seg_short: dict = {}   # cache namespace -> short label
+        if self._pipe is not None:
+            self._pipe.tracer = tracer
+        self.store.cache.on_event = (self._on_cache_event
+                                     if tracer is not None else None)
+        self.store.device.on_access = (self._on_device_access
+                                       if tracer is not None else None)
+
+    def _on_cache_event(self, kind: str, key, nbytes: int) -> None:
+        tr = self.tracer
+        if tr is None:
+            return
+        if isinstance(key, tuple) and len(key) == 2:
+            ns, block = key
+            seg = self._seg_short.get(ns)
+            if seg is None:   # memoized: this fires per block touch
+                seg = self._seg_short[ns] = os.path.basename(str(ns))
+            block = int(block)
+        else:
+            seg, block = str(key), -1
+        tr.instant(f"cache.{kind}", track="submit", seg=seg,
+                   block=block, bytes=int(nbytes))
+
+    def _on_device_access(self, block_id: int, nbytes: int,
+                          seq: bool) -> None:
+        tr = self.tracer
+        if tr is not None:
+            tr.instant("device.read", track="device",
+                       block=int(block_id), bytes=int(nbytes),
+                       seq=bool(seq))
 
     def pipeline_stats(self) -> Optional[PipelineStats]:
         """The live :class:`PipelineStats` (overlap/stall metrics), or
@@ -132,7 +184,9 @@ class StreamingQueryEngine(QueryEngine):
         if self._pipe is None:
             for lvl in range(n):
                 t0 = time.perf_counter()
-                slab = self.store.read_level(name, lvl, pin=pin)
+                with span_if(self.tracer, "level.read", plan=name,
+                             level=lvl):
+                    slab = self.store.read_level(name, lvl, pin=pin)
                 times.read_s += time.perf_counter() - t0
                 yield slab
                 if unpin_after:
@@ -168,7 +222,8 @@ class StreamingQueryEngine(QueryEngine):
         the pipeline so that a skip or an early exit provably skips the
         I/O, not just the compute)."""
         t0 = time.perf_counter()
-        slab = self.store.read_level(name, lvl)
+        with span_if(self.tracer, "level.read", plan=name, level=lvl):
+            slab = self.store.read_level(name, lvl)
         self.times.read_s += time.perf_counter() - t0
         return slab
 
@@ -199,9 +254,21 @@ class StreamingQueryEngine(QueryEngine):
 
     def _sweep(self, dist: torch.Tensor, name: str,
                pin: bool = False) -> torch.Tensor:
-        for slab in self._levels(name, pin=pin):
-            dist = self._relax_slab(dist, slab)
+        """A full distance sweep of one plan, with a ``level.relax``
+        span (``plan``, ``level``) around each level's pack, staging and
+        launch, where the reference's streamed level step has it."""
+        for lvl, slab in enumerate(self._levels(name, pin=pin)):
+            with span_if(self.tracer, "level.relax", plan=name,
+                         level=lvl):
+                dist = self._relax_slab(dist, slab)
         return dist
+
+    def _core_search(self, dist: torch.Tensor) -> torch.Tensor:
+        """The engine's core search, inside a ``core.search`` span."""
+        if not self.index.n_core:
+            return dist
+        with span_if(self.tracer, "core.search", mode=self.core_mode):
+            return super()._core_search(dist)
 
     def _ssd_stream(self, sources_perm: np.ndarray,
                     pin: bool = False) -> torch.Tensor:
@@ -232,7 +299,7 @@ class StreamingQueryEngine(QueryEngine):
             for name in ("plan_b", "plan_core", "plan_f"):
                 pred = self._run_plan_stream(
                     pred, self._levels(name, unpin_after=True), recon,
-                    self._stager)
+                    self._stager, label=name)
         finally:
             for name in ("plan_f", "plan_b"):
                 self._unpin_plan(name)

@@ -402,3 +402,118 @@ def test_edge_relax_launches_once_a_streamed_level(cuda_device,
         assert eng.times.levels == levels
     finally:
         eng.close()
+
+
+# ------------------------------------------------ the async server, traced
+def _mixed_async(server, stream):
+    """Submit a mixed stream on a frozen scheduler clock (only the size
+    triggers and the drain flush, so batching does not depend on the
+    device's speed), then drain; the results in order."""
+    import asyncio
+    server._now = lambda: 0.0
+
+    async def drive():
+        tasks = []
+        for lo in range(0, len(stream), 5):
+            tasks += [asyncio.create_task(server.submit(*args, mode=m))
+                      for m, args in stream[lo:lo + 5]]
+            await asyncio.sleep(0)
+        await server.drain()
+        return await asyncio.gather(*tasks)
+    return asyncio.run(drive())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheduler", ["fifo", "slo"])
+def test_async_mixed_server_on_card_equals_cpu(cuda_device,
+                                               tmp_path_factory,
+                                               scheduler):
+    """The mixed ssd/p2p/within server under each scheduler, in memory
+    and from the store, on the card: every answer, batch and cache hit
+    equals the same server's on the CPU."""
+    from repro_torch.config import SERVE_DEFAULTS, Config
+    from repro_torch.core import QueryEngine
+    from repro_torch.launch.serve import (mixed_request_stream,
+                                          server_from_config)
+    path, ix = _small_store(tmp_path_factory)
+    cfg = Config(None, defaults=SERVE_DEFAULTS, overrides={"serve": {
+        "batch": 16, "max_wait_ms": 5000.0, "scheduler": scheduler,
+        "threshold": 20.0, "cache_entries": 64,
+        "mix": {"ssd": 1, "p2p": 3, "within": 1},
+        "slo": {"p2p": {"deadline_ms": 5000.0, "batch": 8},
+                "ssd": {"deadline_ms": 20000.0}}}})
+    stream = mixed_request_stream(cfg, ix.n, 120,
+                                  np.random.default_rng(0), p2p_pool=12)
+    for store in (False, True):
+        runs = []
+        for dev in (cuda_device, "cpu"):
+            if store:
+                server = server_from_config(
+                    cfg, store_path=path, cache_bytes=200_000,
+                    engine_opts={"device": dev})
+            else:
+                server = server_from_config(
+                    cfg, engine=QueryEngine(ix, device=dev))
+            try:
+                server.warmup()
+                runs.append((_mixed_async(server, stream), server.stats,
+                             server.slo_report()))
+            finally:
+                server.close()
+        (gpu, gst, grows), (cpu, cst, crows) = runs
+        for a, b in zip(gpu, cpu):
+            assert (a.mode, a.source, a.target, a.cached, a.batched_with) \
+                == (b.mode, b.source, b.target, b.cached, b.batched_with)
+            np.testing.assert_array_equal(a.dist, b.dist)
+        for f in ("requests", "batches", "cache_hits", "padded_slots",
+                  "page_hits", "page_misses", "store_bytes_read"):
+            assert getattr(gst, f) == getattr(cst, f), f
+        assert [r["requests"] for r in grows] \
+            == [r["requests"] for r in crows]
+        assert gst.cache_hits > 0
+
+
+@pytest.mark.cuda
+def test_traced_store_server_on_card(cuda_device, tmp_path_factory):
+    """A traced store server on the card: a valid Chrome trace holding
+    the pipeline, level, core and cache events, the same answers and
+    counters as untraced, and the same query-thread span sequence at
+    queue depths 1 and 4."""
+    import threading
+
+    from repro_torch.launch.serve import QueryServer
+    from repro_torch.obs import Tracer, validate_chrome_trace
+    path, ix = _small_store(tmp_path_factory)
+    me = threading.current_thread().name
+    rng = np.random.default_rng(4)
+    reqs = rng.choice(rng.choice(ix.n, 24, replace=False),
+                      64).astype(np.int32)
+    out = {}
+    for depth, traced in ((4, True), (4, False), (1, True)):
+        tr = Tracer() if traced else None
+        server = QueryServer(store_path=path, cache_bytes=200_000,
+                             batch_size=16, queue_depth=depth, tracer=tr,
+                             engine_opts={"device": cuda_device},
+                             warm_start=True)
+        try:
+            res = server.serve_stream(reqs)
+            cs = server.store.cache.stats
+            out[depth, traced] = (
+                [r.dist for r in res], server.stats.cache_hits,
+                (cs.hits, cs.misses, cs.evictions, cs.bytes_read),
+                tr.sequence(me) if tr else None)
+        finally:
+            server.close()
+        if traced:
+            assert validate_chrome_trace(tr.chrome()) == []
+            names = {e["name"] for e in tr.events()}
+            assert {"query.ssd", "jit.dispatch", "pipe.submit",
+                    "level.read", "level.wait", "level.relax",
+                    "core.search", "cache.miss", "device.read"} <= names
+    (d4, h4, c4, s4), (u4, uh, uc, _), (d1, h1, c1, s1) = (
+        out[4, True], out[4, False], out[1, True])
+    for a, b, c in zip(d4, u4, d1):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    assert h4 == uh == h1 and c4 == uc == c1
+    assert s4 == s1

@@ -48,6 +48,9 @@ def test_import_loads_neither_jax_nor_repro():
             "import repro_torch.models.convert\n"
             "import repro_torch.storage, repro_torch.storage.stream\n"
             "import repro_torch.storage.pipeline\n"
+            "import repro_torch.config, repro_torch.obs.trace\n"
+            "from repro_torch.core import topk_closeness\n"
+            "from repro_torch.launch.serve import server_from_config\n"
             "from repro_torch.storage import StreamingQueryEngine\n"
             "from repro_torch.configs import get_arch\n"
             "get_arch('glm4-9b'), get_arch('dlrm-rm2')\n"
