@@ -70,6 +70,25 @@ never JAX or the JAX package.  Phases, each of which asserts:
    in memory and from the store (bounded sweeps) must agree in nodes
    and farness, and ``estimate_closeness(eps=0.1, batch_size=64)``
    runs in memory;
+9. the fleet and the paper's baselines, after phase 8 and on phase 5's
+   raw and delta stores: phase 4's request stream through
+   ``QueryServer(store_path=..., shards=N)`` at N = 1, 2 and 4, a
+   fleet-wide budget of 25% and queue depth 4.  Each run holds phase
+   5's checks (answers, cache hits and padded slots equal phase 4's,
+   one ``edge_relax`` launch a streamed level); at N = 1 the aggregate
+   ``CacheStats`` and ``IOStats`` must equal phase 5's unsharded run of
+   the same codec counter for counter; the per-shard bytes read must
+   sum to the fleet's; at N = 2 every shard that owns blocks must hit;
+   and no run of more than one shard may read more bytes than the
+   1-shard run.  Then ``configs/serve_fleet.yaml`` (ssd:p2p 1:3,
+   ``slo``, delta, 2 shards) through ``server_from_config`` and
+   ``_open_loop``: every future resolves to phase 4's answer.  Then
+   the paper's baselines: ``em_dijkstra`` from 4 of phase 4's sources
+   on the side-200 graph, within rtol 1e-5 of phase 4's fp32 answers,
+   its modeled I/O a query beside a cold HoD query's (the raw 1-shard
+   fleet's page cache emptied first); ``VCIndex`` and the reference
+   builder ``build_hod`` on a side-31 grid, the ``build_hod`` index
+   served on the card and equal to host Dijkstra;
 6. LM serving at full width: first glm4-9b's width at 2 layers in f32,
    whose decode must equal prefill of the extended sequences at atol
    1e-4 (the logic); then all 40 layers, random bf16 weights (18.8 GB)
@@ -93,7 +112,9 @@ zeroed just before a served run and read just after it.  It prints one
 JSON line with every kernel's numbers (``launches`` is the count of the
 run at the kernel's timed shape, ``launches_by_path`` each served run's
 own count, phase 8's paths ``hod_mixed_slo``,
-``hod_store_mixed_slo`` and ``hod_topk_store`` included), the card's
+``hod_store_mixed_slo`` and ``hod_topk_store`` and phase 9's
+``hod_fleet_raw`` and ``hod_fleet_delta`` (each the sum over its runs
+at 1, 2 and 4 shards) and ``hod_fleet_mixed_slo`` included), the card's
 name and power limit, and, last,
 ``{"ok": true, "device": {...}}``.  Any failure
 exits non-zero before those lines; without a card, or outside a
@@ -165,6 +186,15 @@ MIXED_CONFIG = "configs/serve_mixed.yaml"
 TOPK_K, TOPK_CANDIDATES = 10, 2048
 CLOSENESS_EPS, CLOSENESS_BATCH = 0.1, 64
 OVERHEAD_PASSES = 5
+
+# Phase 9: the fleet over phase 5's raw and delta stores, the fleet
+# config, and the paper's baselines (EM-Dijk from a few of phase 4's
+# sources; VC-Index and the reference builder on a smaller grid, odd so
+# that VC-Index's matching leaves a node out).
+FLEET_SHARDS, FLEET_FRAC, FLEET_DEPTH = (1, 2, 4), 0.25, 4
+FLEET_CONFIG = "configs/serve_fleet.yaml"
+EM_SOURCES, EM_RTOL = 4, 1e-5
+BASELINE_SIDE, VC_TOP_NODES = 31, 256
 
 # The served run whose launch count the kernels line reports: the one at
 # the shape each kernel is timed at.
@@ -696,7 +726,8 @@ def save_stores(ix, root: str) -> dict:
 
 
 def serve_store(np, torch, card: str, path: str, budget: int, depth: int,
-                mem: dict, what: str, dev: str = "cuda") -> dict:
+                mem: dict, what: str, dev: str = "cuda",
+                shards: int = None) -> dict:
     """Phase 4's request stream through a store-backed server on the
     card; every answer, cache hit and padded slot must equal phase 4's,
     ``edge_relax`` launch once a streamed level and the device meter
@@ -707,7 +738,7 @@ def serve_store(np, torch, card: str, path: str, budget: int, depth: int,
     from repro_torch.launch.serve import QueryServer
 
     server = QueryServer(store_path=path, cache_bytes=budget,
-                         batch_size=BATCH, queue_depth=depth,
+                         batch_size=BATCH, queue_depth=depth, shards=shards,
                          engine_opts={"device": dev}, warm_start=True)
     eng, store = server.engine, server.store
     eng.times.reset()
@@ -772,7 +803,7 @@ def serve_store(np, torch, card: str, path: str, budget: int, depth: int,
         f"{t.launch_s / n * 1e6:.1f} us; largest copy "
         f"{eng._stager.peak_bytes} bytes; pinned host buffers "
         f"{sum(b is not None and b.is_pinned() for b in eng._stager._bufs)}"
-        " of 2")
+        f" of 2; on {card}")
     return run
 
 
@@ -815,8 +846,10 @@ def check_store_modes(np, torch, card: str, eng, mem_eng, batch) -> None:
 def drive_store(np, torch, card: str, ix, mem: dict, root: str,
                 dev: str = "cuda") -> tuple:
     """Phase 5: phase 4's index served from its block store, saved under
-    ``root`` (left for phase 8; the caller removes it).  Returns the
-    launches of the raw store's run at 25% and the raw store's path."""
+    ``root`` (left for phases 8 and 9; the caller removes it).  Returns
+    the launches of the raw store's run at 25%, the stores' paths, and
+    the cache counters and I/O of the runs at 25% and depth 4 by codec
+    (phase 9 holds its 1-shard fleets to them)."""
     from repro_torch.storage import segment_logical_bytes
     paths = save_stores(ix, root)
     logical = segment_logical_bytes(paths["raw"])
@@ -859,7 +892,10 @@ def drive_store(np, torch, card: str, ix, mem: dict, root: str,
             f"{split.get('busy_us', 0.0):.1f} us busy, idle share "
             f"{split.get('idle_share', float('nan')):.3f}")
     raw25.pop("server").close()
-    return raw25["launches"], paths["raw"]
+    unsharded = {codec: (run["counters"], run["io"])
+                 for (codec, frac, depth), run in runs.items()
+                 if (frac, depth) == (FLEET_FRAC, FLEET_DEPTH)}
+    return raw25["launches"], paths, unsharded
 
 
 # ------------------------------------------------------------- phase 8
@@ -902,6 +938,8 @@ def serve_mixed(np, torch, card: str, server, stream, rate: float,
 
     from repro_torch.launch.serve import _open_loop
     server.warmup()
+    if server.store is not None:
+        server.engine.times.reset()
     launch_counts(reset=True)
     t0 = time.perf_counter()
     results = asyncio.run(_open_loop(server, stream, rate))
@@ -934,7 +972,8 @@ def serve_mixed(np, torch, card: str, server, stream, rate: float,
         missed = (f", {r['deadline_misses']} past {r['deadline_ms']:g} ms"
                   if r["deadline_ms"] and cls == r["mode"] else "")
         say(f"  class {cls:<11} p50 {r['p50_ms']:9.3f} ms  p99 "
-            f"{r['p99_ms']:9.3f} ms  ({r['requests']} answered{missed})")
+            f"{r['p99_ms']:9.3f} ms  ({r['requests']} answered{missed}); "
+            f"on {card}")
     return {"launches": launches, "qps": len(stream) / wall,
             "rows": rows, "stats": st}
 
@@ -1143,6 +1182,218 @@ def drive_mixed(np, torch, card: str, g, mem: dict, raw_path: str,
     if dev == "cuda" and not all(
             n["edge_relax"] and n["tropical_matmul"] for n in paths.values()):
         raise AssertionError(f"phase 8 paths without launches: {paths}")
+    return paths
+
+
+# ------------------------------------------------------------- phase 9
+def fleet_lines(card: str, fleet_stats) -> None:
+    """The fleet's per-shard rows (``FleetStats.report_lines``)."""
+    for line in fleet_stats.report_lines():
+        say(f"{line}; on {card}")
+
+
+def serve_fleets(np, torch, card: str, path: str, codec: str, mem: dict,
+                 unsharded: tuple, dev: str) -> tuple:
+    """Phase 4's stream from one store at each shard count of
+    FLEET_SHARDS (phase 5's checks in ``serve_store``), held to phase
+    5's unsharded counters at one shard and to the JAX bench's gate
+    (more shards never read more bytes) above it.  Returns the
+    launches of the runs, summed, and the IOStats of one cold query
+    (its page cache emptied first) on the 1-shard fleet's engine."""
+    from repro_torch.storage import segment_logical_bytes
+    budget = int(FLEET_FRAC * segment_logical_bytes(path))
+    launches = {"edge_relax": 0, "tropical_matmul": 0}
+    one = None
+    for n in FLEET_SHARDS:
+        what = (f"fleet {codec} at {FLEET_FRAC:.0%}, {n} shard"
+                f"{'s' if n > 1 else ''}, queue depth {FLEET_DEPTH}")
+        run = serve_store(np, torch, card, path, budget, FLEET_DEPTH, mem,
+                          what, dev, shards=n)
+        server = run.pop("server")
+        try:
+            fs = server.fleet_report()
+            if n == 1:
+                src = mem["requests"][:1]
+                server.store.cache.clear()
+                server.store.device.reset()
+                got = server.engine.ssd(src)
+                cold = (server.store.device.reset(),
+                        server.store.block_bytes)
+                np.testing.assert_array_equal(got[0], mem["results"][0].dist)
+        finally:
+            server.close()
+        if not server.fleet._workers_down:
+            raise AssertionError(f"{what}: shard workers left running")
+        fleet_lines(card, fs)
+        if len(fs.rows) != n:
+            raise AssertionError(f"{what}: {len(fs.rows)} shard rows")
+        if sum(r["bytes_read"] for r in fs.rows) != fs.cache.bytes_read:
+            raise AssertionError(f"{what}: per-shard bytes read "
+                                 f"{[r['bytes_read'] for r in fs.rows]} "
+                                 f"do not sum to {fs.cache.bytes_read}")
+        if n == 1:
+            one = run
+            if (run["counters"], run["io"]) != unsharded:
+                raise AssertionError(f"{what}: counters {run['counters']} "
+                                     f"{run['io']}, unsharded "
+                                     f"{unsharded[0]} {unsharded[1]}")
+            say(f"  1 shard: CacheStats and IOStats equal phase 5's "
+                f"unsharded {codec} run")
+        elif run["bytes_read"] > one["bytes_read"]:
+            raise AssertionError(f"{what}: read {run['bytes_read']} bytes, "
+                                 f"1 shard {one['bytes_read']}")
+        if n == 2 and not all(r["hit_rate"] > 0 for r in fs.rows
+                              if r["blocks"]):
+            raise AssertionError(f"{what}: a shard owning blocks never "
+                                 f"hit: {fs.rows}")
+        for name in launches:
+            launches[name] += run["launches"][name]
+        free(torch)
+    return launches, cold
+
+
+def check_baselines(np, torch, card: str, g, mem: dict, hod, block_bytes,
+                    dev: str) -> None:
+    """The paper's baselines: EM-Dijk against phase 4's answers and its
+    modeled I/O a query beside ``hod``, a cold HoD query's IOStats on
+    ``block_bytes`` blocks; VC-Index and the reference builder on a
+    smaller grid, the reference build served on the card."""
+    from repro_torch.core import (BuildConfig, QueryEngine, build_hod,
+                                  dijkstra_reference, grid_road_graph,
+                                  pack_index, symmetrize)
+    from repro_torch.core.baselines import VCIndex, em_dijkstra
+    from repro_torch.launch.serve import QueryServer
+    by_src = {}
+    for r in mem["results"]:
+        by_src.setdefault(r.source, r.dist)
+    sources = sorted(by_src)[:EM_SOURCES]
+    t0 = time.perf_counter()
+    em_io = []
+    for s_ in sources:
+        dist, io = em_dijkstra(g, s_)
+        want = by_src[s_]
+        if not np.array_equal(np.isfinite(dist), np.isfinite(want)):
+            raise AssertionError(f"em_dijkstra {s_}: reachability differs")
+        fin = np.isfinite(want)
+        np.testing.assert_allclose(dist[fin], want[fin], rtol=EM_RTOL)
+        em_io.append(io)
+    em_s = (time.perf_counter() - t0) / len(sources)
+    say(f"em_dijkstra from {len(sources)} of phase 4's sources on the "
+        f"side-{SIDE} graph: within rtol {EM_RTOL} of the card's fp32 "
+        f"answers; {em_s * 1e3:.1f} ms a query on the host; on {card}")
+
+    hod_s = hod.modeled_seconds(block_bytes=block_bytes)
+    em_rand = sum(io.rand_blocks for io in em_io) / len(em_io)
+    em_seq = sum(io.seq_blocks for io in em_io) / len(em_io)
+    em_ms = sum(io.modeled_seconds() for io in em_io) / len(em_io) * 1e3
+    say(f"modeled I/O a query ({block_bytes >> 10} KiB blocks, "
+        f"120 MB/s, 8 ms a seek): "
+        f"EM-Dijk {em_rand:.1f} random + {em_seq:.1f} sequential blocks, "
+        f"{em_ms:.1f} ms; HoD cold (page cache emptied) from the raw store "
+        f"{hod.rand_blocks} "
+        f"random + {hod.seq_blocks} sequential blocks, {hod_s * 1e3:.1f} "
+        f"ms (core closure resident); on {card}")
+
+    small = grid_road_graph(BASELINE_SIDE, seed=0)
+    und = symmetrize(small)
+    t0 = time.perf_counter()
+    vc = VCIndex(und, top_nodes=VC_TOP_NODES)
+    vc_build = time.perf_counter() - t0
+    vc_src = [0, und.n // 2, und.n - 1]
+    oracle = dijkstra_reference(und, vc_src)
+    t0 = time.perf_counter()
+    vc_io = []
+    for i, s_ in enumerate(vc_src):
+        dist, io = vc.ssd(s_)
+        np.testing.assert_allclose(dist, oracle[i], rtol=EM_RTOL)
+        vc_io.append(io)
+    vc_q = (time.perf_counter() - t0) / len(vc_src)
+    say(f"VCIndex(top_nodes={VC_TOP_NODES}) on the symmetrized side-"
+        f"{BASELINE_SIDE} grid (n={und.n}): {len(vc.levels)} levels, "
+        f"{len(vc.top_nodes_ids)} top nodes, built in {vc_build:.2f} s; "
+        f"ssd from {len(vc_src)} sources equals host Dijkstra, "
+        f"{vc_q * 1e3:.1f} ms a query, modeled I/O "
+        f"{vc_io[0].seq_blocks} sequential blocks "
+        f"{vc_io[0].modeled_seconds() * 1e3:.2f} ms; on {card}")
+
+    t0 = time.perf_counter()
+    res = build_hod(small, BuildConfig(max_core_nodes=512,
+                                       max_core_edges=1 << 15))
+    build_s = time.perf_counter() - t0
+    ix = pack_index(small, res, chunk=2048, k_cap=K_SLOTS, device=dev)
+    server = QueryServer(QueryEngine(ix, device=dev), batch_size=BATCH,
+                         warm_start=True)
+    rng = np.random.default_rng(9)
+    reqs = rng.choice(small.n, 2 * BATCH, replace=False).astype(np.int32)
+    launch_counts(reset=True)
+    results = server.serve_stream(reqs)
+    launches = launch_counts()
+    want = dijkstra_reference(small, reqs).astype(np.float32)
+    for r, w in zip(results, want):
+        np.testing.assert_array_equal(r.dist, w)
+    if dev == "cuda" and not (launches["edge_relax"]
+                              and launches["tropical_matmul"]):
+        raise AssertionError(f"build_hod index served without the "
+                             f"kernels: {launches}")
+    say(f"build_hod on the side-{BASELINE_SIDE} grid (n={small.n}): "
+        f"{res.stats.rounds} rounds, core {ix.n_core}, "
+        f"{res.stats.shortcuts_added} shortcuts in {build_s:.2f} s on the "
+        f"host; {len(reqs)} requests served on the card equal host "
+        f"Dijkstra; launches {launches}; on {card}")
+
+
+def drive_fleet(np, torch, card: str, g, mem: dict, stores: dict,
+                unsharded: dict, dev: str = "cuda") -> dict:
+    """Phase 9: the fleet over phase 5's raw and delta stores at 1, 2
+    and 4 shards, the fleet config under ``slo``, and the paper's
+    baselines.  Returns the launches of each fleet path."""
+    from repro_torch.config import SERVE_DEFAULTS, Config
+    from repro_torch.launch.serve import (mixed_request_stream,
+                                          server_from_config)
+    from repro_torch.storage import segment_logical_bytes
+    paths, cold = {}, {}
+    for codec in ("raw", "delta"):
+        paths[f"hod_fleet_{codec}"], cold[codec] = serve_fleets(
+            np, torch, card, stores[codec], codec, mem, unsharded[codec],
+            dev)
+
+    cfg = Config(str(ROOT / FLEET_CONFIG), defaults=SERVE_DEFAULTS)
+    codec, shards = cfg.get("store.codec"), cfg.get("serve.shards")
+    path = stores[codec]
+    budget = int(float(cfg.get("store.cache_frac"))
+                 * segment_logical_bytes(path))
+    n_req, rate = int(cfg.get("serve.requests")), float(cfg.get("serve.rate"))
+    stream = mixed_request_stream(cfg, g.n, n_req, np.random.default_rng(0))
+    want = mixed_oracle(np, mem["engine"], stream)
+    server = server_from_config(cfg, store_path=path, cache_bytes=budget,
+                                engine_opts={"device": dev})
+    what = (f"{FLEET_CONFIG} ({codec}, {shards} shards, "
+            f"{cfg.get('serve.scheduler')}, {n_req} requests)")
+    try:
+        if server.fleet is None or server.fleet.n_shards != shards:
+            raise AssertionError(f"{what}: not served by a fleet")
+        eng = server.engine
+        run = serve_mixed(np, torch, card, server, stream, rate, want, what,
+                          dev)
+        st, t = run["stats"], eng.times
+        n = max(t.levels, 1)
+        say(f"  page cache hit rate {st.page_hit_rate():.4f} "
+            f"({st.page_hits} hits, {st.page_misses} misses), "
+            f"{st.store_bytes_read} bytes read; host time a streamed "
+            f"level ({t.levels} levels): read {t.read_s / n * 1e6:.1f} us "
+            f"(the reap wait {st.stall_wall_seconds / n * 1e6:.1f} us of "
+            f"it), pack {t.pack_s / n * 1e6:.1f} us; on {card}")
+        fleet_lines(card, server.fleet_report())
+    finally:
+        server.close()
+    paths["hod_fleet_mixed_slo"] = run["launches"]
+    free(torch)
+
+    check_baselines(np, torch, card, g, mem, *cold["raw"], dev)
+    free(torch)
+    if dev == "cuda" and not all(
+            n["edge_relax"] and n["tropical_matmul"] for n in paths.values()):
+        raise AssertionError(f"phase 9 paths without launches: {paths}")
     return paths
 
 
@@ -1751,16 +2002,24 @@ def main() -> int:
     root = tempfile.mkdtemp(prefix="hod_store_")
     try:
         t0 = time.perf_counter()
-        launches, raw_path = drive_store(np, torch, card, ix, mem, root)
+        launches, stores, unsharded = drive_store(np, torch, card, ix, mem,
+                                                  root)
         for name, n in launches.items():
             paths[name]["hod_store_stream"] = n
         say(f"store phase took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         for path, counts in drive_mixed(np, torch, card, g, mem,
-                                        raw_path).items():
+                                        stores["raw"]).items():
             for name, n in counts.items():
                 paths[name][path] = n
         say(f"front-end phase took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        for path, counts in drive_fleet(np, torch, card, g, mem, stores,
+                                        unsharded).items():
+            for name, n in counts.items():
+                paths[name][path] = n
+        say(f"fleet and baselines phase took "
+            f"{time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     del g, ix, mem

@@ -1,7 +1,8 @@
 # Highways-on-Disk (HoD): a rank-ordered shortcut index whose SSD/SSSP
 # queries are linear scans, run here as batched level sweeps on PyTorch
 # (see DESIGN.md).
-from .build import BuildConfig, BuildResult, BuildStats  # noqa: F401
+from .baselines import VCIndex, em_bfs, em_dijkstra  # noqa: F401
+from .build import BuildConfig, BuildResult, BuildStats, build_hod  # noqa: F401
 from .build_fast import build_hod_fast  # noqa: F401
 from .closeness import (ClosenessResult, TopKCloseness,  # noqa: F401
                         estimate_closeness, topk_closeness)

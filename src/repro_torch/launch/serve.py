@@ -23,7 +23,7 @@ Per-class p50/p99 and deadline misses land in the ``obs`` registry
 (``latency_ms.<mode>[.cached|.cold]``, ``slo.miss.<mode>``) and in
 :meth:`QueryServer.slo_report`.
 
-Two index residency modes (DESIGN.md §6):
+Index residency (DESIGN.md §6, §13):
 
 * ``QueryServer(engine)`` — an in-memory engine; each batch charges one
   *synthetic* sequential scan to the block-I/O model;
@@ -33,7 +33,12 @@ Two index residency modes (DESIGN.md §6):
   ``pin_frac``) and a read pipeline (``queue_depth``,
   ``decode_workers``); the device meters the actual block reads (cache
   misses), and ``ServerStats``/``BatchIO`` report them beside the
-  modeled scan.
+  modeled scan;
+* ``QueryServer(store_path=..., shards=N)`` — the same store served by
+  an N-shard :class:`~repro_torch.fleet.ServingFleet`: per-shard page
+  caches split the ``cache_bytes`` budget, per-shard worker pools read
+  and decode, and the engine is the unsharded one, so the answers are
+  too.
 
 This is the counterpart of the JAX package's ``QueryServer``: on the
 same request stream, the same answers, batches, padding, cache hits,
@@ -41,9 +46,9 @@ I/O bytes and per-class request counts, in the closed-loop
 :meth:`~QueryServer.serve_stream` and the async
 :meth:`~QueryServer.submit` path under both schedulers.  The engine's
 device decides where the sweeps run (the card unless ``--device cpu``).
-Not ported: sharded serving (``serve.shards``,
-``--shards``: the serving fleet) and ``--data-parallel`` — each raises
-an error that names the missing piece.  ``serve.use_pallas`` is
+Not ported: ``--data-parallel`` (a batch split over the visible
+devices) raises an error that names the missing piece.
+``serve.use_pallas`` is
 accepted, since the checked-in configs carry it, and has no effect: the
 card always runs the hand-written kernels and the CPU their plain
 versions.
@@ -62,6 +67,8 @@ flag wins over it (built-in defaults < include chain < file < CLI).
         --config configs/serve_mixed.yaml --side 12 --trace-out t.json
     PYTHONPATH=src python -m repro_torch.launch.serve --mode topk --k 10 \\
         --device cpu --side 12
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --config configs/serve_fleet.yaml --side 12
 """
 from __future__ import annotations
 
@@ -86,6 +93,7 @@ from ..core.graph import grid_road_graph, power_law_digraph
 from ..core.index import core_scan_bytes, pack_index
 from ..core.io_sim import BlockDevice, IOStats
 from ..core.query import QueryEngine
+from ..fleet import ServingFleet
 from ..obs.metrics import Histogram, MetricsRegistry
 from ..obs.trace import Tracer, span_if
 from ..storage import (IndexStore, PageCache, StreamingQueryEngine,
@@ -94,11 +102,6 @@ from ..storage import (IndexStore, PageCache, StreamingQueryEngine,
 __all__ = ["QueryResult", "ServerStats", "BatchIO", "ClassSLO",
            "QueryServer", "server_from_config", "mixed_request_stream",
            "main"]
-
-#: The error a request for sharded serving gets: the fleet is not ported.
-NO_FLEET = ("sharded serving (serve.shards / --shards) needs the serving "
-            "fleet, which repro_torch does not have; serve unsharded")
-
 
 @dataclasses.dataclass
 class QueryResult:
@@ -145,11 +148,13 @@ class ServerStats:
 
     def report(self, label: str = "", batch_size: Optional[int] = None,
                latency: Optional[Histogram] = None,
-               slo_rows: Optional[List[dict]] = None) -> str:
+               slo_rows: Optional[List[dict]] = None,
+               fleet_stats=None) -> str:
         """Human-readable serving summary (the CLI footer).  ``latency``
         is the served mode's ``latency_ms.*`` histogram; ``slo_rows``
         (:meth:`QueryServer.slo_report`) adds one line per traffic class
-        with its deadline accounting."""
+        with its deadline accounting; ``fleet_stats``
+        (:meth:`QueryServer.fleet_report`) one line per serving shard."""
         extras = []
         if batch_size is not None:
             extras.append(f"batch={batch_size}")
@@ -171,6 +176,13 @@ class ServerStats:
                 f"class {row['cls']:<12} p50 {row['p50_ms']:.2f}  "
                 f"p99 {row['p99_ms']:.2f} ms  "
                 f"({row['requests']} answered, {dl})")
+        if fleet_stats is not None:
+            lines.append(f"fleet: {len(fleet_stats.rows)} shards, "
+                         f"aggregate hit rate "
+                         f"{fleet_stats.cache.hit_rate():.3f}, "
+                         f"{fleet_stats.cache.bytes_read / 1e6:.1f} MB "
+                         "read")
+            lines.extend(fleet_stats.report_lines())
         lines.append(f"throughput: {self.throughput():.0f} queries/s "
                      "(engine-busy basis)")
         return "\n".join(lines)
@@ -260,8 +272,11 @@ class QueryServer:
     ``decode_workers`` decoders (``None`` keeps the engine's defaults),
     and ``engine_opts`` go to the ``StreamingQueryEngine`` (its
     ``device``, ``core_mode``, ``prefetch``).  ``device`` then meters
-    the store's reads.  :meth:`close` releases the segment files and
-    the pipeline's threads.
+    the store's reads.  ``shards=N`` serves the store as an N-shard
+    :class:`~repro_torch.fleet.ServingFleet` instead (``cache_bytes``
+    is the fleet-wide budget; the fleet meters its own per-shard
+    devices, so ``device`` must be ``None``).  :meth:`close` releases
+    the segment files and the pipeline's (and shards') threads.
     """
 
     MODES = ("ssd", "sssp", "p2p", "within", "knn")
@@ -290,6 +305,7 @@ class QueryServer:
                  pin_frac: Optional[float] = None,
                  queue_depth: Optional[int] = None,
                  decode_workers: Optional[int] = None,
+                 shards: Optional[int] = None,
                  engine_opts: Optional[dict] = None,
                  tracer=None,
                  metrics: Optional[MetricsRegistry] = None):
@@ -314,6 +330,16 @@ class QueryServer:
         if pin_frac is not None and not 0.0 <= pin_frac <= 1.0:
             raise ValueError(f"pin_frac must be in [0, 1], "
                              f"got {pin_frac!r}")
+        if shards is not None:
+            if shards < 1:
+                raise ValueError(f"shards must be >= 1, got {shards!r}")
+            if engine is not None:
+                raise ValueError("shards applies to store-backed "
+                                 "serving (pass store_path, not engine)")
+            if device is not None:
+                raise ValueError("pass device or shards, not both — "
+                                 "a sharded fleet meters its own "
+                                 "per-shard devices")
         if scheduler not in self.SCHEDULERS:
             raise ValueError(f"unknown scheduler {scheduler!r} "
                              f"(one of {self.SCHEDULERS})")
@@ -352,13 +378,14 @@ class QueryServer:
                 raise ValueError("pass an engine or a store_path")
             engine = self._store_engine(
                 store_path, device, cache_bytes, cache_policy, pin_frac,
-                queue_depth, decode_workers, engine_opts)
+                queue_depth, decode_workers, shards, engine_opts)
             device = engine.store.device
         elif store_path is not None:
             raise ValueError("pass either an engine or a store_path, "
                              "not both")
         self.engine = engine
         self.store = getattr(engine, "store", None)   # None = in-memory
+        self.fleet = getattr(engine, "fleet", None)   # None = unsharded
         # Observability (DESIGN.md §11): the tracer threads down through
         # the engine into the pipeline/cache/device hooks; the registry
         # holds the per-mode latency histograms and server counters.
@@ -426,12 +453,24 @@ class QueryServer:
 
     @staticmethod
     def _store_engine(store_path, device, cache_bytes, cache_policy,
-                      pin_frac, queue_depth, decode_workers, engine_opts):
+                      pin_frac, queue_depth, decode_workers, shards,
+                      engine_opts):
         """A ``StreamingQueryEngine`` over the store at ``store_path``
-        behind a fresh page cache (DESIGN.md §6)."""
-        store = IndexStore(store_path, device=device,
-                           cache=PageCache(cache_bytes, policy=cache_policy,
-                                           pin_frac=pin_frac))
+        behind a fresh page cache (DESIGN.md §6), or behind the routing
+        façades of an N-shard fleet (DESIGN.md §13) when ``shards`` is
+        set: the engine is the unsharded one either way."""
+        if shards is not None:
+            store = ServingFleet(
+                store_path, shards, cache_bytes=cache_bytes,
+                cache_policy=cache_policy, pin_frac=pin_frac,
+                decode_workers=(decode_workers
+                                if decode_workers is not None else 2)
+            ).store
+        else:
+            store = IndexStore(store_path, device=device,
+                               cache=PageCache(cache_bytes,
+                                               policy=cache_policy,
+                                               pin_frac=pin_frac))
         opts = dict(engine_opts or {})
         if queue_depth is not None:
             opts.setdefault("queue_depth", queue_depth)
@@ -910,6 +949,12 @@ class QueryServer:
                 rows.append(row)
         return rows
 
+    def fleet_report(self):
+        """Point-in-time :class:`repro_torch.fleet.FleetStats` snapshot
+        (per-shard hit rates, bytes, budgets) of a sharded server;
+        ``None`` when unsharded."""
+        return self.fleet.stats() if self.fleet is not None else None
+
     @property
     def modeled_scan_bytes(self) -> int:
         """Compact-payload cost of one full index scan (the primary
@@ -952,12 +997,10 @@ def server_from_config(cfg: Config, *, engine=None,
     spine); everything else — batch, scheduler, SLO classes, cache
     sizing, pipeline depth — comes from ``cfg``.  ``engine_opts`` go to
     a store-backed server's ``StreamingQueryEngine`` (its torch
-    ``device``, ``core_mode``) under the config's ``store.prefetch``.
-    ``serve.shards`` raises (no serving fleet); ``serve.use_pallas`` has
-    no effect."""
+    ``device``, ``core_mode``) under the config's ``store.prefetch``;
+    ``serve.shards`` serves the store as a fleet.  ``serve.use_pallas``
+    has no effect."""
     validate_serve(cfg)
-    if cfg.get("serve.shards") is not None:
-        raise NotImplementedError(NO_FLEET)
     mode = cfg.get("serve.mode", "ssd")
     # CLI aliases -> server modes: "threshold" is served as "within";
     # "topk" is a batch job (topk_closeness driven by the caller after
@@ -992,7 +1035,9 @@ def server_from_config(cfg: Config, *, engine=None,
               knn_k=cfg.get("serve.k", 10),
               device=device, tracer=tracer, metrics=metrics)
     if engine is not None:
-        return QueryServer(engine, **kw)
+        # an in-memory engine has no store to shard: QueryServer
+        # refuses ``serve.shards`` beside it rather than ignore it
+        return QueryServer(engine, shards=cfg.get("serve.shards"), **kw)
     opts = dict(engine_opts or {})
     opts.setdefault("prefetch", cfg.get("store.prefetch", True))
     return QueryServer(
@@ -1001,6 +1046,7 @@ def server_from_config(cfg: Config, *, engine=None,
         pin_frac=cfg.get("store.pin_frac"),
         queue_depth=cfg.get("store.queue_depth"),
         decode_workers=cfg.get("store.decode_workers"),
+        shards=cfg.get("serve.shards"),
         engine_opts=opts, **kw)
 
 
@@ -1171,7 +1217,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
                          "temporary directory (removed on exit) and stream "
                          "it through a bounded page cache")
     ap.add_argument("--shards", type=_pos_int, default=S,
-                    help="not ported: fails (the serving fleet)")
+                    help="serve the store as an N-shard fleet "
+                         "(DESIGN.md §13): per-shard page caches split "
+                         "the --cache-frac budget, per-shard worker "
+                         "pools read/decode in parallel; answers are "
+                         "bit-identical to unsharded serving (implies "
+                         "--store)")
     ap.add_argument("--cache-frac", type=_frac_type(0.0, 1.0,
                                                     lo_open=True),
                     default=S,
@@ -1239,8 +1290,6 @@ def main(argv: Optional[List[str]] = None) -> ServerStats:
     if args.data_parallel:
         ap.error("--data-parallel (a batch split over the visible "
                  "devices) is not ported to repro_torch")
-    if cfg.get("serve.shards") is not None:
-        ap.error(NO_FLEET)
     sssp = getattr(args, "sssp", False)
     cli_mode = cfg.get("serve.mode", "ssd")
     if sssp and cli_mode != "ssd":
@@ -1273,7 +1322,7 @@ def main(argv: Optional[List[str]] = None) -> ServerStats:
           f"{res.stats.shortcuts_added} shortcuts)")
     store_dir = None
     try:
-        if cfg.get("store.enabled"):
+        if cfg.get("store.enabled") or cfg.get("serve.shards") is not None:
             store_dir = tempfile.mkdtemp(prefix="hod_store_")
             codec = cfg.get("store.codec")
             ix.save_store(store_dir, codec=codec)
@@ -1361,7 +1410,8 @@ def _serve_and_report(server: QueryServer, cfg: Config, cli_mode: str,
     print(st.report(label=label, batch_size=int(cfg.get("serve.batch")),
                     latency=server.metrics.histogram(
                         f"latency_ms.{server.mode}"),
-                    slo_rows=server.slo_report()))
+                    slo_rows=server.slo_report(),
+                    fleet_stats=server.fleet_report()))
     kind = "measured" if server.store is not None else "modeled"
     io_s = io.modeled_seconds(block_bytes=server.device.block_bytes)
     print(f"{kind} disk: {io.seq_blocks} seq + {io.rand_blocks} rand "

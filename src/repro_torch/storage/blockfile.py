@@ -3,7 +3,6 @@
 A copy of the JAX package's ``storage/blockfile.py`` against this
 package's own ``core/index.py`` and ``core/io_sim.py``: it writes
 segment files byte-identical to the JAX package's and reads theirs.
-The fleet hooks (sharded caches and devices) are not carried over.
 
 A *store* is a directory holding the index in two tiers:
 
@@ -380,6 +379,17 @@ class SegmentReader:
         self.device.access_block(self.base_block + block, len(data))
         return data
 
+    def data_blocks(self) -> int:
+        """Number of logical data blocks (1..n) in this segment — the
+        unit the fleet partitioner splits across shards
+        (``fleet/partition.py``)."""
+        if self._frames is not None:        # v5: one frame per block
+            return len(self._frames)
+        last = 0
+        for lvl in range(self.n_real):
+            last = max(last, self._level_blocks(lvl)[1])
+        return last
+
     def _level_blocks(self, lvl: int) -> Tuple[int, int, int]:
         """(first_block, last_block, offset_of_first_byte_in_first_block)
         of one level's slab."""
@@ -524,8 +534,12 @@ class IndexStore:
                 self._plan_scan[name] = _PlanScanStats(
                     rows=int(z[f"{name}_rows"]),
                     edges=int(z[f"{name}_edges"]))
-        # A device of another block size would meter the wrong blocks.
-        if device is not None and device.block_bytes != self.block_bytes:
+        # A device that does not yet know its block size (the fleet's
+        # routing façade is configured from store geometry *after* the
+        # store opens) adopts the store's; a mismatched one is an error.
+        dev_bb = getattr(device, "block_bytes", None)
+        if device is not None and dev_bb is not None \
+                and dev_bb != self.block_bytes:
             raise ValueError(
                 f"{path}: metering device block size "
                 f"({device.block_bytes}) != store block size "
@@ -533,6 +547,11 @@ class IndexStore:
         self.device = device or BlockDevice(block_bytes=self.block_bytes)
         self.cache = (cache if cache is not None
                       else PageCache(pin_frac=pin_frac))
+        #: back-reference set by ``ServingFleet`` when this store's
+        #: cache/device are fleet routing façades; the read pipeline
+        #: uses it to run on the shard workers' pools, and ``close()``
+        #: shuts those workers down with the store.
+        self.fleet = None
         pin_set = frozenset(pin_segments or ())
         self.segments: Dict[str, SegmentReader] = {}
         try:
@@ -596,9 +615,17 @@ class IndexStore:
             total += plan_cost("plan_core", True)
         return total + core_scan_bytes(self.resident, core_mode)
 
+    def segment_blocks(self) -> Dict[str, int]:
+        """Per-segment logical data-block counts — the geometry the
+        fleet partitioner splits (``fleet/``)."""
+        return {name: seg.data_blocks()
+                for name, seg in self.segments.items()}
+
     def close(self) -> None:
         for seg in self.segments.values():
             seg.close()
+        if self.fleet is not None:
+            self.fleet.shutdown_workers()
 
 
 def segment_bytes(path: str) -> int:

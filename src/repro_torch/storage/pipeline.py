@@ -1,10 +1,9 @@
 """Queue-depth-N async read pipeline with off-thread decompression
 (DESIGN.md §6).
 
-The JAX package's ``storage/pipeline.py`` for one store, with its
-tracer hooks; the fleet routing (per-shard worker pools and devices) is
-not ported.  It is plain Python: no worker thread here ever touches a
-tensor, let alone one on the card.
+The JAX package's ``storage/pipeline.py``, with its tracer hooks and
+its fleet routing.  It is plain Python: no worker thread here ever
+touches a tensor, let alone one on the card.
 
 The sweep visits a segment's levels in a fixed order (the paper's §4
 sequential-scan invariant), which makes deep read-ahead safe:
@@ -29,6 +28,14 @@ thread::
                         PendingBlock in place; a corrupt frame is
                         discarded from the cache and the error
                         re-raises in whichever thread waits
+
+**Fleet routing.** When the store belongs to a ``ServingFleet``
+(``store.fleet``), the pipeline runs on the shards' pools instead of
+its own: a level's missed-block runs split at ownership boundaries, and
+each shard's runs go to its 1-wide io pool and its decode pool, so the
+shards read and decode side by side.  Cache transactions stay on the
+query thread in submit order (the routing façade forwards each to the
+owning shard's cache), so the counters are those of one host.
 
 **Determinism.** Every counter mutation — cache *and* modeled device —
 happens at submit time on the query thread, in the block order the
@@ -102,10 +109,11 @@ class PipelineStats:
 
 class _LevelTicket:
     """One submitted level: its cache entries (bytes or in-flight
-    :class:`PendingBlock` placeholders), the modeled device seconds
-    of the reads it caused (computed at submit time, before the ticket
-    is visible to any other thread; 0 for a zero-row level), and the
-    trace span id stitching its read/decode/wait events together."""
+    :class:`PendingBlock` placeholders), the modeled seconds of the
+    reads it caused on each shard's device (computed at submit time,
+    before the ticket is visible to any other thread; length 1 on a
+    solo store, empty for a zero-row level), and the trace span id
+    stitching its read/decode/wait events together."""
 
     __slots__ = ("seg", "name", "lvl", "skip", "entries", "io_s",
                  "span_id")
@@ -115,7 +123,7 @@ class _LevelTicket:
         self.seg, self.lvl, self.skip = seg, lvl, skip
         self.name = name
         self.entries = entries
-        self.io_s = 0.0
+        self.io_s = ()
         self.span_id = span_id
 
     def collect(self):
@@ -160,11 +168,25 @@ class ReadPipeline:
         self.queue_depth = int(queue_depth)
         self.decode_workers = int(decode_workers)
         self.stats = PipelineStats()
-        self._io = ThreadPoolExecutor(max_workers=1,
-                                      thread_name_prefix="hod-pipe-io")
-        self._decode = ThreadPoolExecutor(
-            max_workers=self.decode_workers,
-            thread_name_prefix="hod-pipe-decode")
+        # A fleet's store brings its own per-shard worker pools and
+        # devices, which outlive this pipeline (the fleet shuts them
+        # down with the store); a solo store's pools are owned here.
+        fleet = store.fleet
+        if fleet is not None:
+            self._io_pools = [s.io for s in fleet.shards]
+            self._decode_pools = [s.decode for s in fleet.shards]
+            self._devs = [s.device for s in fleet.shards]
+            self._owner = fleet.owner_of_key
+        else:
+            self._io_pools = [ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="hod-pipe-io")]
+            self._decode_pools = [ThreadPoolExecutor(
+                max_workers=self.decode_workers,
+                thread_name_prefix="hod-pipe-decode")]
+            self._devs = [store.device]
+            self._owner = None
+        self._owns_pools = fleet is None
+        self._inflight: List = []   # io futures, waited out on close
         self.begin_sweep()
 
     # ------------------------------------------------------------ lifecycle
@@ -173,7 +195,8 @@ class ReadPipeline:
         at the sweep's first submit; the device timeline does not carry
         across sweeps)."""
         self._sim_t = 0.0           # consumer virtual time
-        self._sim_dev = 0.0         # device busy-until virtual time
+        # busy-until virtual time of each shard's device (one solo)
+        self._sim_dev = [0.0] * len(self._devs)
         self._reap_virtual: List[float] = []
         now = time.perf_counter()
         self._sweep_t0 = now
@@ -181,8 +204,16 @@ class ReadPipeline:
         self._first_reap = True
 
     def close(self) -> None:
-        self._io.shutdown(wait=True)
-        self._decode.shutdown(wait=True)
+        if self._owns_pools:
+            for pool in self._io_pools + self._decode_pools:
+                pool.shutdown(wait=True)
+            return
+        # The fleet's pools keep running: wait out this pipeline's jobs
+        # (their errors are already in the placeholders).
+        for f in self._inflight:
+            if not f.done():
+                f.exception()
+        self._inflight = []
 
     # --------------------------------------------------------------- submit
     def submit_level(self, name: str, lvl: int,
@@ -200,9 +231,14 @@ class ReadPipeline:
         b0, b1, skip = seg._level_blocks(lvl)
         pin = pin or seg.pin_blocks
         dev = seg.device
-        seq0, rand0 = dev.stats.seq_blocks, dev.stats.rand_blocks
+        snaps = [(d.stats.seq_blocks, d.stats.rand_blocks)
+                 for d in self._devs]
         entries: list = []
-        runs: list = []     # [(b_lo, [(block, key, holder), ...])]
+        # [(shard, b_lo, [(block, key, holder), ...])]: a run breaks at
+        # a gap in the block numbers or at a change of owner, so each
+        # run is one pread against one shard's extent.
+        runs: list = []
+        route = self._owner
         with span_if(tr, "pipe.submit", track="submit", plan=name,
                      level=lvl, span=sid, blocks=b1 - b0 + 1):
             for b in range(b0, b1 + 1):
@@ -214,24 +250,34 @@ class ReadPipeline:
                             dev.access_block(seg.base_block + b, d)))
                 entries.append(entry)
                 if owner:
-                    if runs and runs[-1][1][-1][0] == b - 1:
-                        runs[-1][1].append((b, key, entry))
+                    shard = route(key) if route is not None else 0
+                    if (runs and runs[-1][0] == shard
+                            and runs[-1][2][-1][0] == b - 1):
+                        runs[-1][2].append((b, key, entry))
                     else:
-                        runs.append((b, [(b, key, entry)]))
+                        runs.append((shard, b, [(b, key, entry)]))
         ticket = _LevelTicket(seg, lvl, entries, skip, name=name,
                               span_id=sid)
-        ticket.io_s = IOStats(
-            seq_blocks=dev.stats.seq_blocks - seq0,
-            rand_blocks=dev.stats.rand_blocks - rand0,
-        ).modeled_seconds(block_bytes=dev.block_bytes)
-        if runs:
-            self._io.submit(self._read_job, seg, ticket, runs)
+        ticket.io_s = tuple(
+            IOStats(seq_blocks=d.stats.seq_blocks - s0,
+                    rand_blocks=d.stats.rand_blocks - r0
+                    ).modeled_seconds(block_bytes=dev.block_bytes)
+            for d, (s0, r0) in zip(self._devs, snaps))
+        by_shard: dict = {}
+        for shard, b_lo, owned in runs:
+            by_shard.setdefault(shard, []).append((b_lo, owned))
+        for shard, shard_runs in by_shard.items():
+            self._inflight.append(self._io_pools[shard].submit(
+                self._read_job, seg, ticket, shard_runs,
+                self._decode_pools[shard]))
         return ticket
 
-    def _read_job(self, seg, ticket: _LevelTicket, runs: list) -> None:
-        """io thread: batched extent preads, then fan the frames out to
-        the decode pool.  Cache and device accounting already happened
-        at submit time — this thread only moves bytes."""
+    def _read_job(self, seg, ticket: _LevelTicket, runs: list,
+                  decode_pool: ThreadPoolExecutor) -> None:
+        """io thread (a shard's, or the pipeline's own): batched extent
+        preads, then fan the frames out to ``decode_pool``.  Cache and
+        device accounting already happened at submit time — this thread
+        only moves bytes."""
         try:
             decode_jobs = []
             with span_if(self.tracer, "level.read", plan=ticket.name,
@@ -250,8 +296,8 @@ class ReadPipeline:
                             (seg, b, key, holder,
                              seg.frame_slice(raw, b_lo, b)))
             for job in decode_jobs:
-                self._decode.submit(self._decode_job, *job,
-                                    ticket.span_id)
+                decode_pool.submit(self._decode_job, *job,
+                                   ticket.span_id)
         except BaseException as exc:
             # Never leave a holder unset: every waiter would deadlock.
             for _b_lo, owned in runs:
@@ -285,14 +331,17 @@ class ReadPipeline:
         with span_if(self.tracer, "level.wait", plan=ticket.name,
                      level=ticket.lvl, span=ticket.span_id):
             slab, stall_wall = ticket.collect()
-        # Discrete-event model of the spindle under the depth-N submit
-        # window (module docstring).
+        # Discrete-event model of the spindles under the depth-N submit
+        # window (module docstring), one busy-until clock a shard's
+        # device: a level is in once its slowest shard's reads land.
         i = len(self._reap_virtual)
         self._sim_t += compute
         window = (self._reap_virtual[i - self.queue_depth]
                   if i >= self.queue_depth else 0.0)
-        self._sim_dev = max(self._sim_dev, window) + ticket.io_s
-        stall = max(0.0, self._sim_dev - self._sim_t)
+        io_v = ticket.io_s or (0.0,) * len(self._sim_dev)
+        self._sim_dev = [max(sd, window) + io
+                         for sd, io in zip(self._sim_dev, io_v)]
+        stall = max(0.0, max(self._sim_dev) - self._sim_t)
         self._sim_t += stall
         self._reap_virtual.append(self._sim_t)
         st = self.stats
@@ -313,3 +362,4 @@ class ReadPipeline:
         cache hit on one would otherwise wait forever)."""
         for t in tickets:
             t.drain()
+        self._inflight = [f for f in self._inflight if not f.done()]

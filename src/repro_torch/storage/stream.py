@@ -106,6 +106,10 @@ class StreamingQueryEngine(QueryEngine):
                  queue_depth: int = 4, decode_workers: int = 2,
                  device=None, tracer=None):
         self.store = store
+        #: the ServingFleet when the store is sharded (``fleet/``),
+        #: surfaced so that servers report per-shard stats without
+        #: reaching through storage internals
+        self.fleet = store.fleet
         self.prefetch = bool(prefetch)
         self._init_engine(store.resident, core_mode, eps, device)
         self._stager = PinnedStager(self.device)

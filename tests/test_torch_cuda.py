@@ -517,3 +517,86 @@ def test_traced_store_server_on_card(cuda_device, tmp_path_factory):
         np.testing.assert_array_equal(a, c)
     assert h4 == uh == h1 and c4 == uc == c1
     assert s4 == s1
+
+
+# ------------------------------------------------------------- the fleet
+def _delta_store(tmp_path_factory):
+    """The small road-grid index as a delta store: (store path, index)."""
+    if "delta" not in _STORES:
+        _, ix = _small_store(tmp_path_factory)
+        path = str(tmp_path_factory.mktemp("store") / "delta")
+        ix.save_store(path, block_bytes=4096, codec="delta")
+        _STORES["delta"] = (path, ix)
+    return _STORES["delta"]
+
+
+@pytest.mark.cuda
+def test_two_shard_delta_fleet_on_card_equals_unsharded(cuda_device,
+                                                        tmp_path_factory):
+    """A 2-shard fleet over a delta store serves on the card: every
+    batch bit-equal to the unsharded store engine's, one edge_relax
+    launch a streamed level, per-shard bytes summing to the fleet's."""
+    from repro_torch.fleet import ServingFleet
+    from repro_torch.storage import StreamingQueryEngine
+    path, ix = _delta_store(tmp_path_factory)
+    fleet = ServingFleet(path, 2, cache_bytes=150_000)
+    feng = StreamingQueryEngine(fleet.store, device=cuda_device)
+    solo = _stream_engine(path, cuda_device, 150_000)
+    levels = feng.store.n_real("plan_f") + feng.store.n_real("plan_b")
+    try:
+        rng = np.random.default_rng(2)
+        for _ in range(8):
+            src = rng.integers(0, ix.n, 32).astype(np.int32)
+            before = relax_sweep_.launches
+            got = feng.ssd(src)
+            assert relax_sweep_.launches - before == levels
+            np.testing.assert_array_equal(got, solo.ssd(src))
+        st = fleet.stats()
+        assert len(st.rows) == 2 and st.cache.misses > 0
+        assert sum(r["bytes_read"] for r in st.rows) == st.cache.bytes_read
+    finally:
+        feng.close()
+        solo.close()
+    assert fleet._workers_down
+
+
+@pytest.mark.cuda
+def test_corrupt_segment_raises_through_the_shard_workers(
+        cuda_device, tmp_path_factory, tmp_path):
+    """A CRC mismatch decoded on a shard's pool raises in the querying
+    thread on the card, twice (the placeholder is discarded)."""
+    import os
+    import shutil
+
+    from repro_torch.fleet import ServingFleet
+    from repro_torch.storage import StreamingQueryEngine
+    src_path, _ = _delta_store(tmp_path_factory)
+    path = str(tmp_path / "store")
+    shutil.copytree(src_path, path)
+    with open(os.path.join(path, "plan_f.seg"), "r+b") as f:
+        f.seek(2 * 4096 + 100)
+        f.write(b"\xde\xad\xbe\xef" * 8)
+    fleet = ServingFleet(path, 2)
+    eng = StreamingQueryEngine(fleet.store, device=cuda_device)
+    try:
+        for _ in range(2):
+            with pytest.raises(ValueError, match="CRC mismatch"):
+                eng.ssd(np.arange(4, dtype=np.int32))
+    finally:
+        eng.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("module", ["repro_torch.storage.smoke",
+                                    "repro_torch.fleet.smoke"])
+def test_smoke_runs_on_card(cuda_device, module):
+    """``python -m repro_torch.{storage,fleet}.smoke`` on the card."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    out = subprocess.run([sys.executable, "-m", module], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "smoke OK on cuda" in out.stdout

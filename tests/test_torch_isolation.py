@@ -49,6 +49,10 @@ def test_import_loads_neither_jax_nor_repro():
             "import repro_torch.storage, repro_torch.storage.stream\n"
             "import repro_torch.storage.pipeline\n"
             "import repro_torch.config, repro_torch.obs.trace\n"
+            "import repro_torch.fleet, repro_torch.fleet.smoke\n"
+            "import repro_torch.core.baselines, repro_torch.storage.smoke\n"
+            "from repro_torch.core import build_hod, em_dijkstra\n"
+            "from repro_torch.fleet import ServingFleet, StorePartition\n"
             "from repro_torch.core import topk_closeness\n"
             "from repro_torch.launch.serve import server_from_config\n"
             "from repro_torch.storage import StreamingQueryEngine\n"

@@ -202,9 +202,11 @@ def test_ctor_engine_xor_store(engine):
 
 
 def test_sharded_serving_is_refused(engine):
+    """``serve.shards`` shards a store: beside an in-memory engine it
+    is refused, not ignored (the fleet itself: test_torch_fleet.py)."""
     cfg = Config(None, defaults=SERVE_DEFAULTS,
                  overrides={"serve": {"shards": 2}})
-    with pytest.raises(NotImplementedError, match="fleet"):
+    with pytest.raises(ValueError, match="store-backed"):
         server_from_config(cfg, engine=engine)
 
 
