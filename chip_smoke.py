@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths on one GPU and check them.
+"""Drive the PyTorch/CUDA port's serving and training paths on one GPU
+and check them.
 
     python3 chip_smoke.py
 
@@ -105,22 +106,47 @@ never JAX or the JAX package.  Phases, each of which asserts:
    ``forward`` at serve_p99 (B=512) and serve_bulk (B=262,144), and
    ``retrieval_scores`` over 10^6 candidates, checked against the same
    model on the CPU, and one profile of a serve_bulk call; ``bag_sum``
-   must launch once a call.
+   must launch once a call;
+10. training at full width (budget: 150 s), after phase 7.  (a) dlrm-rm2
+   train_batch through the train cell: B = 65,536 on RecsysStream's
+   Zipf ids, 26 x 10^6-row f32 tables (params, grads, m and v ~26.6 GB).
+   5 steps, each loss finite, ``bag_sum`` and ``bag_sum_backward``
+   launching once a step; median step (CUDA events), peak memory, a
+   profile.  Then one step's table gradient, from the hand-written
+   backward through autograd, is held against ``bag_sum_backward_ref``
+   on the same ``grad_out`` (each element within 2.5 x (n - 1) x 2^-24 x
+   its row's sum of |terms|, n the row's slots, so bit-equal at n = 1;
+   a zero output and the crossing runs left at zero must break that
+   bound) and must be bit-equal at a second launch; the backward is
+   timed beside its plain version and ``index_add_``, its sort and the
+   dense zero fill apart.  (b) glm4-9b: its full width at 2
+   layers in f32 on 64 tokens, loss and every gradient on the card
+   against the CPU's; then train_4k at full width (d 4096, vocab
+   151,552, GQA 32/2, d_ff 13,696) with the depth cut to what fits
+   beside 16 bytes a parameter and the batch cut to 1 x 4,096 (both
+   printed and in ``meta["reduced"]``), bf16 compute, remat on: a
+   warm-up step and 3 counted ones, losses finite, median step, peak
+   memory, a profile.  (c) resume: at the smoke configs of both models,
+   ``ElasticTrainer`` with a failure injected, restored from the
+   manifest alone, must end bit-equal to an uninterrupted run.
 
 Each path frees its memory before the next.  Every launch counter is
 zeroed just before a served run and read just after it.  It prints one
 JSON line with every kernel's numbers (``launches`` is the count of the
 run at the kernel's timed shape, ``launches_by_path`` each served run's
 own count, phase 8's paths ``hod_mixed_slo``,
-``hod_store_mixed_slo`` and ``hod_topk_store`` and phase 9's
+``hod_store_mixed_slo`` and ``hod_topk_store``, phase 9's
 ``hod_fleet_raw`` and ``hod_fleet_delta`` (each the sum over its runs
-at 1, 2 and 4 shards) and ``hod_fleet_mixed_slo`` included), the card's
+at 1, 2 and 4 shards) and ``hod_fleet_mixed_slo``, and phase 10's
+``dlrm_train`` and ``lm_train`` included; ``bag_sum_backward`` has no
+TPU kernel and names the JAX lookup's ``jnp.take``), the card's
 name and power limit, and, last,
 ``{"ok": true, "device": {...}}``.  Any failure
 exits non-zero before those lines; without a card, or outside a
 checkout, it exits non-zero at once.
 """
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -196,18 +222,46 @@ FLEET_CONFIG = "configs/serve_fleet.yaml"
 EM_SOURCES, EM_RTOL = 4, 1e-5
 BASELINE_SIDE, VC_TOP_NODES = 31, 256
 
+# Phase 10: training at full width.  dlrm-rm2 train_batch (B = 65,536,
+# RecsysStream's Zipf ids) for 5 steps; glm4-9b train_4k at full width,
+# its depth cut to what fits beside f32 params, grads and AdamW state
+# with LM_TRAIN_RESERVE of activations (a step at 13 layers peaked 9.43
+# GB above its state on an H100 80GB), its batch cut to LM_TRAIN_BATCH
+# sequences, for 3 steps (after one warm-up step); the f32 logic check at
+# 2 layers on LM_LOGIC_SEQ tokens; the resume check at the smoke
+# configs: RESUME_STEPS steps, checkpoints every RESUME_EVERY, a failure
+# injected before step RESUME_FAIL.  bag_sum_backward against its plain
+# version: the same f32 terms summed in another order, so each element
+# within BWD_SUM_SLACK x (n - 1) x 2^-24 x the row's sum of |terms|, n the
+# row's slot count (bit-equal at n = 1; see bwd_violations).  The f32 logic check on the card against the CPU:
+# loss rtol 1e-5, each gradient leaf rtol 1e-4 with atol 1e-5 of its
+# largest magnitude (f32 sums in another order, as the CPU parity tests).
+DLRM_TRAIN_STEPS, LM_TRAIN_STEPS, LM_TRAIN_BATCH = 5, 3, 1
+LM_TRAIN_RESERVE = 12 * 2 ** 30
+LM_LOGIC_SEQ = 64
+RESUME_STEPS, RESUME_EVERY, RESUME_FAIL = 6, 2, 3
+BWD_SUM_SLACK = 2.5
+LOGIC_RTOL, LOGIC_ATOL_SCALE = 1e-4, 1e-5
+
 # The served run whose launch count the kernels line reports: the one at
 # the shape each kernel is timed at.
 MAIN_PATH = {"edge_relax": "hod_serve_stream",
              "tropical_matmul": "hod_serve_stream",
-             "flash_decode": "decode_32k", "embedding_bag": "serve_bulk"}
+             "flash_decode": "decode_32k", "embedding_bag": "serve_bulk",
+             "bag_sum_backward": "dlrm_train"}
 
 REPLACES = {
     "edge_relax": "src/repro/kernels/edge_relax/kernel.py:35",
     "tropical_matmul": "src/repro/kernels/tropical_matmul/kernel.py:39",
     "flash_decode": "src/repro/kernels/flash_decode/kernel.py:87",
     "embedding_bag": "src/repro/kernels/embedding_bag/kernel.py:20",
+    # no TPU counterpart: the gradient XLA derives from jnp.take in the
+    # JAX lookup
+    "bag_sum_backward": "src/repro/models/dlrm.py:104",
 }
+SOURCE = {name: f"src/repro_torch/kernels/csrc/{name}.cu"
+          for name in REPLACES}
+SOURCE["bag_sum_backward"] = "src/repro_torch/kernels/csrc/embedding_bag.cu"
 
 
 def say(msg: str) -> None:
@@ -1397,7 +1451,8 @@ def drive_fleet(np, torch, card: str, g, mem: dict, stores: dict,
     return paths
 
 
-def profile_device(torch, step, reps: int, what: str, card: str) -> dict:
+def profile_device(torch, step, reps: int, what: str, card: str,
+                   top: int = 10) -> dict:
     """Where the time of ``step`` goes: device time by kernel, and the
     share of the wall time the device sits idle (torch.profiler).
     Returns them a call: ``wall_us``, ``busy_us``, ``idle_share`` and
@@ -1429,7 +1484,7 @@ def profile_device(torch, step, reps: int, what: str, card: str) -> dict:
         f"{busy_us / reps / 1e3:.3f} ms/call, device idle share "
         f"{1 - busy_us / wall_us:.3f} (host clock under the profiler, "
         f"on {card})")
-    for us, count, key in sorted(rows, reverse=True)[:10]:
+    for us, count, key in sorted(rows, reverse=True)[:top]:
         say(f"  {us / reps:10.1f} us/call {us / busy_us:6.1%} of busy  "
             f"{count // reps:5d} calls/call  {key[:80]}")
     return {"wall_us": wall_us / reps, "busy_us": busy_us / reps,
@@ -1931,6 +1986,407 @@ def drive_dlrm(torch, card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- phase 10
+def _counters() -> dict:
+    from repro_torch.kernels.embedding_bag import bag_sum, bag_sum_backward
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.edge_relax import relax_sweep_
+    from repro_torch.kernels.tropical_matmul import minplus
+    return {"edge_relax": relax_sweep_, "tropical_matmul": minplus,
+            "flash_decode": flash_decode, "embedding_bag": bag_sum,
+            "bag_sum_backward": bag_sum_backward}
+
+
+def paths_now() -> dict:
+    """Every kernel's launch count."""
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def reset_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def timed_steps(torch, step, batches) -> "tuple[list, list]":
+    """Run ``step(i, batch)`` over ``batches``, each timed by CUDA events;
+    returns (ms a step, the losses as floats)."""
+    ms, losses = [], []
+    for i, batch in enumerate(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step(i, batch)
+        stop.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(stop))
+        losses.append(float(loss))
+    return ms, losses
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def bwd_violations(got, want, absum, cnt) -> int:
+    """Elements of touched rows where ``got`` and ``want`` (the same f32
+    terms summed in two orders, ``cnt`` terms a row) differ by more than
+    BWD_SUM_SLACK * (cnt - 1) * 2**-24 * ``absum`` (the row's sum of
+    |terms|): twice the a-priori bound of an f32 sum of n terms in any
+    order, with room for its second-order term and for the rounding of
+    ``absum``.  A row of one slot must be bit-equal."""
+    tol = (BWD_SUM_SLACK * 2.0 ** -24) * (cnt - 1).float()[:, None] * absum
+    return int(((got - want).abs() > tol).sum())
+
+
+def check_bwd_output(torch, got, g, ids, mask, n_rows: int) -> dict:
+    """Hold a dense table gradient ``got`` [n_rows, D] against
+    ``bag_sum_backward_ref`` on the same inputs: every touched row within
+    :func:`bwd_violations`'s bound, every untouched row zero, all finite.
+    Two planted faults must break the bound: a zero output, and the rows
+    whose run of sorted slots crosses a chunk boundary left at zero (what
+    the kernel writes without its second pass).  Raises on a failure;
+    returns what the check saw."""
+    from repro_torch.kernels.embedding_bag import (backward_plan,
+                                                   bag_sum_backward_ref)
+    from repro_torch.kernels.embedding_bag.ops import BWD_CHUNK
+    rows, _ = backward_plan(ids, n_rows)
+    cnt = torch.bincount(rows.long(), minlength=n_rows + 1)[:n_rows]
+    del rows
+    hit = torch.nonzero(cnt).squeeze(1)          # the touched rows, in order
+    stray = int(torch.count_nonzero(got, dim=1)[cnt == 0].sum())
+    want = bag_sum_backward_ref(g, ids, mask, n_rows)[hit]
+    absum = bag_sum_backward_ref(g.abs(), ids, mask.abs(), n_rows)[hit]
+    got_h, n_h = got[hit], cnt[hit]
+    max_err = (got_h - want).abs().max().item()
+    bad = bwd_violations(got_h, want, absum, n_h)
+    if bad or stray or not torch.isfinite(got).all():
+        raise AssertionError(f"bag_sum_backward differs from the plain "
+                             f"version: {bad} elements outside the bound, "
+                             f"{stray} stray elements in untouched rows, "
+                             f"max |err| {max_err}")
+    start = torch.cumsum(cnt, 0)[hit] - n_h      # each run's first slot
+    crossing = start // BWD_CHUNK != (start + n_h - 1) // BWD_CHUNK
+    caught = {
+        "zero output": bwd_violations(torch.zeros_like(got_h), want, absum,
+                                      n_h),
+        "no second pass": bwd_violations(
+            got_h.masked_fill(crossing[:, None], 0.0), want, absum, n_h)}
+    if not all(caught.values()):
+        raise AssertionError(f"the bag_sum_backward bound misses a planted "
+                             f"fault: {caught}")
+    return {"max_abs_err": max_err, "touched": hit.numel(),
+            "one_slot": int((n_h == 1).sum()), "hottest": int(cnt.max()),
+            "crossing": int(crossing.sum()), "caught": caught,
+            "max_grad_out": g.abs().max().item(),
+            "max_d_table": want.abs().max().item(),
+            "max_abs_sum": absum.max().item()}
+
+
+def check_bag_sum_backward(torch, card: str, cell) -> dict:
+    """One DLRM step's table gradient, from the kernel through autograd,
+    against ``bag_sum_backward_ref`` on the same ``grad_out`` (captured
+    from the Function's backward) on the card by :func:`check_bwd_output`,
+    and bit-equal across two launches; timed at the train shape beside
+    the plain version and ``index_add_``, the memset of the dense
+    gradient timed apart."""
+    from repro_torch.kernels.embedding_bag import (BagSum, backward_plan,
+                                                   bag_sum_backward,
+                                                   bag_sum_backward_ref)
+    from repro_torch.launch.steps import dlrm_value_and_grad
+    state, batch = cell.args[0], cell.args[1:]
+    seen = {}
+    inner = BagSum.backward
+
+    def capture(ctx, grad_out):
+        seen["grad_out"] = grad_out.contiguous()
+        seen["ids"], seen["mask"] = ctx.saved_tensors
+        seen["n_rows"] = ctx.n_rows
+        return inner(ctx, grad_out)
+    BagSum.backward = staticmethod(capture)
+    try:
+        _, grads = dlrm_value_and_grad(state["params"], *batch,
+                                       cell.meta["cfg"])
+    finally:
+        BagSum.backward = staticmethod(inner)
+    g, ids, mask, n_rows = (seen["grad_out"], seen["ids"], seen["mask"],
+                            seen["n_rows"])
+    got = grads["tables"].view(n_rows, -1)
+    d = got.shape[1]
+    n = ids.numel()
+    chk = check_bwd_output(torch, got, g, ids, mask, n_rows)
+    again = bag_sum_backward(g, ids, mask, n_rows)
+    if not torch.equal(again, got):
+        raise AssertionError("bag_sum_backward gave other bits at its "
+                             "second launch")
+    touched = chk["touched"]
+    say(f"bag_sum_backward at train_batch: grad_out [{n},{d}] f32, "
+        f"{touched} rows touched ({chk['one_slot']} of one slot, "
+        f"bit-equal), the hottest {chk['hottest']} slots; max |grad_out| "
+        f"{chk['max_grad_out']:.3e}, max |d_table| "
+        f"{chk['max_d_table']:.3e}, max row sum of |terms| "
+        f"{chk['max_abs_sum']:.3e}; max |err| {chk['max_abs_err']:.3e} "
+        f"against the plain version (bound {BWD_SUM_SLACK} x (slots - 1) x "
+        f"2^-24 x sum |terms|), untouched rows zero, bit-equal across "
+        f"launches; planted faults outside the bound: a zero output "
+        f"{chk['caught']['zero output']} elements, the {chk['crossing']} "
+        f"rows crossing a chunk left at zero "
+        f"{chk['caught']['no second pass']} elements")
+    del grads, again
+    free(torch)
+    row = {"shape": f"grad_out [{n},{d}] f32, ids [{n},1] (Zipf), table "
+                    f"[{n_rows},{d}]", "max_abs_err": chk["max_abs_err"],
+           "plan": "one call = 2 kernel launches (bag_bwd_runs_kernel, then "
+                   "bag_bwd_carry_kernel); launches counts calls"}
+    buf = torch.zeros((n_rows, d), device="cuda")
+    row["ms"] = time_ms(torch, lambda: bag_sum_backward(
+        g, ids, mask, n_rows, out=buf), iters=20)
+    row["parts"] = {
+        "sort_ms": time_ms(torch, lambda: backward_plan(ids, n_rows),
+                           iters=20),
+        "memset_ms": time_ms(torch, buf.zero_, iters=10)}
+    row["plain_ms"] = time_ms(torch, lambda: bag_sum_backward_ref(
+        g, ids, mask, n_rows), iters=1, warmup=0)
+    flat = ids.reshape(-1).long()
+    src = g * mask.reshape(-1, 1)              # K = 1: one slot a bag
+    row["library_ms"] = time_ms(torch, lambda: buf.index_add_(0, flat, src),
+                                iters=20)
+    # Bytes: grad_out's rows, ids and mask (4 B a slot each) in, each
+    # touched row written once; one multiply and one add an element a slot.
+    row["bound_ms"], row["bound_by"] = bound(
+        4.0 * n * d + 8.0 * n + 4.0 * d * touched, 2.0 * n * d)
+    say(f"bag_sum_backward: kernel {row['ms']:.4f} ms (its sort "
+        f"{row['parts']['sort_ms']:.4f} ms), dense zero fill "
+        f"{row['parts']['memset_ms']:.4f} "
+        f"ms apart, plain {row['plain_ms']:.4f} ms, index_add_ (library) "
+        f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}) on {card}")
+    del buf, src, flat
+    free(torch)
+    return row
+
+
+def drive_dlrm_train(torch, card: str) -> "tuple[dict, dict]":
+    """Phase 10a: dlrm-rm2 train_batch at full size through the train
+    cell, DLRM_TRAIN_STEPS steps on RecsysStream's batches.  Returns
+    (bag_sum_backward's row, the counts of the counted steps)."""
+    from repro_torch.launch.steps import build_cell
+    t0 = time.perf_counter()
+    cell = build_cell("dlrm-rm2", "train_batch", device="cuda")
+    torch.cuda.synchronize()
+    state = cell.args[0]
+    nbytes = sum(t.numel() * t.element_size() for t in (
+        state["params"]["tables"], state["opt"].m["tables"],
+        state["opt"].v["tables"]))
+    say(f"dlrm-rm2 train_batch: B {cell.meta['batch']}, tables "
+        f"{tuple(state['params']['tables'].shape)} f32; params, m and v of "
+        f"the tables {nbytes / 1e9:.2f} GB made in "
+        f"{time.perf_counter() - t0:.1f} s; data {cell.meta['data']}")
+    batches = [cell.args[1:]] + [cell.batch_at(i)
+                                 for i in range(1, DLRM_TRAIN_STEPS)]
+    ids0 = batches[0][1]
+    resident = torch.cuda.memory_allocated()
+    say(f"  Zipf ids: row 0 takes {float((ids0 == 0).float().mean()):.3f} "
+        f"of a field's slots; {resident / 1e9:.2f} GB resident before the "
+        f"steps")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ms, losses = timed_steps(
+        torch, lambda i, b: cell.fn(state, *b)[1]["loss"], batches)
+    counts = paths_now()
+    peak = torch.cuda.max_memory_allocated()
+    n = DLRM_TRAIN_STEPS
+    if counts["embedding_bag"] != n or counts["bag_sum_backward"] != n:
+        raise AssertionError(f"dlrm train: {counts} in {n} steps (want 1 "
+                             "forward and 1 backward launch a step)")
+    if not all(map(lambda x: x == x and abs(x) < float("inf"), losses)):
+        raise AssertionError(f"dlrm train losses not finite: {losses}")
+    say(f"dlrm-rm2 train_batch: {n} steps, losses "
+        f"{[round(x, 6) for x in losses]}, median step {median(ms):.3f} ms "
+        f"(CUDA events; steps {[round(x, 3) for x in ms]}), peak device "
+        f"memory {peak / 1e9:.2f} GB, model "
+        f"{cell.model_flops / (median(ms) / 1e3) / 1e12:.3f} TFLOP/s; "
+        f"bag_sum and bag_sum_backward {n} launches each, on {card}")
+    nxt = cell.batch_at(n)
+    profile_device(torch, lambda: cell.fn(state, *nxt), 1,
+                   "dlrm-rm2 train steps", card, top=15)
+    del batches, nxt
+    free(torch)
+    row = check_bag_sum_backward(torch, card, cell)
+    del cell, state
+    free(torch)
+    return row, counts
+
+
+def lm_train_logic(torch) -> None:
+    """glm4-9b's full width at 2 layers in f32 on LM_LOGIC_SEQ tokens: the
+    train loss and every gradient on the card against the same model on
+    the CPU."""
+    import dataclasses
+    from repro_torch.configs import glm4_9b
+    from repro_torch.launch.steps import lm_value_and_grad
+    from repro_torch.tree import flatten_with_paths, leaves, map_tree
+    cfg = dataclasses.replace(glm4_9b.CONFIG, n_layers=2,
+                              compute_dtype=torch.float32,
+                              loss_chunk=LM_LOGIC_SEQ // 2)
+    from repro_torch.models import transformer as tf
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = tf.init_params(cfg, gen, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (1, LM_LOGIC_SEQ + 1), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    x, y = toks[:, :-1].contiguous(), toks[:, 1:].contiguous()
+    loss, grads = lm_value_and_grad(params, x, y, cfg)
+    grads = map_tree(lambda t: t.cpu(), grads)
+    loss = loss.item()
+    cpu = map_tree(lambda t: t.cpu(), params)
+    del params
+    free(torch)
+    t0 = time.perf_counter()
+    want_loss, want = lm_value_and_grad(cpu, x.cpu(), y.cpu(), cfg)
+    cpu_s = time.perf_counter() - t0
+    worst = 0.0
+    for (k, got), w in zip(flatten_with_paths(grads), leaves(want)):
+        scale = w.abs().max().item()
+        err = (got - w).abs()
+        worst = max(worst, err.max().item() / max(scale, 1e-30))
+        if not torch.allclose(got, w, rtol=LOGIC_RTOL,
+                              atol=LOGIC_ATOL_SCALE * scale):
+            raise AssertionError(f"LM f32 gradient {k}: max |err| "
+                                 f"{err.max().item()} at scale {scale}")
+    if not abs(loss - want_loss.item()) <= 1e-5 * abs(want_loss.item()):
+        raise AssertionError(f"LM f32 loss {loss} on the card, "
+                             f"{want_loss.item()} on the CPU")
+    say(f"glm4-9b train logic (full width, 2 layers, f32, {LM_LOGIC_SEQ} "
+        f"tokens): loss {loss:.6f} on the card, {want_loss.item():.6f} on "
+        f"the CPU ({cpu_s:.1f} s); every gradient within rtol "
+        f"{LOGIC_RTOL}, atol {LOGIC_ATOL_SCALE} of its scale (worst "
+        f"{worst:.2e} of it)")
+
+
+def drive_lm_train(torch, card: str) -> dict:
+    """Phase 10b: the f32 logic check, then glm4-9b train_4k at full
+    width, depth and batch cut to fit one card, bf16 compute, remat on.
+    Returns the launch counts of the counted steps."""
+    from repro_torch.configs import glm4_9b
+    from repro_torch.launch.steps import build_cell, lm_train_layers
+    lm_train_logic(torch)
+    free(torch)
+    free_bytes = torch.cuda.mem_get_info()[0]
+    layers = lm_train_layers(glm4_9b.CONFIG, free_bytes, LM_TRAIN_RESERVE)
+    t0 = time.perf_counter()
+    cell = build_cell("glm4-9b", "train_4k", device="cuda",
+                      batch=LM_TRAIN_BATCH, layers=layers)
+    torch.cuda.synchronize()
+    cfg, state = cell.meta["cfg"], cell.args[0]
+    n_params = cfg.param_count()
+    resident = torch.cuda.memory_allocated()
+    say(f"glm4-9b train_4k: cuts {cell.meta['reduced']} (depth: "
+        f"{free_bytes / 1e9:.2f} GB free, 16 B a parameter, "
+        f"{LM_TRAIN_RESERVE / 2 ** 30:.0f} GiB kept for activations); "
+        f"{n_params / 1e9:.3f} B params, f32 state "
+        f"{16 * n_params / 1e9:.2f} GB with the gradients; d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}, heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads}, d_ff {cfg.d_ff}, {cfg.compute_dtype}, remat "
+        f"{cfg.remat}; made in {time.perf_counter() - t0:.1f} s, "
+        f"{resident / 1e9:.2f} GB resident")
+    batches = [cell.batch_at(i) for i in range(LM_TRAIN_STEPS + 1)]
+    warm_ms, warm_loss = timed_steps(
+        torch, lambda i, b: cell.fn(state, *b)[1]["loss"], batches[:1])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ms, losses = timed_steps(
+        torch, lambda i, b: cell.fn(state, *b)[1]["loss"], batches[1:])
+    counts = paths_now()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(x == x and abs(x) < float("inf")
+               for x in warm_loss + losses):
+        raise AssertionError(f"LM train losses not finite: {losses}")
+    tokens = LM_TRAIN_BATCH * cell.meta["seq_len"]
+    say(f"glm4-9b train_4k: {LM_TRAIN_STEPS} steps after a warm-up "
+        f"({warm_ms[0]:.1f} ms), losses "
+        f"{[round(x, 5) for x in warm_loss + losses]}, median step "
+        f"{median(ms):.1f} ms (CUDA events; {[round(x, 1) for x in ms]}), "
+        f"{tokens / (median(ms) / 1e3):.0f} tokens/s, model "
+        f"{cell.model_flops / (median(ms) / 1e3) / 1e12:.1f} TFLOP/s, peak "
+        f"device memory {peak / 1e9:.2f} GB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f}, "
+        f"on {card}")
+    nxt = cell.batch_at(LM_TRAIN_STEPS + 1)
+    profile_device(torch, lambda: cell.fn(state, *nxt), 1,
+                   "glm4-9b train_4k steps", card, top=15)
+    del cell, state, batches, nxt
+    free(torch)
+    return counts
+
+
+def resume_check(torch, arch: str, shape: str, root: str) -> None:
+    """Phase 10c: the smoke config of ``arch`` on the card, RESUME_STEPS
+    steps uninterrupted and under ``ElasticTrainer`` with a failure
+    injected before step RESUME_FAIL (checkpoints every RESUME_EVERY,
+    restored from the manifest alone): final params and OptState equal
+    bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.ft import ElasticTrainer
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.optim import OptState
+    from repro_torch.tree import flatten_with_paths, map_tree
+    cell = build_cell(arch, shape, smoke=True, device="cuda")
+    init = map_tree(lambda t: t.clone(), cell.args[0])
+
+    def step_fn(state, step):
+        return cell.fn(state, *cell.batch_at(step))[0]
+
+    whole = map_tree(lambda t: t.clone(), init)
+    for step in range(RESUME_STEPS):
+        whole = step_fn(whole, step)
+
+    def build(n_devices, restored):
+        if restored is None:
+            return map_tree(lambda t: t.clone(), init), step_fn
+        on = map_tree(lambda t: t.to("cuda"), restored)
+        return {"params": on["params"], "opt": OptState(**on["opt"])}, \
+            step_fn
+    failed = []
+
+    def injector(step):
+        if step == RESUME_FAIL and not failed:
+            failed.append(step)
+            raise RuntimeError(f"injected failure at step {step}")
+    mgr = CheckpointManager(os.path.join(root, arch), keep_last=2)
+    state, log = ElasticTrainer(ckpt=mgr, build=build,
+                                total_steps=RESUME_STEPS,
+                                ckpt_every=RESUME_EVERY,
+                                failure_injector=injector).run(1)
+    torch.cuda.synchronize()
+    diff = [k for (k, a), (_, b) in zip(flatten_with_paths(state),
+                                        flatten_with_paths(whole))
+            if a.dtype != b.dtype or not torch.equal(a, b)]
+    saved = max(s for s in range(RESUME_FAIL) if (s + 1) % RESUME_EVERY == 0)
+    if log["restarts"] != 1 or log["resumed_from"] != [saved] or diff:
+        raise AssertionError(f"{arch} resume: {log}, leaves differing from "
+                             f"the uninterrupted run: {diff}")
+    say(f"{arch} {shape} (smoke) resume on the card: {RESUME_STEPS} steps, "
+        f"a failure before step {RESUME_FAIL}, resumed from step "
+        f"{log['resumed_from'][0]}; final params and OptState (count "
+        f"{int(state['opt'].count)}) equal the uninterrupted run's bit for "
+        f"bit ({len(flatten_with_paths(state))} leaves)")
+
+
+def drive_train(torch, card: str) -> "tuple[dict, dict]":
+    """Phase 10: returns (bag_sum_backward's row, launch counts of the
+    dlrm_train and lm_train paths)."""
+    row, dlrm_counts = drive_dlrm_train(torch, card)
+    lm_counts = drive_lm_train(torch, card)
+    root = tempfile.mkdtemp(prefix="train_ckpt_")
+    try:
+        for arch, shape in (("dlrm-rm2", "train_batch"),
+                            ("glm4-9b", "train_4k")):
+            resume_check(torch, arch, shape, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    free(torch)
+    return row, {"dlrm_train": dlrm_counts, "lm_train": lm_counts}
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -2032,6 +2488,13 @@ def main() -> int:
     paths["embedding_bag"] = drive_dlrm(torch, card)
     free(torch)
     say(f"DLRM phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows["bag_sum_backward"], train_paths = drive_train(torch, card)
+    paths["bag_sum_backward"] = {}
+    for path, counts in train_paths.items():
+        for name, n in counts.items():
+            paths[name][path] = n
+    say(f"training phase took {time.perf_counter() - t0:.1f} s")
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
         raise AssertionError("the smoke imported jax or the JAX package")
@@ -2043,7 +2506,7 @@ def main() -> int:
         r = rows[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": SOURCE[name],
             "replaces": REPLACES[name],
             "launches": paths[name][MAIN_PATH[name]],
             "main_path": MAIN_PATH[name], "launches_by_path": paths[name],

@@ -1,8 +1,9 @@
-"""Carry the JAX package's parameters across into the port.
+"""Carry the JAX package's parameters and optimizer state across into
+the port.
 
-The functions take the JAX parameter pytree with every leaf as a numpy
-array (``jax.tree.map(np.asarray, params)``), so this module needs no
-JAX: an ``.npz`` or any other numpy source works the same.  bf16 leaves
+The functions take the JAX pytree with every leaf as a numpy array
+(``jax.tree.map(np.asarray, params)``), so this module needs no JAX: an
+``.npz`` or any other numpy source works the same.  bf16 leaves
 (numpy's ``ml_dtypes`` bfloat16) are taken bit for bit.
 """
 from __future__ import annotations
@@ -13,6 +14,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..optim import OptState
+from ..tree import flatten_with_paths, map_tree
 from .dlrm import DLRMConfig
 from .transformer import TransformerConfig, _layer_shapes
 
@@ -76,3 +79,28 @@ def dlrm_params_from_numpy(tree: Dict[str, Any], cfg: DLRMConfig,
                      _tensor(b, device, cfg.dtype)] for w, b in tree["bot"]],
             "top": [[_tensor(w, device, cfg.dtype),
                      _tensor(b, device, cfg.dtype)] for w, b in tree["top"]]}
+
+
+def adamw_state_from_numpy(state, params, device=None) -> OptState:
+    """A JAX ``OptState(m, v, count)`` with numpy leaves (or a dict with
+    those keys) -> the port's ``OptState`` on ``device`` (default
+    ``cuda``): m and v f32 shaped like ``params`` (the port's tree; its
+    paths and shapes are checked), count int32."""
+    device = resolve_device(device)
+    get = state.get if isinstance(state, dict) else \
+        (lambda k: getattr(state, k))
+    want = [(k, tuple(p.shape)) for k, p in flatten_with_paths(params)]
+    moments = []
+    for name in ("m", "v"):
+        tree = get(name)
+        have = [(k, tuple(np.shape(a))) for k, a in flatten_with_paths(tree)]
+        if have != want:
+            raise ValueError(f"OptState.{name}: leaves {have} are not the "
+                             f"parameters' {want}")
+        moments.append(map_tree(
+            lambda a: _tensor(a, device, torch.float32), tree))
+    count = _tensor(np.asarray(get("count")), device, torch.int32)
+    if count.dim() != 0:
+        raise ValueError(f"OptState.count must be a scalar, got shape "
+                         f"{tuple(count.shape)}")
+    return OptState(moments[0], moments[1], count)

@@ -5,8 +5,11 @@
 interaction over the 27 resulting vectors; top MLP (512-512-256-1) -> CTR
 logit.  The JAX package's ``models/dlrm.py`` without its shard_map: every
 lookup goes through the hand-written ``bag_sum`` kernel, which gathers
-the rows itself.  The 26 tables are one ``[26, V, D]`` tensor; a forward
-pass is one ``bag_sum`` launch over its ``[26*V, D]`` view.
+the rows itself, and the tables' gradient through its hand-written
+backward (``kernels/embedding_bag``, a ``torch.autograd.Function``).
+The 26 tables are one ``[26, V, D]`` tensor; a forward pass is one
+``bag_sum`` launch over its ``[26*V, D]`` view, a backward one
+``bag_sum_backward`` launch.
 
 ``retrieval_cand`` scores one query against 10^6 candidates as a plain
 matvec and ``topk``.
@@ -127,7 +130,7 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Forward / retrieval
+# Forward / loss / retrieval
 # ---------------------------------------------------------------------------
 
 def forward(params, dense: torch.Tensor, sparse_ids: torch.Tensor,
@@ -142,6 +145,18 @@ def forward(params, dense: torch.Tensor, sparse_ids: torch.Tensor,
     inter = zz[:, iu, ju]                                     # [B, 351]
     top_in = torch.cat([bot, inter], dim=-1)
     return mlp(top_in, params["top"])[:, 0]
+
+
+def loss_fn(params, dense: torch.Tensor, sparse_ids: torch.Tensor,
+            labels: torch.Tensor, cfg: DLRMConfig) -> torch.Tensor:
+    """Mean binary cross-entropy of the CTR logits, in the JAX formula's
+    stable form ``max(l, 0) - l * y + log1p(exp(-|l|))`` (``torch.maximum``
+    splits a tie's gradient in half, as ``jnp.maximum`` does).  The
+    table's gradient comes from ``bag_sum``'s backward."""
+    logit = forward(params, dense, sparse_ids, cfg)
+    y = labels.to(torch.float32)
+    return torch.mean(torch.maximum(logit, logit.new_zeros(())) - logit * y
+                      + torch.log1p(torch.exp(-torch.abs(logit))))
 
 
 def user_vector(params, dense: torch.Tensor, sparse_ids: torch.Tensor,

@@ -1,10 +1,12 @@
-"""Transformer building blocks of the port (what glm4 serving needs).
+"""Transformer building blocks of the port (what glm4 serving and
+training need).
 
 Plain PyTorch mirrors of the JAX package's ``models/layers.py``, kept to
 its algorithms and its rounding points (see each function), except
 :func:`attention_decode`, which runs the hand-written ``flash_decode``
-kernel.  Prefill attention has no TPU kernel and stays plain: the same
-blockwise running-softmax schedule as the JAX module.  Sliding-window
+kernel.  Prefill and training attention has no TPU kernel and stays
+plain: the same blockwise running-softmax schedule as the JAX module,
+differentiated by autograd.  Sliding-window
 attention, the perf variant of causal attention and the MoE block come
 with the archs that need them (``ROADMAP.md`` queue 1).
 """

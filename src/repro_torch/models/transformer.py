@@ -1,4 +1,5 @@
-"""Decoder-only LM of the port: parameters, prefill and decode (serving).
+"""Decoder-only LM of the port: parameters, the training forward and
+loss, prefill and decode (serving).
 
 The JAX package's ``models/transformer.py`` for the dense GQA archs
 (glm4-9b), on one device.  Parameters keep its pytree layout: ``embed``
@@ -11,9 +12,12 @@ embedding is scaled by ``sqrt(d_model)`` in that dtype, and the logits
 are a ``compute_dtype`` product widened to f32 afterwards.
 
 Decode attention runs the hand-written ``flash_decode`` kernel (through
-``layers.attention_decode``) and updates the caches in place.  The
-training forward and loss, MoE and sliding-window layers come later
-(``ROADMAP.md`` queue 1).
+``layers.attention_decode``) and updates the caches in place.  Training
+(:func:`forward`, :func:`loss_fn`) follows the JAX functions: each cycle
+of layers is recomputed in the backward pass when ``cfg.remat`` is set
+(``torch.utils.checkpoint``, as the JAX scan body is ``jax.checkpoint``'d),
+and so is each chunk of the cross-entropy.  MoE, sliding-window layers
+and the ``block_outs`` remat policy come later (``ROADMAP.md`` queue 1).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .common import dense_init
@@ -43,10 +48,12 @@ class TransformerConfig:
     tie_embeddings: bool = True
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
+    remat: bool = True                      # recompute each cycle in backward
     attn_chunk: int = 1024
-    # Read only by the training loss, which is not ported yet; kept so
-    # that the configs stay verbatim copies of the JAX package's.
-    loss_chunk: int = 2048
+    loss_chunk: int = 2048                  # tokens a cross-entropy chunk
+    # "none" saves only cycle boundaries; the JAX package's "block_outs"
+    # (save each block's output) is not ported (ROADMAP.md queue 1).
+    remat_policy: str = "none"
 
     @property
     def hd(self) -> int:
@@ -138,6 +145,103 @@ def make_cache(cfg: TransformerConfig, batch: int, seq_len: int,
     return [{"k": torch.zeros(shp, dtype=dtype, device=device),
              "v": torch.zeros(shp, dtype=dtype, device=device)}
             for _ in range(cfg.local_global_period)]
+
+
+# ---------------------------------------------------------------------------
+# Training: forward + chunked loss
+# ---------------------------------------------------------------------------
+
+def _attn_train(x, lp, cfg: TransformerConfig, positions, cos, sin):
+    b, s, _ = x.shape
+    hd = cfg.hd
+    h = rms_norm(x, lp["ln1"])
+    q = (h @ lp["wq"]).reshape(b, s, cfg.n_heads, hd)
+    k = (h @ lp["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
+    v = (h @ lp["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    k = rotate(k, cos, sin)
+    q = rotate(q, cos, sin)
+    o = attention_causal(q, k, v, chunk=cfg.attn_chunk,
+                         q_positions=positions, kv_positions=positions)
+    return o.reshape(b, s, cfg.n_heads * hd) @ lp["wo"]
+
+
+def _cycle_train(x, cycle, cfg: TransformerConfig, positions, cos, sin):
+    """One cycle of layers (``cycle``: a dict of one layer's parameters a
+    position), each cast to ``compute_dtype`` here so that a recomputed
+    cycle keeps no cast copy alive."""
+    cd = cfg.compute_dtype
+    for layer in cycle:
+        lp = {name: a.to(cd) for name, a in layer.items()}
+        x = x + _attn_train(x, lp, cfg, positions, cos, sin)
+        x = x + swiglu(rms_norm(x, lp["ln2"]), lp["wg"], lp["wu"], lp["wd"])
+    return x
+
+
+def forward(params, tokens: torch.Tensor, cfg: TransformerConfig,
+            positions: Optional[torch.Tensor] = None):
+    """tokens [B, S] -> (final hidden states [B, S, D] in
+    ``compute_dtype``, aux loss: a 0-d f32 zero, as for every dense
+    arch).  ``params["layers"]`` holds ``[n_cycles, ...]`` stacks, or
+    lists of per-cycle tensors (what the train step passes, so that each
+    cycle's gradient lands in its own slot of one buffer).
+
+    Rounding follows the JAX forward: the whole embedding is cast to
+    ``compute_dtype`` before the gather (its gradient is summed in that
+    dtype, as XLA's scatter-add is), the layers and ``ln_f`` are cast to
+    it, and RoPE and the norms compute in f32."""
+    if cfg.remat_policy != "none":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} comes with the optimized "
+            "LM variant (ROADMAP.md queue 1)")
+    b, s = tokens.shape
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
+    cd = cfg.compute_dtype
+    scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=cd)).item()
+    x = params["embed"].to(cd)[tokens] * scale
+    cos, sin = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+    for c in range(cfg.n_cycles):
+        cycle = [{name: a[c] for name, a in pos.items()}
+                 for pos in params["layers"]]
+        if cfg.remat:
+            x = checkpoint(_cycle_train, x, cycle, cfg, positions, cos, sin,
+                           use_reentrant=False)
+        else:
+            x = _cycle_train(x, cycle, cfg, positions, cos, sin)
+    x = rms_norm(x, params["ln_f"].to(cd))
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _chunk_loss(xc: torch.Tensor, yc: torch.Tensor, w: torch.Tensor
+                ) -> torch.Tensor:
+    """Summed cross-entropy of one chunk: logits a ``compute_dtype``
+    product widened to f32."""
+    logits = (xc @ w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, yc[..., None].long())[..., 0]
+    return (lse - picked).sum()
+
+
+def loss_fn(params, tokens: torch.Tensor, labels: torch.Tensor,
+            cfg: TransformerConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy (+ the aux loss), with the logits
+    made ``loss_chunk`` positions at a time and each chunk recomputed in
+    the backward pass (the JAX ``jax.checkpoint(chunk_loss)``), so that
+    at most one chunk's logits are alive.  S must be a multiple of the
+    chunk, as the JAX reshape requires."""
+    x, aux = forward(params, tokens, cfg)
+    b, s, _ = x.shape
+    w = lm_head_weight(params, cfg).to(cfg.compute_dtype)
+    c = min(cfg.loss_chunk, s)
+    if s % c:
+        raise ValueError(f"loss_fn: sequence length {s} is not a multiple "
+                         f"of loss_chunk {c}")
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(s // c):
+        sl = slice(i * c, (i + 1) * c)
+        tot = tot + checkpoint(_chunk_loss, x[:, sl], labels[:, sl], w,
+                               use_reentrant=False)
+    return tot / (b * s) + aux
 
 
 # ---------------------------------------------------------------------------

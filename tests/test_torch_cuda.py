@@ -11,7 +11,10 @@ import torch
 
 from repro_torch.kernels.edge_relax import (pack_sweep, relax_sweep_,
                                             relax_sweep_ref_)
-from repro_torch.kernels.embedding_bag import bag_sum, bag_sum_ref, take_fill
+from repro_torch.kernels.embedding_bag import (backward_plan, bag_sum,
+                                               bag_sum_backward,
+                                               bag_sum_backward_ref,
+                                               bag_sum_ref, take_fill)
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.tropical_matmul import minplus, minplus_ref
@@ -285,6 +288,80 @@ def test_bag_sum_kernel_on_card(cuda_device, v, d, b, k, dtype):
     assert got.dtype == dtype
     want = bag_sum_ref(take_fill(tab, t(ids)), mask)
     np.testing.assert_array_equal(got.float().numpy(), want.float().numpy())
+
+
+def _zipf_bags(v, b, k, d, seed, hot=0):
+    """Zipf(1.2) ids (row 0 about 18% of the slots, as RecsysStream's),
+    ``hot`` extra slots on row 1, every out-of-range case, a weighted
+    mask with zeros, and a gradient."""
+    rng = np.random.default_rng(seed)
+    ids = np.minimum(rng.zipf(1.2, (b, k)) - 1, v - 1).astype(np.int32)
+    ids.reshape(-1)[rng.permutation(b * k)[:hot]] = 1
+    ids.flat[:4] = [-1, v, -v, -v - 1]
+    mask = (rng.random((b, k)) < 0.8) * rng.normal(size=(b, k))
+    g = rng.normal(size=(b, d))
+    return (t(ids), t(mask.astype(np.float32)), t(g.astype(np.float32)))
+
+
+def _counts(ids, v):
+    rows, _ = backward_plan(ids, v)
+    return torch.bincount(rows.long(), minlength=v + 1)[:v].float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,b,k,d,hot", [
+    (1000, 4096, 1, 64, 0), (1000, 4096, 1, 64, 3000), (50, 300, 3, 5, 40),
+    (7, 200, 2, 8, 0), (10 ** 6, 65536, 1, 64, 0), (300, 77, 4, 128, 100),
+    (3, 33, 1, 4, 0)])
+def test_bag_sum_backward_kernel_on_card(cuda_device, v, b, k, d, hot):
+    """Against the plain version on Zipf ids with a hot row: rtol 1e-5 and
+    atol 1e-6 x the row's slot count (f32 sums associated at chunk
+    boundaries); rows of one slot, summed the same way, bit-equal; the
+    same bits at every launch; untouched rows stay zero."""
+    ids, mask, g = _zipf_bags(v, b, k, d, seed=v + b + k, hot=hot)
+    want = bag_sum_backward_ref(g, ids, mask, v)
+    cnt = _counts(ids, v)
+    before = bag_sum_backward.launches
+    got = bag_sum_backward(g.to(cuda_device), ids.to(cuda_device),
+                           mask.to(cuda_device), v)
+    again = bag_sum_backward(g.to(cuda_device), ids.to(cuda_device),
+                             mask.to(cuda_device), v)
+    assert bag_sum_backward.launches == before + 2
+    assert torch.equal(got, again)
+    got = got.cpu()
+    err = (got - want).abs()
+    assert (err <= 1e-5 * want.abs() + 1e-6 * cnt[:, None]).all(), \
+        err.max().item()
+    assert torch.equal(got[cnt <= 1], want[cnt <= 1])
+    assert not got[cnt == 0].any()
+
+
+@pytest.mark.cuda
+def test_bag_sum_backward_through_autograd_on_card(cuda_device):
+    """``bag_sum``'s Function on the card: the table's gradient comes from
+    the kernel (one launch a backward), equal to the CPU's within the
+    kernel test's bound, and reruns into a given ``out`` are idempotent."""
+    ids, mask, g = _zipf_bags(500, 2048, 2, 16, seed=3)
+    tab = torch.zeros(500, 16, device=cuda_device, requires_grad=True)
+    before = bag_sum_backward.launches
+    out = bag_sum(tab, ids.to(cuda_device), mask.to(cuda_device))
+    (got,) = torch.autograd.grad(out, [tab], g.to(cuda_device))
+    assert bag_sum_backward.launches == before + 1
+    want = bag_sum_backward_ref(g, ids, mask, 500)
+    cnt = _counts(ids, 500)
+    assert ((got.cpu() - want).abs()
+            <= 1e-5 * want.abs() + 1e-6 * cnt[:, None]).all()
+    buf = torch.zeros_like(got)
+    for _ in range(2):
+        bag_sum_backward(g.to(cuda_device), ids.to(cuda_device),
+                         mask.to(cuda_device), 500, out=buf)
+        assert torch.equal(buf, got)
+    with pytest.raises(ValueError, match="float32"):
+        bag_sum_backward(g.to(cuda_device).double(), ids.to(cuda_device),
+                         mask.to(cuda_device), 500)
+    with pytest.raises(ValueError, match="out must be"):
+        bag_sum_backward(g.to(cuda_device), ids.to(cuda_device),
+                         mask.to(cuda_device), 500, out=buf[:10])
 
 
 @pytest.mark.cuda

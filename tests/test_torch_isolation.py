@@ -58,6 +58,10 @@ def test_import_loads_neither_jax_nor_repro():
             "from repro_torch.storage import StreamingQueryEngine\n"
             "from repro_torch.configs import get_arch\n"
             "get_arch('glm4-9b'), get_arch('dlrm-rm2')\n"
+            "import repro_torch.optim, repro_torch.data, repro_torch.tree\n"
+            "import repro_torch.checkpoint, repro_torch.ft\n"
+            "import repro_torch.launch.train\n"
+            "from repro_torch.kernels.embedding_bag import BagSum\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
@@ -84,15 +88,21 @@ def test_engine_defaults_to_the_card():
                                   T.dijkstra_reference(g, [0, 149]))
 
 
-def test_model_entry_points_default_to_the_card():
-    """``init_params`` of both models and ``build_cell`` run on the card
-    unless given ``device="cpu"``; without a card they raise."""
+def test_model_entry_points_default_to_the_card(tmp_path):
+    """``init_params`` of both models, ``build_cell`` (serving and train
+    cells) and the train CLI run on the card unless given
+    ``device="cpu"``; without a card they raise."""
     from repro_torch.configs import dlrm_rm2, glm4_9b
+    from repro_torch.launch import train
     from repro_torch.launch.steps import build_cell
     from repro_torch.models import dlrm, transformer
     calls = [lambda: transformer.init_params(glm4_9b.smoke_config()),
              lambda: dlrm.init_params(dlrm_rm2.smoke_config()),
-             lambda: build_cell("dlrm-rm2", "serve_p99", smoke=True)]
+             lambda: build_cell("dlrm-rm2", "serve_p99", smoke=True),
+             lambda: build_cell("glm4-9b", "train_4k", smoke=True),
+             lambda: build_cell("dlrm-rm2", "train_batch", smoke=True),
+             lambda: train.main(["--arch", "dlrm-rm2", "--smoke", "--steps",
+                                 "1", "--ckpt-dir", str(tmp_path)])]
     if torch.cuda.is_available():
         p = calls[0]()
         assert p["embed"].device.type == "cuda"

@@ -1,0 +1,366 @@
+"""The port's training path against the JAX package's, on the same numpy
+inputs (parameters carried across by ``models/convert.py``).
+
+Tolerances, each with its reason:
+
+* DLRM loss and gradients, f32 on both sides: rtol 1e-5 with atol 1e-7
+  (f32 sums in another order; a gradient element that cancels to ~1e-9
+  keeps only its absolute error).
+* ``bag_sum``'s backward: the plain version sums each row's slots in
+  slot order, XLA's scatter-add in its own: rtol 1e-6, atol 1e-7.
+* LM loss and gradients at f32: rtol 1e-4 with atol 1e-6 (the leaves
+  reach 0.36; an element that cancels to ~1e-4 keeps an absolute error
+  of ~1e-7 from the sum order); at bf16 the
+  logits' bounds of ``tests/test_torch_transformer.py`` (atol 2e-2,
+  rtol 5e-2 an element, relative L2 2e-2 a leaf): the two packages round
+  bf16 the same way at each operation, but a last-bit flip now and then
+  (libm against XLA, other sum orders) spreads through the layers.
+  Checked at a length (48) that is not a multiple of ``attn_chunk``
+  (32), so the attention pads its last chunk.
+* 3 train steps of each smoke cell against the JAX cell's step (the LM at
+  f32 compute): loss rtol 1e-5; m and v of AdamW rtol 1e-5 with an atol
+  of 1e-5 of each leaf's largest magnitude (an element that cancels
+  keeps the absolute error of its summands' scale; measured at most
+  6e-6 of it).
+  Parameters atol 1e-5, except where Adam's step is ill-conditioned:
+  an element whose gradient cancels to ~1e-9 (near AdamW's eps, 1e-8)
+  has a step ``g / (|g| + eps)`` set by f32 noise, so it may differ by
+  up to ``2 * lr`` a step (measured 4.2e-5 on one DLRM weight after 3
+  steps, its step-0 gradient 1.3e-9 against JAX's 1.8e-9); the elements
+  whose RMS gradient (sqrt of the JAX state's bias-corrected v) fell
+  below 1e-7 at some step get that bound.
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import glm4_9b as jax_glm4
+from repro.kernels.embedding_bag import ops as jbag
+from repro.launch import steps as jsteps
+from repro.models import dlrm as jd
+from repro.models import transformer as jtf
+from repro_torch.configs import glm4_9b
+from repro_torch.kernels.embedding_bag import (bag_sum, bag_sum_backward,
+                                               bag_sum_backward_ref)
+from repro_torch.launch import steps as tsteps
+from repro_torch.models import dlrm as td
+from repro_torch.models import layers as tl
+from repro_torch.models import transformer as ttf
+from repro_torch.models.convert import (adamw_state_from_numpy,
+                                        dlrm_params_from_numpy,
+                                        transformer_params_from_numpy)
+from repro_torch.tree import flatten_with_paths, leaves
+
+KEY = jax.random.PRNGKey(0)
+
+
+def _np(a):
+    return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+
+def _assert_trees(got, want, **tol):
+    for (k, g), w in zip(flatten_with_paths(got), jax.tree.leaves(want)):
+        np.testing.assert_allclose(g.detach().float().numpy(), _np(w),
+                                   err_msg=k, **tol)
+
+
+# --------------------------------------------------------------------------
+# DLRM
+# --------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _dlrm_pair(vocab):
+    jcfg = jd.DLRMConfig(vocab_per_table=vocab)
+    tcfg = td.DLRMConfig(vocab_per_table=vocab)
+    jp = jd.init_params(KEY, jcfg)
+    return jcfg, tcfg, jp, jax.tree.map(np.asarray, jp)
+
+
+@pytest.mark.parametrize("vocab", [50, 1000])
+def test_dlrm_loss_and_grads_match_jax(vocab):
+    """Zipf ids, as training traffic has, so rows repeat within a batch
+    and the table's gradient sums many slots a row; a few out-of-range
+    and negative ids (zero rows, no gradient)."""
+    jcfg, tcfg, jp, np_params = _dlrm_pair(vocab)
+    tp = dlrm_params_from_numpy(np_params, tcfg, device="cpu")
+    rng = np.random.default_rng(vocab)
+    b = 64
+    dense = rng.normal(size=(b, 13)).astype(np.float32)
+    sparse = np.minimum(rng.zipf(1.2, (b, 26)) - 1, vocab - 1).astype(np.int32)
+    sparse[3, 4], sparse[5, 0], sparse[7, 25] = -1, vocab, -vocab
+    labels = rng.integers(0, 2, b).astype(np.int32)
+    jl, jg = jax.value_and_grad(lambda p: jd.loss_fn(
+        p, jnp.asarray(dense), jnp.asarray(sparse), jnp.asarray(labels),
+        jcfg))(jp)
+    tl_, tg = tsteps.dlrm_value_and_grad(
+        tp, torch.from_numpy(dense), torch.from_numpy(sparse),
+        torch.from_numpy(labels), tcfg)
+    np.testing.assert_allclose(tl_.item(), float(jl), rtol=1e-5)
+    _assert_trees(tg, jg, rtol=1e-5, atol=1e-7)
+    assert np.abs(_np(jg["tables"])).max() > 0
+
+
+def _bag_inputs(seed, v=40, b=24, k=5, d=6):
+    rng = np.random.default_rng(seed)
+    table = rng.normal(size=(v, d)).astype(np.float32)
+    ids = np.minimum(rng.zipf(1.3, (b, k)) - 1, v + 3).astype(np.int32)
+    ids[rng.random((b, k)) < 0.15] *= -1            # negative: wrap once
+    ids[0, 0], ids[1, 1] = -v - 2, v + 7            # outside after that
+    mask = (rng.random((b, k)) < 0.7).astype(np.float32)
+    g = rng.normal(size=(b, d)).astype(np.float32)
+    return table, ids, mask, g
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bag_sum_backward_matches_jax_grad(seed):
+    """The Function's plain backward (and ``bag_sum_backward_ref``)
+    against ``jax.grad`` of the JAX ``bag_sum`` (gather by
+    ``jnp.take(fill_value=0)``, then the masked sum), a weighted mask
+    included."""
+    table, ids, mask, g = _bag_inputs(seed)
+    for m in (mask, mask * np.float32(0.37)):
+        want = jax.grad(lambda t: jnp.sum(jbag.bag_sum(
+            t, jnp.asarray(ids), jnp.asarray(m), use_pallas=False)
+            * jnp.asarray(g)))(jnp.asarray(table))
+        t = torch.from_numpy(table).requires_grad_(True)
+        out = bag_sum(t, torch.from_numpy(ids), torch.from_numpy(m))
+        (got,) = torch.autograd.grad(out, [t], torch.from_numpy(g))
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-6,
+                                   atol=1e-7)
+        ref = bag_sum_backward_ref(torch.from_numpy(g), torch.from_numpy(ids),
+                                   torch.from_numpy(m), table.shape[0])
+        assert torch.equal(ref, got)
+        assert torch.equal(bag_sum_backward(
+            torch.from_numpy(g), torch.from_numpy(ids), torch.from_numpy(m),
+            table.shape[0]), ref)
+
+
+def test_bag_sum_backward_sums_in_slot_order():
+    """Each row's slots are added in slot order onto +0, bit for bit."""
+    table, ids, mask, g = _bag_inputs(5, v=7, b=40, k=3, d=4)
+    got = bag_sum_backward_ref(torch.from_numpy(g), torch.from_numpy(ids),
+                               torch.from_numpy(mask), 7)
+    want = np.zeros((7, 4), np.float32)
+    for s, i in enumerate(ids.reshape(-1)):
+        r = i + 7 if i < 0 else i
+        if 0 <= r < 7:
+            want[r] = want[r] + g[s // 3] * mask.reshape(-1)[s]
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_embedding_lookup_grad_matches_jax():
+    """The single-hot lookup of the DLRM forward (one ``bag_sum`` over the
+    stacked tables): ids outside ``[0, V)``, negative ones too, give zero
+    rows and no gradient, as the JAX lookup's range mask does."""
+    rng = np.random.default_rng(3)
+    tables = rng.normal(size=(3, 20, 5)).astype(np.float32)
+    ids = np.minimum(rng.zipf(1.2, (30, 3)) - 1, 22).astype(np.int32)
+    ids[0, 0], ids[2, 1], ids[4, 2] = -1, -20, 20
+    g = rng.normal(size=(30, 3, 5)).astype(np.float32)
+    want = jax.grad(lambda t: jnp.sum(jd.embedding_lookup(
+        t, jnp.asarray(ids)) * jnp.asarray(g)))(jnp.asarray(tables))
+    t = torch.from_numpy(tables).requires_grad_(True)
+    out = td.embedding_lookup(t, torch.from_numpy(ids))
+    (got,) = torch.autograd.grad(out, [t], torch.from_numpy(g))
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_multi_hot_embedding_bag_grad_matches_jax(mode):
+    rng = np.random.default_rng(11)
+    tab = rng.normal(size=(30, 8)).astype(np.float32)
+    lengths = rng.integers(0, 6, 9)
+    offs = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    ids = np.minimum(rng.zipf(1.3, offs[-1]) - 1, 29).astype(np.int32)
+    ids[::7] *= -1
+    g = rng.normal(size=(9, 8)).astype(np.float32)
+    want = jax.grad(lambda t: jnp.sum(jd.embedding_bag(
+        t, jnp.asarray(ids), jnp.asarray(offs), 9, mode=mode)
+        * jnp.asarray(g)))(jnp.asarray(tab))
+    t = torch.from_numpy(tab).requires_grad_(True)
+    out = td.embedding_bag(t, torch.from_numpy(ids), torch.from_numpy(offs),
+                           9, mode=mode)
+    (got,) = torch.autograd.grad(out, [t], torch.from_numpy(g))
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-6, atol=1e-7)
+
+
+def test_bag_sum_refuses_what_has_no_gradient():
+    table = torch.ones(5, 4, requires_grad=True)
+    ids = torch.zeros(2, 3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="mask"):
+        bag_sum(table, ids, torch.ones(2, 3, requires_grad=True))
+    out = bag_sum(table.detach().to(torch.bfloat16).requires_grad_(True),
+                  ids, torch.ones(2, 3))
+    with pytest.raises(NotImplementedError, match="float32"):
+        out.float().sum().backward()
+    with pytest.raises(ValueError, match="float32"):
+        bag_sum_backward(torch.ones(2, 4, dtype=torch.bfloat16), ids,
+                         torch.ones(2, 3), 5)
+
+
+# --------------------------------------------------------------------------
+# LM
+# --------------------------------------------------------------------------
+
+LM_S, LM_CHUNK = 48, 16
+LM_DTYPES = {"f32": (jnp.float32, torch.float32,
+                     dict(rtol=1e-4, atol=1e-6), None),
+             "bf16": (jnp.bfloat16, torch.bfloat16,
+                      dict(rtol=5e-2, atol=2e-2), 2e-2)}
+
+
+@functools.lru_cache(maxsize=None)
+def _lm_params_np():
+    jp = jax.jit(jtf.init_params, static_argnums=1)(
+        KEY, jax_glm4.smoke_config())
+    return jax.tree.map(np.asarray, jp)
+
+
+@pytest.mark.parametrize("dtype", list(LM_DTYPES))
+def test_lm_loss_and_grads_match_jax(dtype):
+    jdt, tdt, tol, rel_l2 = LM_DTYPES[dtype]
+    jcfg = dataclasses.replace(jax_glm4.smoke_config(), compute_dtype=jdt,
+                               loss_chunk=LM_CHUNK)
+    tcfg = dataclasses.replace(glm4_9b.smoke_config(), compute_dtype=tdt,
+                               loss_chunk=LM_CHUNK)
+    assert LM_S % tcfg.attn_chunk and not LM_S % LM_CHUNK
+    np_params = _lm_params_np()
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, tcfg.vocab, (2, LM_S)).astype(np.int32)
+    labels = rng.integers(0, tcfg.vocab, (2, LM_S)).astype(np.int32)
+    jl, jg = jax.value_and_grad(lambda p: jtf.loss_fn(
+        p, jnp.asarray(toks), jnp.asarray(labels), jcfg))(
+            jax.tree.map(jnp.asarray, np_params))
+    tp = transformer_params_from_numpy(np_params, tcfg, device="cpu")
+    tl_, tg = tsteps.lm_value_and_grad(tp, torch.from_numpy(toks),
+                                       torch.from_numpy(labels), tcfg)
+    np.testing.assert_allclose(tl_.item(), float(jl),
+                               rtol=1e-5 if dtype == "f32" else 1e-3)
+    for (k, g), w in zip(flatten_with_paths(tg), jax.tree.leaves(jg)):
+        assert torch.isfinite(g).all(), k
+        got, want = g.numpy(), _np(w)
+        np.testing.assert_allclose(got, want, err_msg=k, **tol)
+        if rel_l2 is not None:
+            assert np.linalg.norm(got - want) <= rel_l2 * np.linalg.norm(
+                want), k
+
+
+def test_lm_grads_equal_without_remat():
+    """Recomputing each cycle and loss chunk changes no bit of the
+    gradients (the same operations run again)."""
+    tcfg = dataclasses.replace(glm4_9b.smoke_config(),
+                               compute_dtype=torch.float32)
+    tp = transformer_params_from_numpy(_lm_params_np(), tcfg, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, tcfg.vocab, (2, 64)).astype(np.int32))
+    la, ga = tsteps.lm_value_and_grad(tp, toks, toks.roll(-1, 1), tcfg)
+    lb, gb = tsteps.lm_value_and_grad(
+        tp, toks, toks.roll(-1, 1), dataclasses.replace(tcfg, remat=False))
+    assert torch.equal(la, lb)
+    for x, y in zip(leaves(ga), leaves(gb)):
+        assert torch.equal(x, y)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttf.loss_fn(tp, toks, toks, dataclasses.replace(
+            tcfg, remat_policy="block_outs"))
+
+
+def test_attention_backward_has_no_nan_on_padded_rows():
+    """Padded query rows (``qpos = -1``) see no key at all; their softmax
+    state stays -inf and their output is sliced off.  The backward must
+    give finite gradients, and the padded rows none."""
+    rng = np.random.default_rng(2)
+    b, t, h, kh, dh = 2, 37, 4, 2, 8
+    q, k, v = (torch.from_numpy(rng.normal(size=shp).astype(np.float32))
+               .requires_grad_(True)
+               for shp in ((b, t, h, dh), (b, t, kh, dh), (b, t, kh, dh)))
+    out = tl.attention_causal(q, k, v, chunk=16)
+    out.square().sum().backward()
+    for x in (q, k, v):
+        assert torch.isfinite(x.grad).all()
+    # a query before every key: its row is fully masked in every block
+    pos = torch.arange(t, dtype=torch.int32)
+    q2 = q.detach().clone().requires_grad_(True)
+    out2 = tl.attention_causal(q2, k, v, chunk=16, q_positions=pos - 5,
+                               kv_positions=pos)
+    assert torch.equal(out2[:, :5], torch.zeros_like(out2[:, :5]))
+    out2.sum().backward()
+    assert torch.isfinite(q2.grad).all()
+    assert not q2.grad[:, :5].any()
+
+
+# --------------------------------------------------------------------------
+# 3 train steps of each smoke cell against the JAX cell
+# --------------------------------------------------------------------------
+
+def _convert_state(arch, npst, cfg):
+    conv = transformer_params_from_numpy if arch == "glm4-9b" else \
+        dlrm_params_from_numpy
+    params = conv(npst["params"], cfg, device="cpu")
+    return {"params": params,
+            "opt": adamw_state_from_numpy(npst["opt"], params, device="cpu")}
+
+
+@pytest.mark.parametrize("arch,shape", [("dlrm-rm2", "train_batch"),
+                                        ("glm4-9b", "train_4k")])
+def test_three_train_steps_match_the_jax_cell(arch, shape):
+    jc = jsteps.build_cell(arch, shape, smoke=True)
+    tc = tsteps.build_cell(arch, shape, smoke=True, device="cpu")
+    for a, b in zip(jc.args[1:], tc.args[1:]):          # the same batch
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    cfg, jfn, tfn = tc.meta["cfg"], jax.jit(jc.fn), tc.fn
+    if arch == "glm4-9b":                               # f32 compute
+        cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+        jfn = jax.jit(jsteps._lm_train_step(dataclasses.replace(
+            jc.meta["cfg"], compute_dtype=jnp.float32)))
+        tfn = tsteps._lm_train_step(cfg)
+    jstate = jc.args[0]
+    # The LM's schedule warms up over 2,000 steps: from count 0 its three
+    # updates would move no parameter by more than the tolerance, so both
+    # states start at the warm-up's end (lr 3e-4) and the updates show.
+    count0 = 2000 if arch == "glm4-9b" else 0
+    jstate = dict(jstate, opt=jstate["opt"]._replace(
+        count=jnp.asarray(count0, jnp.int32)))
+    p0 = [_np(w) for w in jax.tree.leaves(jstate["params"])]
+    tstate = _convert_state(arch, jax.tree.map(np.asarray, jstate), cfg)
+    lr = 1e-3 if arch == "dlrm-rm2" else 3e-4   # the largest used
+    rms = None          # per element, the least sqrt(v_hat) over the steps
+    for t in range(count0 + 1, count0 + 4):
+        jstate, jm = jfn(jstate, *jc.args[1:])
+        now = [np.sqrt(_np(v) / (1 - 0.95 ** t))
+               for v in jax.tree.leaves(jstate["opt"].v)]
+        rms = now if rms is None else [np.minimum(a, b)
+                                       for a, b in zip(rms, now)]
+        out, tm = tfn(tstate, *tc.args[1:])
+        assert out is tstate                            # in place
+        np.testing.assert_allclose(tm["loss"].item(), float(jm["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(tm["gnorm"].item(), float(jm["gnorm"]),
+                                   rtol=1e-5)
+    assert int(tstate["opt"].count) == int(jstate["opt"].count) == count0 + 3
+    # the updates are large enough for the parameter check to see: JAX's
+    # moves every leaf by more than ten times its tolerance
+    for w0, w in zip(p0, jax.tree.leaves(jstate["params"])):
+        assert np.abs(_np(w) - w0).max() > 10 * 1e-5
+    for name in ("m", "v"):
+        for (k, g), w in zip(flatten_with_paths(getattr(tstate["opt"], name)),
+                             jax.tree.leaves(getattr(jstate["opt"], name))):
+            w = _np(w)
+            np.testing.assert_allclose(g.numpy(), w, rtol=1e-5,
+                                       atol=1e-5 * np.abs(w).max(),
+                                       err_msg=f"{name} {k}")
+    for (k, p), w, r in zip(flatten_with_paths(tstate["params"]),
+                            jax.tree.leaves(jstate["params"]), rms):
+        err = np.abs(p.numpy() - _np(w))
+        # Adam's step g / (|g| + eps) is set by f32 noise where a step's
+        # RMS gradient was below ~1e-7: a gradient error of ~1e-9 there
+        # moves the step by more than 1e-5 / lr
+        noisy = (r > 0) & (r < 1e-7)
+        # and few of them do (2 elements of the DLRM's 0.6 M, measured)
+        assert (err > 1e-5).sum() <= max(2, 1e-4 * (r > 0).sum()), k
+        assert (err[~noisy] <= 1e-5).all(), k
+        assert (err[noisy] <= 2 * lr * 3).all(), k
