@@ -128,7 +128,19 @@ never JAX or the JAX package.  Phases, each of which asserts:
    warm-up step and 3 counted ones, losses finite, median step, peak
    memory, a profile.  (c) resume: at the smoke configs of both models,
    ``ElasticTrainer`` with a failure injected, restored from the
-   manifest alone, must end bit-equal to an uninterrupted run.
+   manifest alone, must end bit-equal to an uninterrupted run;
+11. the GNN family at its published widths, after phase 10.  (a) gcn-cora
+   on Cora's shape (also in 3 chunks), gin-tu on a sampled block
+   (sentinel-padded edges), schnet and equiformer-v2 (2 layers) on 16
+   molecules: loss and every gradient on the card against the CPU
+   (phase 10's tolerances); (b) five cells through the train cell, a
+   warm-up step and 3 counted ones each, losses finite, every leaf that
+   gets a gradient moved: gcn-cora full_graph_sm and ogb_products (61.9
+   M edges in 15 checkpointed chunks), gin-tu minibatch_lg (NeighborSampler
+   blocks of a Reddit-size host graph built in numpy), schnet and
+   equiformer-v2 molecule (128 molecules); median step, model TFLOP/s,
+   peak memory, profiles of ogb_products and equiformer-v2; (c)
+   ogb_products' chunked forward against one unchunked pass.
 
 Each path frees its memory before the next.  Every launch counter is
 zeroed just before a served run and read just after it.  It prints one
@@ -137,10 +149,10 @@ run at the kernel's timed shape, ``launches_by_path`` each served run's
 own count, phase 8's paths ``hod_mixed_slo``,
 ``hod_store_mixed_slo`` and ``hod_topk_store``, phase 9's
 ``hod_fleet_raw`` and ``hod_fleet_delta`` (each the sum over its runs
-at 1, 2 and 4 shards) and ``hod_fleet_mixed_slo``, and phase 10's
-``dlrm_train`` and ``lm_train`` included; ``bag_sum_backward`` has no
-TPU kernel and names the JAX lookup's ``jnp.take``), the card's
-name and power limit, and, last,
+at 1, 2 and 4 shards) and ``hod_fleet_mixed_slo``, phase 10's
+``dlrm_train`` and ``lm_train`` and phase 11's ``gnn_train`` included;
+``bag_sum_backward`` has no TPU kernel and names the JAX lookup's
+``jnp.take``), the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``.  Any failure
 exits non-zero before those lines; without a card, or outside a
 checkout, it exits non-zero at once.
@@ -242,6 +254,20 @@ LM_LOGIC_SEQ = 64
 RESUME_STEPS, RESUME_EVERY, RESUME_FAIL = 6, 2, 3
 BWD_SUM_SLACK = 2.5
 LOGIC_RTOL, LOGIC_ATOL_SCALE = 1e-4, 1e-5
+
+# Phase 11: the GNN family at its published widths.  The five cells train
+# one warm-up step and GNN_STEPS counted ones; GNN_PROFILED get a
+# profile.  The logic check runs each arch at full width on small graphs
+# (Equiformer at GNN_LOGIC_EQ_LAYERS layers, molecules GNN_LOGIC_MOLECULES
+# a batch), with the phase 10 tolerances; chunked against unchunked
+# ogb_products forward within rtol 1e-5 and atol 1e-5 of the largest
+# output (f32 sums in another order).
+GNN_CELLS = (("gcn-cora", "full_graph_sm"), ("gcn-cora", "ogb_products"),
+             ("gin-tu", "minibatch_lg"), ("schnet", "molecule"),
+             ("equiformer-v2", "molecule"))
+GNN_PROFILED = (("gcn-cora", "ogb_products"), ("equiformer-v2", "molecule"))
+GNN_STEPS, GNN_LOGIC_EQ_LAYERS, GNN_LOGIC_MOLECULES = 3, 2, 16
+GNN_CHUNK_RTOL, GNN_CHUNK_ATOL_SCALE = 1e-5, 1e-5
 
 # The served run whose launch count the kernels line reports: the one at
 # the shape each kernel is timed at.
@@ -2217,6 +2243,25 @@ def drive_dlrm_train(torch, card: str) -> "tuple[dict, dict]":
     return row, counts
 
 
+def check_grads(torch, got, want, what: str) -> float:
+    """The logic checks of phases 10 and 11: each leaf of ``got`` (the
+    card's) within LOGIC_RTOL and LOGIC_ATOL_SCALE of the leaf's largest
+    magnitude of ``want`` (the CPU's); returns the worst error as a share
+    of its leaf's scale."""
+    from repro_torch.tree import flatten_with_paths, leaves
+    worst = 0.0
+    for (k, g), w in zip(flatten_with_paths(got), leaves(want)):
+        g = g.cpu()
+        scale = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        worst = max(worst, err / max(scale, 1e-30))
+        if not torch.allclose(g, w, rtol=LOGIC_RTOL,
+                              atol=LOGIC_ATOL_SCALE * scale):
+            raise AssertionError(f"{what} gradient {k}: max |err| {err} at "
+                                 f"scale {scale}")
+    return worst
+
+
 def lm_train_logic(torch) -> None:
     """glm4-9b's full width at 2 layers in f32 on LM_LOGIC_SEQ tokens: the
     train loss and every gradient on the card against the same model on
@@ -2224,7 +2269,7 @@ def lm_train_logic(torch) -> None:
     import dataclasses
     from repro_torch.configs import glm4_9b
     from repro_torch.launch.steps import lm_value_and_grad
-    from repro_torch.tree import flatten_with_paths, leaves, map_tree
+    from repro_torch.tree import map_tree
     cfg = dataclasses.replace(glm4_9b.CONFIG, n_layers=2,
                               compute_dtype=torch.float32,
                               loss_chunk=LM_LOGIC_SEQ // 2)
@@ -2243,15 +2288,7 @@ def lm_train_logic(torch) -> None:
     t0 = time.perf_counter()
     want_loss, want = lm_value_and_grad(cpu, x.cpu(), y.cpu(), cfg)
     cpu_s = time.perf_counter() - t0
-    worst = 0.0
-    for (k, got), w in zip(flatten_with_paths(grads), leaves(want)):
-        scale = w.abs().max().item()
-        err = (got - w).abs()
-        worst = max(worst, err.max().item() / max(scale, 1e-30))
-        if not torch.allclose(got, w, rtol=LOGIC_RTOL,
-                              atol=LOGIC_ATOL_SCALE * scale):
-            raise AssertionError(f"LM f32 gradient {k}: max |err| "
-                                 f"{err.max().item()} at scale {scale}")
+    worst = check_grads(torch, grads, want, "LM f32")
     if not abs(loss - want_loss.item()) <= 1e-5 * abs(want_loss.item()):
         raise AssertionError(f"LM f32 loss {loss} on the card, "
                              f"{want_loss.item()} on the CPU")
@@ -2386,6 +2423,174 @@ def drive_train(torch, card: str) -> "tuple[dict, dict]":
     free(torch)
     return row, {"dlrm_train": dlrm_counts, "lm_train": lm_counts}
 
+# ------------------------------------------------------------- phase 11
+def gnn_logic_cases(np):
+    """(what, arch, config, graph on the CPU) for the logic check: every
+    arch at its published width (Equiformer's depth cut) on small graphs,
+    GCN also chunked, GIN on a sampled block (sentinel-padded edges)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import SHAPE_PARAMS
+    from repro_torch.data import (NeighborSampler, csr_from_edges,
+                                  make_graph_batch, synth_molecule_batch)
+    from repro_torch.launch.steps import _gnn_cell_config
+    sp = SHAPE_PARAMS["gnn"]
+    cora = make_graph_batch(2708, 10556, 1433, n_classes=7, device="cpu")
+    gcn = _gnn_cell_config("gcn-cora", get_arch("gcn-cora").CONFIG,
+                           sp["full_graph_sm"], smoke=False)
+    rng = np.random.default_rng(11)
+    n, e = 5000, 60000
+    ptr, nbr = csr_from_edges(n, rng.integers(0, n, e), rng.integers(0, n, e))
+    block = NeighborSampler(
+        ptr, nbr, rng.standard_normal((n, 602), dtype=np.float32),
+        rng.integers(0, 41, n).astype(np.int32), device="cpu").sample(
+            rng.choice(n, 64, replace=False), step=0)
+    gin = _gnn_cell_config("gin-tu", get_arch("gin-tu").CONFIG,
+                           sp["minibatch_lg"], smoke=False)
+    mol = synth_molecule_batch(batch=GNN_LOGIC_MOLECULES, device="cpu")
+    sch = dataclasses.replace(_gnn_cell_config(
+        "schnet", get_arch("schnet").CONFIG, sp["molecule"], smoke=False),
+        d_in=0)
+    eq = dataclasses.replace(_gnn_cell_config(
+        "equiformer-v2", get_arch("equiformer-v2").CONFIG, sp["molecule"],
+        smoke=False), d_in=0, n_layers=GNN_LOGIC_EQ_LAYERS)
+    return [("gcn-cora on Cora's shape", "gcn-cora", gcn, cora),
+            ("gcn-cora in 3 chunks", "gcn-cora",
+             dataclasses.replace(gcn, edge_chunk=4096), cora),
+            ("gin-tu on a 64-node sampled block", "gin-tu", gin, block),
+            (f"schnet on {GNN_LOGIC_MOLECULES} molecules", "schnet", sch,
+             mol),
+            (f"equiformer-v2 at {GNN_LOGIC_EQ_LAYERS} layers on "
+             f"{GNN_LOGIC_MOLECULES} molecules", "equiformer-v2", eq, mol)]
+
+
+def gnn_logic(np, torch) -> None:
+    """Phase 11a: each arch's loss and every gradient on the card against
+    the same model on the CPU (f32, the card without TF32)."""
+    from repro_torch.launch.steps import GNN_MODULES, value_and_grad
+    from repro_torch.tree import map_tree
+    for what, arch, cfg, g in gnn_logic_cases(np):
+        model = GNN_MODULES[arch]
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        params = model.init_params(cfg, gen, "cuda")
+        gc = g.to("cuda")
+        loss, grads = value_and_grad(lambda p: model.loss_fn(p, gc, cfg),
+                                     params)
+        cpu = map_tree(lambda t: t.cpu(), params)
+        want_loss, want = value_and_grad(
+            lambda p: model.loss_fn(p, g, cfg), cpu)
+        worst = check_grads(torch, grads, want, what)
+        loss, want_loss = loss.item(), want_loss.item()
+        if not abs(loss - want_loss) <= 1e-5 * abs(want_loss):
+            raise AssertionError(f"{what}: loss {loss} on the card, "
+                                 f"{want_loss} on the CPU")
+        say(f"gnn logic, {what} (published width): loss {loss:.6f} on the "
+            f"card, {want_loss:.6f} on the CPU; every gradient within rtol "
+            f"{LOGIC_RTOL}, atol {LOGIC_ATOL_SCALE} of its scale (worst "
+            f"{worst:.2e} of it)")
+        del params, grads, gc
+    free(torch)
+
+
+def check_chunked(torch, cell, card: str) -> None:
+    """Phase 11c: gcn-cora x ogb_products, the chunked forward (the cell's
+    edge_chunk) against one unchunked pass over all the edges."""
+    import dataclasses
+    from repro_torch.models.gnn import gcn
+    cfg, g = cell.meta["cfg"], cell.args[1]
+    params = cell.args[0]["params"]
+    with torch.no_grad():
+        a = gcn.forward(params, g, cfg)
+        b = gcn.forward(params, g, dataclasses.replace(cfg, edge_chunk=0))
+    scale = b.abs().max().item()
+    err = (a - b).abs().max().item()
+    if not torch.allclose(a, b, rtol=GNN_CHUNK_RTOL,
+                          atol=GNN_CHUNK_ATOL_SCALE * scale):
+        raise AssertionError(f"ogb_products chunked vs unchunked: max |err| "
+                             f"{err} at scale {scale}")
+    n_chunks = -(-g.src.shape[0] // cfg.edge_chunk)
+    say(f"gcn-cora ogb_products: {n_chunks} chunks of {cfg.edge_chunk} edges "
+        f"equal one unchunked pass within rtol {GNN_CHUNK_RTOL}, atol "
+        f"{GNN_CHUNK_ATOL_SCALE} of the largest output (max |err| "
+        f"{err:.3e} at {scale:.3e}), on {card}")
+    del a, b
+
+
+def gnn_cell_run(torch, card: str, arch: str, shape: str) -> None:
+    """Phase 11b: one full-width cell, a warm-up step and GNN_STEPS counted
+    ones on its batches; losses finite, every parameter that gets a
+    gradient moved; median step, model TFLOP/s, peak memory."""
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.tree import flatten_with_paths, leaves
+    t0 = time.perf_counter()
+    cell = build_cell(arch, shape, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg, state, meta = cell.meta["cfg"], cell.args[0], cell.meta
+    p0 = [p.clone() for p in leaves(state["params"])]
+    t0 = time.perf_counter()
+    batches = [cell.batch_at(i) for i in range(1, GNN_STEPS + 1)]
+    torch.cuda.synchronize()
+    batch_s = (time.perf_counter() - t0) / GNN_STEPS
+    graph = (f"{meta['n_nodes']:,} nodes, {meta['n_edges']:,} edges"
+             + (f" (a block of the {meta['host_graph'][0]:,}-node, "
+                f"{meta['host_graph'][1]:,}-edge host graph)"
+                if "host_graph" in meta else ""))
+    say(f"{arch} {shape}: {graph}, data {meta['data']}; built in "
+        f"{build_s:.1f} s, a later batch in {batch_s:.3f} s (host); "
+        f"{sum(p.numel() for p in p0):,} params; {cfg}")
+    warm_ms, warm_loss = timed_steps(
+        torch, lambda i, b: cell.fn(state, *b)[1]["loss"], [cell.args[1:]])
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = timed_steps(
+        torch, lambda i, b: cell.fn(state, *b)[1]["loss"], batches)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(x == x and abs(x) < float("inf") for x in warm_loss + losses):
+        raise AssertionError(f"{arch} {shape} losses not finite: {losses}")
+    # a leaf moves iff a gradient reached it (AdamW's m is nonzero)
+    dead, still = [], []
+    for (k, p), a, m in zip(flatten_with_paths(state["params"]), p0,
+                            leaves(state["opt"].m)):
+        if not m.any():
+            dead.append(k)
+        elif torch.equal(p, a):
+            still.append(k)
+    if still or len(dead) == len(p0):
+        raise AssertionError(f"{arch} {shape}: parameters with a gradient "
+                             f"that did not move: {still}; without one: "
+                             f"{dead}")
+    tflops = cell.model_flops / (median(ms) / 1e3) / 1e12
+    say(f"{arch} {shape}: {GNN_STEPS} steps after a warm-up "
+        f"({warm_ms[0]:.1f} ms), losses "
+        f"{[round(x, 5) for x in warm_loss + losses]}, median step "
+        f"{median(ms):.3f} ms (CUDA events; {[round(x, 3) for x in ms]}), "
+        f"model {tflops:.3f} TFLOP/s ({cell.model_flops / 1e9:.2f} GFLOP a "
+        f"step), peak device memory {peak / 1e9:.3f} GB; "
+        f"{len(p0) - len(dead)} of {len(p0)} leaves got a gradient and "
+        f"moved" + (f" (no gradient reaches {dead})" if dead else "")
+        + f", on {card}")
+    if (arch, shape) in GNN_PROFILED:
+        profile_device(torch, lambda: cell.fn(state, *batches[-1]), 1,
+                       f"{arch} {shape} steps", card, top=12)
+    if (arch, shape) == ("gcn-cora", "ogb_products"):
+        check_chunked(torch, cell, card)
+    del cell, state, batches, p0
+    free(torch)
+
+
+def drive_gnn(np, torch, card: str) -> dict:
+    """Phase 11: the logic check, the five full-width cells (launch counts
+    zeroed before the first and read after the last: the gnn_train
+    path), chunked against unchunked.  Returns the counts."""
+    gnn_logic(np, torch)
+    reset_counts()
+    for arch, shape in GNN_CELLS:
+        gnn_cell_run(torch, card, arch, shape)
+    counts = paths_now()
+    say(f"gnn_train launches of the port's kernels: {counts} (the GNN "
+        "family reaches no TPU kernel)")
+    return counts
+
 
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -2495,6 +2700,10 @@ def main() -> int:
         for name, n in counts.items():
             paths[name][path] = n
     say(f"training phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, n in drive_gnn(np, torch, card).items():
+        paths[name]["gnn_train"] = n
+    say(f"GNN phase took {time.perf_counter() - t0:.1f} s")
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
         raise AssertionError("the smoke imported jax or the JAX package")

@@ -17,8 +17,9 @@ A train cell's step takes ``(state, *batch)`` with ``state = {"params",
 state **in place** (the JAX cells donate it; here the tables of rm2 are
 too large for a second copy) and returns the same dict, so
 ``cell.run()`` steps on.  ``cell.batch_at(step)`` gives step ``step``'s
-batch from the arch's data stream (``TokenStream`` / ``RecsysStream``),
-a pure function of (seed, step).
+batch from the arch's data stream (``TokenStream`` / ``RecsysStream``;
+a GNN cell's one graph, or a ``NeighborSampler`` block), a pure function
+of (seed, step).  A GNN step's batch is one ``GraphBatch``.
 """
 from __future__ import annotations
 
@@ -31,10 +32,14 @@ import torch
 
 from ..configs import get_arch
 from ..configs.shapes import SHAPE_PARAMS
-from ..data import RecsysStream, TokenStream
+from ..data import (NeighborSampler, RecsysStream, TokenStream,
+                    bucket_edges_by_dst, csr_from_edges, make_graph_batch,
+                    synth_molecule_batch)
 from ..device import resolve_device
 from ..models import dlrm as dlrm_mod
+from ..models import gnn
 from ..models import transformer as tf
+from ..models.gnn.common import GraphBatch, n_edge_chunks
 from ..optim import adamw_init, adamw_update, cosine_schedule
 from ..tree import leaves, map_tree, unflatten
 
@@ -195,6 +200,206 @@ def _build_lm_cell(arch_id, shape_name, mod, smoke, device, batch,
 
 
 # ---------------------------------------------------------------------------
+# GNN cells
+# ---------------------------------------------------------------------------
+
+GNN_MODULES = gnn.MODULES
+
+
+def _gnn_cell_config(arch_id, cfg, sp, smoke, variant="base"):
+    """Adapt the family config to the cell's dataset (input dim, classes,
+    task level, edge chunking, layout variant)."""
+    d_feat = sp.get("d_feat", 0)
+    n_classes = sp.get("n_classes", 2)
+    repl: Dict[str, Any] = {}
+    big_e = (not smoke) and sp.get("n_edges", 0) > 2_000_000
+    if arch_id == "gcn-cora":
+        repl = dict(d_in=d_feat if d_feat else 16, n_classes=n_classes)
+    elif arch_id == "gin-tu":
+        repl = dict(d_in=d_feat if d_feat else 16, n_classes=n_classes,
+                    node_level="batch" not in sp)
+    elif arch_id == "schnet":
+        repl = dict(d_in=d_feat, n_targets=n_classes)
+    else:  # equiformer-v2
+        repl = dict(d_in=d_feat, n_targets=n_classes)
+    if big_e:
+        repl["edge_chunk"] = 1 << 20 if arch_id == "equiformer-v2" else 1 << 22
+    if variant == "opt":
+        repl["edge_layout"] = ("dst_ranged" if arch_id == "equiformer-v2"
+                               else "partitioned")
+    return dataclasses.replace(cfg, **repl)
+
+
+def _node_level(arch_id: str, sp) -> bool:
+    """GCN has no graph readout — always node-level (molecule labels are
+    broadcast to nodes); others are graph-level on packed-molecule cells."""
+    return arch_id == "gcn-cora" or "batch" not in sp
+
+
+def _gnn_concrete_batch(arch_id, sp, smoke_scale=True,
+                        device=None) -> GraphBatch:
+    """The JAX builder's concrete batch of a cell: packed molecules (GCN
+    and GIN get one-hot atom types, GCN the graph labels on its nodes),
+    else a ``make_graph_batch`` graph at the smoke size or the shape's.
+    The full ``minibatch_lg`` cell samples blocks instead
+    (:func:`_minibatch_sampler`)."""
+    geo = arch_id in ("schnet", "equiformer-v2")
+    if "batch" in sp:
+        g = synth_molecule_batch(batch=4 if smoke_scale else sp["batch"],
+                                 n_nodes=sp["n_nodes"],
+                                 n_edges=sp["n_edges"],
+                                 n_classes=sp["n_classes"], device=device)
+        if not geo:  # gcn/gin want dense features: one-hot atom types
+            g = dataclasses.replace(g, node_feat=torch.nn.functional.one_hot(
+                g.node_feat.long() % 16, 16).to(torch.float32))
+        if _node_level(arch_id, sp):  # gcn: broadcast graph labels to nodes
+            g = dataclasses.replace(
+                g, labels=g.labels[g.graph_ids.long()], graph_ids=None,
+                train_mask=torch.ones(g.n_nodes, dtype=torch.bool,
+                                      device=g.src.device))
+        return g
+    n = 64 if smoke_scale else sp["n_nodes"]
+    e = 256 if smoke_scale else sp["n_edges"]
+    return make_graph_batch(n, e, min(sp.get("d_feat", 16), 32)
+                            if smoke_scale else sp.get("d_feat", 16),
+                            n_classes=sp["n_classes"],
+                            with_geometry=True, device=device)
+
+
+def _minibatch_sampler(sp, device) -> NeighborSampler:
+    """The host graph of ``minibatch_lg`` (Reddit's node and edge counts,
+    uniform random edges, normal features, uniform labels; seeded) in
+    numpy, as an in-neighbour CSR behind a ``NeighborSampler`` at the
+    shape's fanout.  Nothing of it goes to the card but the blocks."""
+    n, e = sp["n_nodes"], sp["n_edges"]
+    rng = np.random.default_rng(SEED)
+    src = rng.integers(0, n, e, dtype=np.int32)
+    dst = rng.integers(0, n, e, dtype=np.int32)
+    ptr, nbr = csr_from_edges(n, src, dst)
+    del src, dst
+    feats = rng.standard_normal((n, sp["d_feat"]), dtype=np.float32)
+    labels = rng.integers(0, sp["n_classes"], n).astype(np.int32)
+    # the sampler's stream is seeded apart from the batch ids' stream
+    return NeighborSampler(ptr, nbr, feats, labels, fanout=sp["fanout"],
+                           seed=SEED + 1, device=device)
+
+
+def _dst_ranged(g: GraphBatch, edge_chunk: int) -> GraphBatch:
+    """``g``'s edges bucketed by destination into the chunks that
+    EquiformerV2's ``dst_ranged`` layout reads: as many buckets as chunks
+    of ``edge_chunk`` edges after the 1.15x padding of
+    ``bucket_edges_by_dst``."""
+    e = g.src.shape[0]
+    n_buckets = -(-int(np.ceil(e * 1.15)) // edge_chunk)
+    out = bucket_edges_by_dst(g, n_buckets)
+    if n_edge_chunks(out.src.shape[0], edge_chunk) != n_buckets:
+        raise ValueError(f"{out.src.shape[0]} bucketed edges do not fall in "
+                         f"{n_buckets} chunks of {edge_chunk}")
+    return out
+
+
+def _gnn_flops(arch_id, cfg, n, e):
+    d = getattr(cfg, "d_hidden", 16)
+    if arch_id == "gcn-cora":
+        per = cfg.d_in * d * n + e * d + n * d * cfg.n_classes
+        return 3.0 * 2 * per
+    if arch_id == "gin-tu":
+        per = cfg.n_layers * (e * d + 2 * n * d * d)
+        return 3.0 * 2 * per
+    if arch_id == "schnet":
+        per = cfg.n_interactions * (e * (cfg.n_rbf * d + d * d)
+                                    + 3 * n * d * d)
+        return 3.0 * 2 * per
+    # equiformer: per-edge eSCN cost = rotation build/compose/apply +
+    # per-m dense SO(2) mixes over (l, channel)
+    rot_apply = 4 * d * sum((2 * l + 1) ** 2
+                            for l in range(cfg.l_max + 1))   # to+from frame
+    rot_build = 6 * sum((2 * l + 1) ** 3 for l in range(cfg.l_max + 1))
+    n0 = cfg.l_max + 1
+    so2 = 2 * (n0 * d) ** 2
+    for m in range(1, cfg.m_max + 1):
+        so2 += 4 * ((cfg.l_max + 1 - m) * d) ** 2
+    per_edge = rot_apply + rot_build + so2
+    per = cfg.n_layers * (e * per_edge + n * (cfg.l_max + 1) * 2 * d * d)
+    return 3.0 * per
+
+
+def _gnn_train_step(model, cfg):
+    """The JAX GNN train step: loss and grads, AdamW at lr 1e-3 with no
+    weight decay (clip 1.0); in place."""
+    def step(state, batch: GraphBatch):
+        loss, grads = value_and_grad(
+            lambda p: model.loss_fn(p, batch, cfg), state["params"])
+        _, state["opt"], gnorm = adamw_update(state["params"], grads,
+                                              state["opt"], 1e-3,
+                                              weight_decay=0.0)
+        return state, {"loss": loss, "gnorm": gnorm}
+    return step
+
+
+def _build_gnn_cell(arch_id, shape_name, mod, smoke, device,
+                    variant="base"):
+    """A GNN train cell.  ``smoke``: the JAX smoke cell (reduced config,
+    the smoke batch; ``variant`` is ignored there, as in JAX).  Else the
+    published config at the shape: ``full_graph_sm`` and ``ogb_products``
+    train on one synthetic graph every step, ``molecule`` on 128 packed
+    molecules, and ``minibatch_lg`` on a ``NeighborSampler`` block a
+    step (its declared shape in the JAX cell), 1,024 seed nodes drawn
+    from ``default_rng((SEED, step))``.  ``variant="opt"``: the JAX
+    cell's owner-bucketed layouts (GCN, GIN and SchNet "partitioned", on
+    one device any edge order; EquiformerV2 "dst_ranged", its edges
+    bucketed when they span more than one chunk)."""
+    base = mod.smoke_config() if smoke else mod.CONFIG
+    sp = dict(SHAPE_PARAMS["gnn"][shape_name])
+    model = GNN_MODULES[arch_id]
+    meta: Dict[str, Any] = {}
+    if smoke:
+        cfg = _gnn_cell_config(arch_id, base,
+                               {**sp, "d_feat": min(sp.get("d_feat", 16), 32),
+                                "n_classes": sp["n_classes"]}, smoke=True)
+        batch = _gnn_concrete_batch(arch_id, sp, device=device)
+        cfg = dataclasses.replace(
+            cfg, d_in=(batch.node_feat.shape[1]
+                       if batch.node_feat.dim() == 2 else 0))
+        batch_at = lambda step: (batch,)  # noqa: E731
+        meta["data"] = "smoke batch"
+    else:
+        cfg = _gnn_cell_config(arch_id, base, sp, smoke=False,
+                               variant=variant)
+        if "batch_nodes" in sp:
+            sampler = _minibatch_sampler(sp, device)
+
+            def batch_at(step):
+                ids = np.random.default_rng((SEED, step)).choice(
+                    sp["n_nodes"], sp["batch_nodes"], replace=False)
+                return (sampler.sample(ids, step),)
+            batch = batch_at(0)[0]
+            meta.update(data="NeighborSampler",
+                        host_graph=(sp["n_nodes"], sp["n_edges"]),
+                        block=sampler.block_shape(sp["batch_nodes"]))
+        else:
+            batch = _gnn_concrete_batch(arch_id, sp, smoke_scale=False,
+                                        device=device)
+            if (cfg.edge_layout == "dst_ranged"
+                    and n_edge_chunks(batch.src.shape[0], cfg.edge_chunk) > 1):
+                batch = _dst_ranged(batch, cfg.edge_chunk)
+            batch_at = lambda step: (batch,)  # noqa: E731
+            meta["data"] = ("synth_molecule_batch" if "batch" in sp
+                            else "make_graph_batch")
+        if batch.node_feat.dim() == 1:
+            cfg = dataclasses.replace(cfg, d_in=0)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = model.init_params(cfg, gen, device)
+    state = {"params": params, "opt": adamw_init(params)}
+    meta.update(cfg=cfg, n_nodes=batch.n_nodes,
+                n_edges=int(batch.src.shape[0]))
+    return Cell(arch_id, shape_name, "train", "gnn",
+                _gnn_train_step(model, cfg), (state, batch),
+                _gnn_flops(arch_id, cfg, batch.n_nodes, batch.src.shape[0]),
+                meta, batch_at=batch_at)
+
+
+# ---------------------------------------------------------------------------
 # RecSys cells
 # ---------------------------------------------------------------------------
 
@@ -213,17 +418,26 @@ def _dlrm_flops(cfg: dlrm_mod.DLRMConfig, kind: str, batch: int,
     return 1.0 * batch * per
 
 
+def value_and_grad(loss_of: Callable, params):
+    """(loss, grads) of ``loss_of(params)``, grads shaped like ``params``
+    (zeros for a leaf the loss does not reach, as JAX gives)."""
+    tree = unflatten(params, [p.detach().requires_grad_(True)
+                              for p in leaves(params)])
+    with torch.enable_grad():
+        loss = loss_of(tree)
+        grads = torch.autograd.grad(loss, leaves(tree), allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves(params), grads)]
+    return loss.detach(), unflatten(params, grads)
+
+
 def dlrm_value_and_grad(params, dense: torch.Tensor, sparse: torch.Tensor,
                         labels: torch.Tensor, cfg: dlrm_mod.DLRMConfig):
     """(loss, grads) of ``dlrm.loss_fn`` at ``params``, grads shaped like
     ``params``.  The tables' gradient is the dense one that
     ``bag_sum``'s backward returns, taken as it is (no copy)."""
-    tree = unflatten(params, [p.detach().requires_grad_(True)
-                              for p in leaves(params)])
-    with torch.enable_grad():
-        loss = dlrm_mod.loss_fn(tree, dense, sparse, labels, cfg)
-        grads = torch.autograd.grad(loss, leaves(tree))
-    return loss.detach(), unflatten(params, list(grads))
+    return value_and_grad(
+        lambda p: dlrm_mod.loss_fn(p, dense, sparse, labels, cfg), params)
 
 
 def _dlrm_train_step(cfg: dlrm_mod.DLRMConfig):
@@ -291,21 +505,33 @@ def _build_recsys_cell(arch_id, shape_name, mod, smoke, device, batch):
 
 def build_cell(arch_id: str, shape_name: str, smoke: bool = False,
                device=None, batch: Optional[int] = None,
-               layers: Optional[int] = None) -> Cell:
+               layers: Optional[int] = None, variant: str = "base") -> Cell:
     """The cell ``(arch_id, shape_name)`` with concrete tensors on
     ``device`` (default ``cuda``; raises without a card unless given
-    ``"cpu"``).  ``batch`` overrides the assigned batch and ``layers`` an
-    LM's depth (cuts, recorded in ``meta["reduced"]``).  Weights and
-    inputs come from seed 0."""
+    ``"cpu"``).  ``batch`` overrides the assigned batch of an LM or DLRM
+    cell and ``layers`` an LM's depth (cuts, recorded in
+    ``meta["reduced"]``); ``variant="opt"`` picks a GNN cell's bucketed
+    edge layouts.  Weights and inputs come from seed 0."""
     device = resolve_device(device)
     mod = get_arch(arch_id)
     skip = getattr(mod, "SKIP_SHAPES", {})
     if shape_name in skip:
         raise ValueError(f"{arch_id} does not run {shape_name}: "
                          f"{skip[shape_name]}")
+    if variant not in ("base", "opt"):
+        raise ValueError(f"variant must be 'base' or 'opt', got {variant!r}")
+    if variant != "base" and mod.FAMILY != "gnn":
+        raise NotImplementedError(f"{arch_id}: only the GNN cells have an "
+                                  "'opt' variant in the port")
     if mod.FAMILY == "lm":
         return _build_lm_cell(arch_id, shape_name, mod, smoke, device, batch,
                               layers)
     if layers is not None:
         raise ValueError(f"{arch_id}: layers= cuts an LM's depth only")
+    if mod.FAMILY == "gnn":
+        if batch is not None:
+            raise ValueError(f"{arch_id}: batch= cuts an LM or DLRM batch "
+                             "only")
+        return _build_gnn_cell(arch_id, shape_name, mod, smoke, device,
+                               variant)
     return _build_recsys_cell(arch_id, shape_name, mod, smoke, device, batch)

@@ -1,5 +1,5 @@
-"""Training entry point of the port: glm4-9b or dlrm-rm2 on one card,
-checkpointed and resumable.
+"""Training entry point of the port: glm4-9b, dlrm-rm2 or a GNN (gcn-cora,
+gin-tu, schnet, equiformer-v2) on one card, checkpointed and resumable.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rm2 \\
         --smoke --steps 3 --device cpu
@@ -11,11 +11,12 @@ checkpoint.  Step ``i`` trains on batch ``i`` of the arch's data stream
 (``cell.batch_at``), a pure function of (seed, step), so a resumed run
 sees the batches an uninterrupted one would.  ``--smoke`` trains the
 reduced config; without it the full config at the assigned shape
-(dlrm-rm2 fits one card; glm4-9b's 40 layers with f32 AdamW state, 16
-bytes a parameter, do not: ``build_cell(..., layers=, batch=)`` cuts
-them, as ``chip_smoke.py`` does).  It runs on the card unless ``--device
-cpu``.  The other archs of the JAX package wait for their modules
-(``ROADMAP.md`` queue 1).
+(dlrm-rm2 and every GNN cell fit one card; glm4-9b's 40 layers with f32
+AdamW state, 16 bytes a parameter, do not: ``build_cell(..., layers=,
+batch=)`` cuts them, as ``chip_smoke.py`` does).  For a GNN the default
+shape ``train_4k`` means ``full_graph_sm``, as in the JAX module.  It
+runs on the card unless ``--device cpu``.  The other archs of the JAX
+package wait for their modules (``ROADMAP.md`` queue 1).
 """
 from __future__ import annotations
 
@@ -55,6 +56,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     device = resolve_device(args.device)
     mod = get_arch(args.arch)
     shape = args.shape
+    if mod.FAMILY == "gnn" and shape == "train_4k":
+        shape = "full_graph_sm"
     if mod.FAMILY == "recsys" and shape == "train_4k":
         shape = "train_batch"
 

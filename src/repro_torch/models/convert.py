@@ -81,6 +81,23 @@ def dlrm_params_from_numpy(tree: Dict[str, Any], cfg: DLRMConfig,
                      _tensor(b, device, cfg.dtype)] for w, b in tree["top"]]}
 
 
+def gnn_params_from_numpy(tree: Dict[str, Any], arch: str, cfg,
+                          device=None) -> Dict[str, Any]:
+    """A GNN's JAX parameter tree (``gcn-cora``, ``gin-tu``, ``schnet``
+    or ``equiformer-v2`` at ``cfg``) -> the port's parameters on
+    ``device`` (default ``cuda``) in ``cfg.dtype``; its paths and shapes
+    are checked against the port's ``init_params(cfg)``."""
+    from .gnn import MODULES
+    device = resolve_device(device)
+    want = [(k, tuple(p.shape)) for k, p in flatten_with_paths(
+        MODULES[arch].init_params(cfg, device="cpu"))]
+    have = [(k, tuple(np.shape(a))) for k, a in flatten_with_paths(tree)]
+    if have != want:
+        raise ValueError(f"{arch}: leaves {have} are not the config's "
+                         f"{want}")
+    return map_tree(lambda a: _tensor(a, device, cfg.dtype), tree)
+
+
 def adamw_state_from_numpy(state, params, device=None) -> OptState:
     """A JAX ``OptState(m, v, count)`` with numpy leaves (or a dict with
     those keys) -> the port's ``OptState`` on ``device`` (default

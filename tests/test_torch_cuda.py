@@ -677,3 +677,41 @@ def test_smoke_runs_on_card(cuda_device, module):
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-4000:]
     assert "smoke OK on cuda" in out.stdout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,shape,repl", [
+    ("gcn-cora", "full_graph_sm", {}),
+    ("gcn-cora", "full_graph_sm", {"edge_chunk": 33}),
+    ("gcn-cora", "molecule", {"edge_layout": "partitioned",
+                              "edge_chunk": 40}),
+    ("gin-tu", "minibatch_lg", {}),
+    ("gin-tu", "molecule", {"edge_chunk": 50}),
+    ("schnet", "molecule", {}),
+    ("schnet", "ogb_products", {"edge_chunk": 33}),
+    ("equiformer-v2", "molecule", {}),
+    ("equiformer-v2", "full_graph_sm", {"edge_chunk": 33}),
+])
+def test_gnn_forward_backward_on_card(cuda_device, arch, shape, repl):
+    """Each GNN's smoke cell, plain and chunked (sentinel-padded chunks,
+    index_add_'s atomics), on the card against the CPU: loss rtol 1e-5,
+    each gradient leaf rtol 1e-4 with atol 1e-5 of its largest magnitude
+    (f32 sums in another order)."""
+    import dataclasses
+
+    from repro_torch.launch.steps import GNN_MODULES, build_cell, value_and_grad
+    from repro_torch.tree import flatten_with_paths, leaves, map_tree
+    cell = build_cell(arch, shape, smoke=True, device="cpu")
+    cfg = dataclasses.replace(cell.meta["cfg"], **repl)
+    model, params, g = GNN_MODULES[arch], cell.args[0]["params"], cell.args[1]
+    want_loss, want = value_and_grad(lambda p: model.loss_fn(p, g, cfg),
+                                     params)
+    gc = g.to(cuda_device)
+    loss, grads = value_and_grad(
+        lambda p: model.loss_fn(p, gc, cfg),
+        map_tree(lambda t: t.to(cuda_device), params))
+    assert abs(loss.item() - want_loss.item()) <= 1e-5 * abs(want_loss.item())
+    for (k, got), w in zip(flatten_with_paths(grads), leaves(want)):
+        assert got.device.type == "cuda", k
+        torch.testing.assert_close(got.cpu(), w, rtol=1e-4,
+                                   atol=1e-5 * w.abs().max().item(), msg=k)
