@@ -26,7 +26,11 @@ never JAX or the JAX package.  Phases, each of which asserts:
    levels (built first, as in phase 4): each whole sweep in one launch
    and the widest forward level alone, timed at S = 32 and checked at
    S = 1, 7, 32, 33, 64 and 128, plus two synthetic levels with split
-   and masked rows;
+   and masked rows.  ``flash_decode`` also at phase 12's per-layer
+   shapes (FD_FAMILY: the dh-64 tensor-core form at G 2 and 8, dh 128
+   at G 8, gemma3's dh 256 in the SIMT form at 32,768 and 524,288
+   positions and on a rolling 1,024-slot cache), each within atol 1e-4
+   of its plain version, timed beside SDPA and its byte bound;
 4. the HoD slice at full size: the road-network stand-in (grid side 200,
    40,000 nodes), the serve CLI's build config with the closure limit
    raised so the 15,722-node core is closed on the card, and a
@@ -94,10 +98,11 @@ never JAX or the JAX package.  Phases, each of which asserts:
    whose decode must equal prefill of the extended sequences at atol
    1e-4 (the logic); then all 40 layers, random bf16 weights (18.8 GB)
    from a seeded generator.  (a) 4 prompts of 512 tokens are prefilled
-   into a 1024-slot cache and decoded greedily for 32 steps; the last
+   into a 1024-slot cache and decoded greedily for 32 steps; every
    step's logits must match a prefill of the extended sequences within
-   a relative L2 bound (LM_REL_L2), and the last step re-run with each
-   of four planted faults must land outside it (the check's controls);
+   a relative L2 bound (LM_REL_L2), and the 32 steps re-run on the same
+   inputs from the same cache with each of three planted faults in
+   every step must land outside it (the check's controls, ``lm_controls``);
    (b) decode_32k with its batch cut from 128 to 32 (the 128-row cache
    is 172 GB): 42.9 GB of KV filled from the generator, 8 timed decode
    steps at cur_len 32760, and one ``torch.profiler`` pass over a step.
@@ -140,7 +145,33 @@ never JAX or the JAX package.  Phases, each of which asserts:
    blocks of a Reddit-size host graph built in numpy), schnet and
    equiformer-v2 molecule (128 molecules); median step, model TFLOP/s,
    peak memory, profiles of ogb_products and equiformer-v2; (c)
-   ogb_products' chunked forward against one unchunked pass.
+   ogb_products' chunked forward against one unchunked pass;
+12. the rest of the LM family, after phase 11: command-r-35b,
+   gemma3-12b, granite-moe-1b-a400m and qwen3-moe-30b-a3b (FAMILY), each
+   at its published width.  (1) 2 layers (gemma3: one 6-layer cycle) in
+   f32: both of 2 greedy decode steps equal a prefill of the extended
+   sequences at atol 1e-4, the MoE archs at a capacity factor of E / k
+   with no choice dropped (counted through ``moe_route``), gemma3 after a
+   1,024-token prompt, so decode wraps its rolling caches; the steps
+   re-run with each planted fault (gemma3 also two faults of the ring)
+   must each put a logit outside that atol; (2) full
+   depth in bf16 (decode_32k's cell, random weights from a seeded
+   generator): phase 6's serve run (4 prompts, 32 greedy steps; gemma3's
+   prompt one window, its cache 1,088) held to prefill within the
+   arch's relative L2 bound over all 32 steps, its planted faults
+   outside it (bounds from ``tools/serve_bound_sweep.py``); (3)
+   decode_32k with the batch cut to fit one card (command-r 2, gemma3
+   16, granite 32, qwen3 8) and gemma3's long_500k at batch 1 (524,288
+   positions on its global layers), KV from the generator, 4 timed
+   steps, a profile, ``flash_decode`` launching once a layer a step, the
+   MoE drop share per layer at the published capacity factor; (4)
+   train_4k through the train cell at ``lm_train_layers``'s depth
+   (whole cycles) and batch 1 x 4,096, a warm-up and 2 counted steps,
+   losses finite, median step, peak memory, a profile; granite-moe and
+   gemma3 also hold loss and gradients on the card to the CPU at (1)'s
+   depth (phase 10's tolerances).  Its paths in the kernels line:
+   ``<arch>_serve``, ``<arch>_decode_32k``, ``<arch>_train`` and
+   ``gemma3-12b_long_500k``.
 
 Each path frees its memory before the next.  Every launch counter is
 zeroed just before a served run and read just after it.  It prints one
@@ -150,7 +181,8 @@ own count, phase 8's paths ``hod_mixed_slo``,
 ``hod_store_mixed_slo`` and ``hod_topk_store``, phase 9's
 ``hod_fleet_raw`` and ``hod_fleet_delta`` (each the sum over its runs
 at 1, 2 and 4 shards) and ``hod_fleet_mixed_slo``, phase 10's
-``dlrm_train`` and ``lm_train`` and phase 11's ``gnn_train`` included;
+``dlrm_train`` and ``lm_train``, phase 11's ``gnn_train`` and phase
+12's paths included;
 ``bag_sum_backward`` has no TPU kernel and names the JAX lookup's
 ``jnp.take``), the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``.  Any failure
@@ -195,11 +227,12 @@ FP32_LANES_PER_SM = 128
 LM_PROMPTS, LM_PROMPT_LEN, LM_SERVE_CACHE, LM_SERVE_STEPS = 4, 512, 1024, 32
 DECODE_BATCH, DECODE_CUR, DECODE_STEPS = 32, 32760, 8
 # Decode-vs-prefill logits bound at 40 layers in bf16, as a relative L2
-# error ||decode - prefill|| / ||prefill|| over the last step's logits
+# error ||decode - prefill|| / ||prefill|| over all 32 steps' logits
 # (tests/test_torch_transformer.py holds 2 layers to 2e-2).  It lies
-# between the sound reading (1.924e-2) and the smallest reading of the
-# planted faults that lm_check_controls re-runs every time (3.130e-2,
-# the self-token dropped), near their geometric mean (PERF.md §6).
+# near the geometric mean of the largest sound reading (1.946e-2) and
+# the smallest reading of the planted faults that lm_controls re-runs
+# every time (3.321e-2, the self-token dropped) over 5 seeds of weights
+# and prompts (tools/serve_bound_sweep.py; PERF.md §6).
 # Greedy tokens must agree wherever the reference's top-two gap exceeds
 # twice the largest logit error (noise cannot flip those).  An f32 run of
 # the same width at 2 layers checks the decode logic itself at the CPU
@@ -207,6 +240,20 @@ DECODE_BATCH, DECODE_CUR, DECODE_STEPS = 32, 32760, 8
 LM_REL_L2, LM_F32_ATOL = 2.5e-2, 1e-4
 # flash_decode's check: the per-layer decode_32k shape
 FD_B, FD_H, FD_KH, FD_DH, FD_S = 32, 32, 2, 128, 32768
+# ... and phase 12's per-layer shapes (what, B, H, Kh, dh, S, kv_len):
+# the dh-64 tensor-core form at G 2 and G 8, dh 128 at G 8, gemma3's dh
+# 256 (the SIMT form) on a global layer at 32,768 and 524,288 positions
+# and on a local layer's rolling 1,024-slot cache, full and before it
+# wraps.
+FD_FAMILY = (
+    ("granite-moe decode_32k", 32, 16, 8, 64, 32768, 32761),
+    ("qwen3-moe decode_32k", 8, 32, 4, 64, 32768, 32761),
+    ("command-r decode_32k", 2, 64, 8, 128, 32768, 32761),
+    ("gemma3 decode_32k global", 16, 16, 8, 256, 32768, 32761),
+    ("gemma3 local, rolling", 16, 16, 8, 256, 1024, 1024),
+    ("gemma3 local, before the wrap", 16, 16, 8, 256, 1024, 601),
+    ("gemma3 long_500k global", 1, 16, 8, 256, 524288, 524281),
+)
 # DLRM rm2: 26 tables of 10^6 rows; serve_bulk's lookups
 RM2_ROWS, RM2_DIM, BULK_BAGS = 26 * 10 ** 6, 64, 262144 * 26
 
@@ -268,6 +315,34 @@ GNN_CELLS = (("gcn-cora", "full_graph_sm"), ("gcn-cora", "ogb_products"),
 GNN_PROFILED = (("gcn-cora", "ogb_products"), ("equiformer-v2", "molecule"))
 GNN_STEPS, GNN_LOGIC_EQ_LAYERS, GNN_LOGIC_MOLECULES = 3, 2, 16
 GNN_CHUNK_RTOL, GNN_CHUNK_ATOL_SCALE = 1e-5, 1e-5
+
+# Phase 12: the rest of the LM family, in the JAX registry's order.  Per
+# arch: decode_32k's batch, cut to what fits one card beside the bf16
+# weights (the 128-row caches are 206-687 GB); the f32 logic check's
+# depth and prompt (gemma3: one 6-layer cycle, one 1,024-token window);
+# the bf16 serve check's prompt and cache (gemma3's prompt is a window,
+# so decode wraps its rolling caches) and its relative L2 bound, set as
+# LM_REL_L2 is, from 5 seeds of tools/serve_bound_sweep.py (PERF.md §6);
+# train_4k's activation reserve beside 16 B a parameter.  Decode cells
+# time FAMILY_DECODE_STEPS steps, train cells FAMILY_TRAIN_STEPS after a
+# warm-up; FAMILY_GRAD_CHECK also hold loss and gradients on the card
+# to the CPU (phase 10's tolerances) at the logic check's depth.
+FAMILY = {
+    "command-r-35b": dict(decode_batch=2, logic_layers=2, logic_prompt=64,
+                          prompt=512, cache=1024, rel_l2=2.4e-2,
+                          train_reserve=20 * 2 ** 30),
+    "gemma3-12b": dict(decode_batch=16, logic_layers=6, logic_prompt=1024,
+                       prompt=1024, cache=1088, rel_l2=2.4e-2,
+                       train_reserve=28 * 2 ** 30),
+    "granite-moe-1b-a400m": dict(decode_batch=32, logic_layers=2,
+                                 logic_prompt=64, prompt=512, cache=1024,
+                                 rel_l2=2.6e-2, train_reserve=12 * 2 ** 30),
+    "qwen3-moe-30b-a3b": dict(decode_batch=8, logic_layers=2,
+                              logic_prompt=64, prompt=512, cache=1024,
+                              rel_l2=4.5e-2, train_reserve=12 * 2 ** 30),
+}
+FAMILY_DECODE_STEPS, FAMILY_TRAIN_STEPS = 4, 2
+FAMILY_GRAD_CHECK = ("granite-moe-1b-a400m", "gemma3-12b")
 
 # The served run whose launch count the kernels line reports: the one at
 # the shape each kernel is timed at.
@@ -1623,6 +1698,62 @@ def check_flash_decode(torch, card: str) -> dict:
     return row
 
 
+def check_flash_decode_family(torch, card: str) -> list:
+    """flash_decode at the per-layer shapes phase 12's decode cells give
+    it (bf16 caches, bf16 q): each against its plain version within atol
+    1e-4, timed (CUDA events) beside SDPA (GQA) and its byte bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+    for what, b, h, kh, dh, s, kv_len in FD_FAMILY:
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device="cuda",
+                               dtype=torch.bfloat16)
+        q, k, v = rand(b, h, dh), rand(b, s, kh, dh), rand(b, s, kh, dh)
+        want = flash_decode_ref(q, k, v, kv_len)
+        err = (flash_decode(q, k, v, kv_len) - want).abs().max().item()
+        if not err <= 1e-4:
+            raise AssertionError(f"flash_decode {what}: max error {err} > "
+                                 f"1e-4")
+        sms, per_sm, smem, stages, form, heads = fd_ops.device_config(q, k)
+        n_split, split_len = fd_ops.plan_splits(b, kh // heads, kv_len, sms,
+                                                per_sm)
+        iters = 5 if b * s * kh * dh > 2 ** 30 else 20
+        row = {"shape": f"{what}: q [{b},{h},{dh}], caches "
+                        f"[{b},{s},{kh},{dh}] bf16, kv_len {kv_len}",
+               "max_abs_err": err,
+               "form": f"tensor cores, dh {form}" if form else "SIMT",
+               "plan": (f"{n_split} splits of {split_len}, {heads} KV heads "
+                        f"a block, {b * kh // heads * n_split} blocks on "
+                        f"{sms} x {per_sm}, {smem} B shared a block"),
+               "ms": time_ms(torch, lambda: flash_decode(q, k, v, kv_len),
+                             iters=iters)}
+        row["bound_ms"], row["bound_by"] = bound(
+            2.0 * b * kh * kv_len * dh * 2 + b * h * dh * 6,
+            4.0 * b * h * kv_len * dh, BF16_TC_OPS_PER_S)
+        qs = q.view(b, h, 1, dh)
+        ks, vs = k[:, :kv_len].transpose(1, 2), v[:, :kv_len].transpose(1, 2)
+        try:        # a yardstick only: a backend may refuse the shape
+            row["library_ms"] = time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, enable_gqa=True), iters=iters)
+        except RuntimeError as e:
+            row["library_ms"] = None
+            say(f"  SDPA refused {what}: {str(e).splitlines()[0][:120]}")
+        say(f"flash_decode {row['shape']}: max |kernel - plain| {err:.3e} "
+            f"(atol 1e-4); {row['form']}; kernel {row['ms']:.4f} ms, SDPA "
+            + (f"{row['library_ms']:.4f}" if row["library_ms"] is not None
+               else "n/a")
+            + f" ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+            f"{row['plan']}, on {card}")
+        rows.append(row)
+        del q, k, v, want, qs, ks, vs
+        free(torch)
+    return rows
+
+
 def check_bag_sum(torch, card: str) -> dict:
     """bag_sum at serve_bulk's lookups (rm2's stacked [26e6, 64] f32 table,
     one id a bag, mask ones) bit-equal to the plain version, and a
@@ -1772,29 +1903,41 @@ def lm_f32_logic(torch, card: str) -> None:
                             "f32, full width, 2 layers", atol=LM_F32_ATOL)
 
 
-def lm_serve_requests(torch, params, cfg, gen, card: str) -> int:
-    """Prefill 4 prompts of 512 tokens into a 1024-slot cache, decode 32
-    greedy steps, and hold the last step's logits against a prefill of
-    the extended sequences."""
+def fill_cache(cfg, cache, filled) -> None:
+    """Copy prefill's caches into the first slots of ``cache`` (a local
+    layer's rolling cache takes prefill's last min(window, S) keys at
+    slots 0..w-1, as the JAX decode cell's caller does)."""
+    for full, part in zip(cache, filled):
+        for name in ("k", "v"):
+            full[name][:, :, :part[name].shape[2]] = part[name]
+
+
+def lm_serve_run(torch, params, cfg, gen, prompt_len: int,
+                 cache_len: int, p_bf16: bool) -> dict:
+    """Prefill LM_PROMPTS prompts of ``prompt_len`` tokens into a
+    ``cache_len``-slot cache, decode LM_SERVE_STEPS greedy steps, take a
+    prefill of the extended sequences at every decoded position
+    (``lm_reference``), and read the check's controls (``lm_controls``,
+    with the p-rounding reading if ``p_bf16``).
+    Asserts nothing but the launch count and finite logits; returns every
+    step's logits (``got``, [steps, B, V]), the reference's (``want``),
+    the launches, the host-clock times and the controls' readings."""
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.models import transformer as tf
-    prompts = torch.randint(0, cfg.vocab, (LM_PROMPTS, LM_PROMPT_LEN),
+    prompts = torch.randint(0, cfg.vocab, (LM_PROMPTS, prompt_len),
                             generator=gen, device="cuda", dtype=torch.int32)
     flash_decode.launches = 0
     t0 = time.perf_counter()
     logits, filled = tf.prefill(params, prompts, cfg)
-    cache = tf.make_cache(cfg, LM_PROMPTS, LM_SERVE_CACHE, device="cuda")
-    for full, part in zip(cache, filled):
-        full["k"][:, :, :LM_PROMPT_LEN] = part["k"]
-        full["v"][:, :, :LM_PROMPT_LEN] = part["v"]
-    del filled, full, part
+    cache = tf.make_cache(cfg, LM_PROMPTS, cache_len, device="cuda")
+    fill_cache(cfg, cache, filled)
+    del filled
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    tokens = [logits.argmax(-1).to(torch.int32)]
-    for i in range(LM_SERVE_STEPS):
-        logits, _ = tf.decode_step(params, cache, tokens[-1],
-                                   LM_PROMPT_LEN + i, cfg)
-        tokens.append(logits.argmax(-1).to(torch.int32))
+    kept = decode_slots(torch, cache, prompt_len, LM_SERVE_STEPS)
+    got, inputs = lm_decode(torch, params, cfg, cache,
+                            logits.argmax(-1).to(torch.int32), prompt_len,
+                            LM_SERVE_STEPS)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = flash_decode.launches
@@ -1802,21 +1945,47 @@ def lm_serve_requests(torch, params, cfg, gen, card: str) -> int:
         raise AssertionError(f"flash_decode launched {launches} times in "
                              f"{LM_SERVE_STEPS} steps of {cfg.n_layers} "
                              f"layers")
-    if not torch.isfinite(logits).all():
+    if not torch.isfinite(got).all():
         raise AssertionError("decode logits are not finite")
-    ext = torch.cat([prompts, torch.stack(tokens[:-1], dim=1)], dim=1)
-    want, _ = tf.prefill(params, ext, cfg)
-    say(f"LM serve: prefill {LM_PROMPTS}x{LM_PROMPT_LEN} in "
-        f"{(t1 - t0) * 1e3:.1f} ms, {LM_SERVE_STEPS} greedy decode steps "
-        f"({LM_PROMPTS} requests, cache {LM_SERVE_CACHE}) in "
-        f"{(t2 - t1) * 1e3:.1f} ms = "
-        f"{LM_PROMPTS * LM_SERVE_STEPS / (t2 - t1):.1f} tokens/s (host "
-        f"clock, on {card}); flash_decode launches {launches}")
-    check_decode_vs_prefill(torch, logits, want, LM_REL_L2,
-                            f"bf16, {cfg.n_layers} layers, last of "
+    want = lm_reference(torch, params, cfg, prompts, inputs)
+    controls = lm_controls(torch, params, cfg, cache, kept, inputs, want,
+                           prompt_len, p_bf16)
+    return dict(got=got, want=want, launches=launches,
+                prefill_s=t1 - t0, decode_s=t2 - t1, controls=controls)
+
+
+def lm_serve_requests(torch, params, cfg, gen, card: str,
+                      prompt_len: int = LM_PROMPT_LEN,
+                      cache_len: int = LM_SERVE_CACHE,
+                      bound: float = LM_REL_L2, what: str = "LM",
+                      p_bf16: bool = True) -> int:
+    """``lm_serve_run`` (phase 6: 4 prompts of 512 tokens, a 1024-slot
+    cache, 32 steps, the p-rounding reading), then its checks: every
+    step's logits within the relative L2 ``bound`` of a prefill of the
+    extended sequences, the sound re-run inside it and every planted
+    fault outside it.  Returns the served run's ``flash_decode``
+    launches."""
+    run = lm_serve_run(torch, params, cfg, gen, prompt_len, cache_len,
+                       p_bf16)
+    say(f"{what} serve: prefill {LM_PROMPTS}x{prompt_len} in "
+        f"{run['prefill_s'] * 1e3:.1f} ms, {LM_SERVE_STEPS} greedy decode "
+        f"steps ({LM_PROMPTS} requests, cache {cache_len}) in "
+        f"{run['decode_s'] * 1e3:.1f} ms = "
+        f"{LM_PROMPTS * LM_SERVE_STEPS / run['decode_s']:.1f} tokens/s "
+        f"(host clock, on {card}); flash_decode launches {run['launches']}")
+    rel = {k: r for k, (r, _) in run["controls"].items()}
+    say(f"LM check controls ({LM_SERVE_STEPS} steps re-run on the served "
+        f"inputs, each fault in every step; relative L2 against prefill, "
+        f"bound {bound:.3e}): "
+        + "; ".join(f"{k} {v:.3e}" for k, v in rel.items())
+        + (" (the last not asserted)" if p_bf16 else ""))
+    v = run["got"].shape[-1]
+    check_decode_vs_prefill(torch, run["got"].reshape(-1, v),
+                            run["want"].reshape(-1, v), bound,
+                            f"bf16, {cfg.n_layers} layers, all "
                             f"{LM_SERVE_STEPS} steps")
-    lm_check_controls(torch, params, cfg, cache, tokens[-2], want)
-    return launches
+    assert_controls(rel, bound, "relative L2")
+    return run["launches"]
 
 
 def _p_bf16_decode(torch, q, k_cache, v_cache, kv_len: int):
@@ -1836,110 +2005,217 @@ def _p_bf16_decode(torch, q, k_cache, v_cache, kv_len: int):
         b, h, dh)
 
 
-def lm_check_controls(torch, params, cfg, cache, token, want) -> None:
-    """The decode-vs-prefill check's controls: re-run the last decode
-    step from the same cache, once sound (which must agree with the
-    served step) and once with each planted fault, and hold each reading
-    against LM_REL_L2.  The three decode-logic faults must land outside
-    it.  The fourth, p rounded to bf16 before PV, is the Pallas body's
-    own rounding, which the kernel deliberately leaves out: its reading
-    is printed, not asserted (rounding p is noise of the same order as
-    the bf16 path's own)."""
+# The check's controls: label -> the fault planted in attention_decode.
+# The first three hold for every cache; the two ring faults only where a
+# local layer's rolling cache has wrapped (cur_len >= window), since
+# before that they equal a sound step or the lost write.
+LM_FAULTS = {
+    "position off by one (RoPE and slot at cur_len + 1)": "position",
+    "self-token dropped (the written slot not read)": "self",
+    "new K/V lost (the write never lands)": "lost",
+}
+RING_FAULTS = {
+    "ring slot off by one (new K/V at (cur_len + 1) % window)": "ring_slot",
+    "ring read as a prefix (kv_len = cur_len % window + 1)": "ring_prefix",
+}
+P_BF16 = "p rounded to bf16 before PV"
+
+
+def decode_slots(torch, cache, first: int, steps: int) -> list:
+    """Before decoding from position ``first``: every cache's slots that
+    ``steps`` steps from there (or from ``first + 1``, the position
+    fault) can write, with their contents (zeros on a full cache; on a
+    wrapped rolling cache, keys that are leaving the window), so that a
+    re-run starts from the state the served run found."""
+    out = []
+    for c in cache:
+        for t in (c["k"], c["v"]):
+            n = t.shape[2]
+            idx = torch.tensor(sorted({p % n for p in range(
+                first, first + steps + 1)}), device=t.device)
+            out.append((t, idx, t.index_select(2, idx)))
+    return out
+
+
+def planted_attention(torch, fault: str):
+    """``attention_decode`` with ``fault`` planted.  Each fault targets
+    the slot the step writes: ``cur_len`` on a full cache, ``cur_len %
+    window`` on a rolling one."""
     from repro_torch.kernels.flash_decode import flash_decode
-    from repro_torch.models import layers
+
+    def attend(q, k_cache, v_cache, k_new, v_new, cur_len, *, window=None):
+        cur = int(cur_len)
+        slot = cur if window is None else cur % window
+        kv_len = cur + 1 if window is None else min(cur, window - 1) + 1
+        rolled = window is not None and cur >= window
+        if fault == "ring_slot" and rolled:
+            slot = (cur + 1) % window
+        if fault != "lost":
+            k_cache[:, slot] = k_new
+            v_cache[:, slot] = v_new
+        if fault == "self":        # the last read slot fills the written one
+            k_read, v_read = k_cache.clone(), v_cache.clone()
+            k_read[:, slot] = k_cache[:, kv_len - 1]
+            v_read[:, slot] = v_cache[:, kv_len - 1]
+            out = flash_decode(q, k_read, v_read, kv_len - 1)
+        elif fault == "ring_prefix" and rolled:
+            out = flash_decode(q, k_cache, v_cache, slot + 1)
+        elif fault == "p_bf16":
+            out = _p_bf16_decode(torch, q, k_cache, v_cache, kv_len)
+        else:
+            out = flash_decode(q, k_cache, v_cache, kv_len)
+        return out.to(v_cache.dtype), k_cache, v_cache
+    return attend
+
+
+def lm_decode(torch, params, cfg, cache, token, first: int, steps: int,
+              forced=None, fault: "str | None" = None):
+    """``steps`` decode steps from position ``first`` (``first + 1``
+    under the position fault), the first on ``token`` [B], each later
+    one on the previous step's greedy token or, given ``forced``
+    ([steps, B]), on ``forced[i]`` (the controls re-run the served
+    inputs).  With ``fault``, ``attention_decode`` is
+    ``planted_attention(fault)`` in every step.  Returns the steps'
+    logits [steps, B, V] f32 and their inputs [steps, B]."""
     from repro_torch.models import transformer as tf
-    last = LM_PROMPT_LEN + LM_SERVE_STEPS - 1     # the last step's slot
+    sound = tf.attention_decode
+    if fault is not None:
+        tf.attention_decode = planted_attention(torch, fault)
+    shift = 1 if fault == "position" else 0
+    logits, inputs = [], [token]
+    try:
+        for i in range(steps):
+            out, _ = tf.decode_step(params, cache, inputs[-1],
+                                    first + shift + i, cfg)
+            logits.append(out)
+            if i + 1 < steps:
+                inputs.append(out.argmax(-1).to(torch.int32)
+                              if forced is None else forced[i + 1])
+    finally:
+        tf.attention_decode = sound
+    return torch.stack(logits), torch.stack(inputs)
 
-    def stale(q, k, v, n):                        # the new K/V never lands
-        k, v = k.clone(), v.clone()
-        k[:, n - 1] = 0
-        v[:, n - 1] = 0
-        return flash_decode(q, k, v, n)
 
-    def rerun(cur_len, attend=None):
-        for c in cache:                           # slots the step wrote
-            c["k"][:, :, last:] = 0
-            c["v"][:, :, last:] = 0
-        layers.flash_decode = attend or flash_decode
-        try:
-            got, _ = tf.decode_step(params, cache, token, cur_len, cfg)
-        finally:
-            layers.flash_decode = flash_decode
-        return ((got - want).norm() / want.norm()).item()
+def lm_reference(torch, params, cfg, prompts, inputs):
+    """A prefill of the extended sequences (the prompts, then each decode
+    step's input) through ``forward``, the logits at every decoded
+    position: [steps, B, V] f32, step i's at position S + i."""
+    from repro_torch.models import transformer as tf
+    s = prompts.shape[1]
+    x, _ = tf.forward(params, torch.cat([prompts, inputs.t()], dim=1), cfg)
+    head = tf.lm_head_weight(params, cfg).to(cfg.compute_dtype)
+    return (x[:, s:] @ head).float().transpose(0, 1)
 
-    sound = rerun(last)
-    faults = {
-        "position off by one (RoPE and slot at cur_len + 1)": rerun(last + 1),
-        "self-token dropped (kv_len = cur_len)": rerun(
-            last, lambda q, k, v, n: flash_decode(q, k, v, n - 1)),
-        "new K/V lost (slot cur_len stale)": rerun(last, stale),
-    }
-    p_bf16 = rerun(last, lambda q, k, v, n: _p_bf16_decode(torch, q, k, v,
-                                                           n))
-    say(f"LM check controls (last step re-run, relative L2 against prefill, "
-        f"bound {LM_REL_L2:.3e}): sound {sound:.3e}; "
-        + "; ".join(f"{k} {v:.3e}" for k, v in faults.items())
-        + f"; p rounded to bf16 before PV {p_bf16:.3e} (not asserted)")
-    if not sound <= LM_REL_L2:
-        raise AssertionError(f"the re-run sound step reads {sound}")
-    for what, rel in faults.items():
-        if not rel > LM_REL_L2:
-            raise AssertionError(f"planted fault '{what}' reads {rel}, "
-                                 f"inside the bound {LM_REL_L2}")
+
+def distance(got, want) -> "tuple[float, float]":
+    """(relative L2 error over every step and row, max |diff|)."""
+    d = got - want
+    return (d.norm() / want.norm()).item(), d.abs().max().item()
+
+
+def lm_controls(torch, params, cfg, cache, kept, inputs, want, first: int,
+                p_bf16: bool) -> dict:
+    """Re-run the served decode steps from the cache they found
+    (``kept``, from ``decode_slots``), on the served inputs, once sound
+    (which must agree with the served run) and once with each fault
+    planted in every step (LM_FAULTS; RING_FAULTS where a rolling cache
+    has wrapped; with ``p_bf16``, p rounded to bf16 before PV, the
+    Pallas body's own rounding, which the kernel leaves out: noise of
+    the bf16 path's order, read and never asserted).  Returns label ->
+    ``distance`` against ``want``, "sound" first."""
+    steps = inputs.shape[0]
+
+    def rerun(fault=None):
+        for t, idx, saved in kept:
+            t.index_copy_(2, idx, saved)
+        got, _ = lm_decode(torch, params, cfg, cache, inputs[0], first,
+                           steps, forced=inputs, fault=fault)
+        return distance(got, want)
+
+    faults = dict(LM_FAULTS)
+    if cfg.sliding_window is not None \
+            and first + steps - 1 >= cfg.sliding_window:
+        faults.update(RING_FAULTS)
+    readings = {"sound": rerun()}
+    for label, fault in faults.items():
+        readings[label] = rerun(fault)
+    if p_bf16:
+        readings[P_BF16] = rerun("p_bf16")
+    return readings
+
+
+def assert_controls(readings: dict, bound: float, measure: str) -> None:
+    """The sound re-run inside ``bound`` and every planted fault but
+    P_BF16 outside it (``readings``: label -> one ``measure``)."""
+    if not readings["sound"] <= bound:
+        raise AssertionError(f"the re-run sound step reads "
+                             f"{readings['sound']} ({measure})")
+    for what, got in readings.items():
+        if what not in ("sound", P_BF16) and not got > bound:
+            raise AssertionError(f"planted fault '{what}' reads {got} "
+                                 f"({measure}), inside the bound {bound}")
 
 
 def lm_decode_32k(torch, cell, gen, w_bytes: int, kv_bytes: int,
-                  card: str) -> int:
-    """decode_32k at batch 32: fill the cache from the generator, time 8
-    steps at cur_len 32760, profile one."""
+                  card: str, steps: int = DECODE_STEPS) -> int:
+    """A decode cell (decode_32k at batch 32 for glm4): fill the cache
+    from the generator, time ``steps`` steps from cur_len seq_len - 8
+    (32760), profile one."""
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.models import transformer as tf
     params, caches = cell.args[0], cell.args[1]
-    cfg = cell.meta["cfg"]
+    cfg, batch, seq = cell.meta["cfg"], cell.meta["batch"], \
+        cell.meta["seq_len"]
+    cur0 = seq - 8
     t0 = time.perf_counter()
     for c in range(cfg.n_cycles):
         for pos in caches:
             pos["k"][c].normal_(generator=gen)
             pos["v"][c].normal_(generator=gen)
-    toks = torch.randint(0, cfg.vocab, (DECODE_BATCH,), generator=gen,
+    toks = torch.randint(0, cfg.vocab, (batch,), generator=gen,
                          device="cuda", dtype=torch.int32)
-    logits, _ = tf.decode_step(params, caches, toks, DECODE_CUR - 1, cfg)
+    logits, _ = tf.decode_step(params, caches, toks, cur0 - 1, cfg)
     torch.cuda.synchronize()
-    say(f"decode_32k: cache filled from the generator and one warm-up step "
+    say(f"{cell.shape}: cache filled from the generator and one warm-up step "
         f"in {time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
     flash_decode.launches = 0
     t0 = time.perf_counter()
-    for i in range(DECODE_STEPS):
-        logits, _ = tf.decode_step(params, caches, toks, DECODE_CUR + i, cfg)
+    for i in range(steps):
+        logits, _ = tf.decode_step(params, caches, toks, cur0 + i, cfg)
         toks = logits.argmax(-1).to(torch.int32)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = flash_decode.launches
     peak = torch.cuda.max_memory_allocated() / 1e9
-    if launches != cfg.n_layers * DECODE_STEPS:
+    if launches != cfg.n_layers * steps:
         raise AssertionError(f"flash_decode launched {launches} times in "
-                             f"{DECODE_STEPS} decode_32k steps")
-    if logits.shape != (DECODE_BATCH, cfg.vocab) \
+                             f"{steps} {cell.shape} steps")
+    if logits.shape != (batch, cfg.vocab) \
             or not torch.isfinite(logits).all():
-        raise AssertionError("decode_32k logits are not finite [B, V]")
+        raise AssertionError(f"{cell.shape} logits are not finite [B, V]")
     # The step's byte bound: every weight but the embedding table (only B
-    # rows of it), and the K/V rows up to cur_len of every layer.
+    # rows of it), and the K/V rows each layer reads (up to cur_len, or
+    # a local layer's whole rolling cache).
     emb = params["embed"]
+    kv_read = sum(c[n].numel() * c[n].element_size()
+                  * min(cur0 + 1, c[n].shape[2]) / c[n].shape[2]
+                  for c in caches for n in ("k", "v"))
     step_bytes = (w_bytes - emb.numel() * emb.element_size()
-                  + DECODE_BATCH * cfg.d_model * emb.element_size()
-                  + kv_bytes * (DECODE_CUR + 1) / FD_S)
-    ms = wall / DECODE_STEPS * 1e3
-    say(f"decode_32k: batch {DECODE_BATCH} (cut from 128), cur_len "
-        f"{DECODE_CUR}: {ms:.2f} ms/step, "
-        f"{DECODE_BATCH * DECODE_STEPS / wall:.1f} tokens/s, model "
+                  + batch * cfg.d_model * emb.element_size() + kv_read)
+    ms = wall / steps * 1e3
+    cut = cell.meta.get("reduced", {}).get("batch")
+    say(f"{cell.arch} {cell.shape}: batch {batch}"
+        + (f" (cut from {cut[0]})" if cut else "")
+        + f", cur_len {cur0}: {ms:.2f} ms/step, "
+        f"{batch * steps / wall:.1f} tokens/s, model "
         f"{cell.model_flops / (ms / 1e3) / 1e12:.2f} TFLOP/s; byte bound "
         f"{step_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms/step "
         f"({step_bytes / 1e9:.1f} GB); peak device memory {peak:.2f} GB; "
         f"flash_decode launches {launches} (host clock, on {card})")
     profile_device(torch, lambda: tf.decode_step(params, caches, toks,
-                                                 DECODE_CUR, cfg),
-                   2, f"decode_32k steps (batch {DECODE_BATCH})", card)
+                                                 cur0, cfg),
+                   2, f"{cell.shape} steps (batch {batch})", card)
     return launches
 
 
@@ -2262,15 +2538,15 @@ def check_grads(torch, got, want, what: str) -> float:
     return worst
 
 
-def lm_train_logic(torch) -> None:
-    """glm4-9b's full width at 2 layers in f32 on LM_LOGIC_SEQ tokens: the
-    train loss and every gradient on the card against the same model on
-    the CPU."""
+def lm_train_logic(torch, arch: str = "glm4-9b", n_layers: int = 2) -> None:
+    """An LM's full width (glm4-9b's) at ``n_layers`` layers in f32 on
+    LM_LOGIC_SEQ tokens: the train loss (an MoE arch's aux loss in it)
+    and every gradient on the card against the same model on the CPU."""
     import dataclasses
-    from repro_torch.configs import glm4_9b
+    from repro_torch.configs import get_arch
     from repro_torch.launch.steps import lm_value_and_grad
     from repro_torch.tree import map_tree
-    cfg = dataclasses.replace(glm4_9b.CONFIG, n_layers=2,
+    cfg = dataclasses.replace(get_arch(arch).CONFIG, n_layers=n_layers,
                               compute_dtype=torch.float32,
                               loss_chunk=LM_LOGIC_SEQ // 2)
     from repro_torch.models import transformer as tf
@@ -2292,8 +2568,9 @@ def lm_train_logic(torch) -> None:
     if not abs(loss - want_loss.item()) <= 1e-5 * abs(want_loss.item()):
         raise AssertionError(f"LM f32 loss {loss} on the card, "
                              f"{want_loss.item()} on the CPU")
-    say(f"glm4-9b train logic (full width, 2 layers, f32, {LM_LOGIC_SEQ} "
-        f"tokens): loss {loss:.6f} on the card, {want_loss.item():.6f} on "
+    say(f"{arch} train logic (full width, {n_layers} layers, f32, "
+        f"{LM_LOGIC_SEQ} tokens): loss {loss:.6f} on the card, "
+        f"{want_loss.item():.6f} on "
         f"the CPU ({cpu_s:.1f} s); every gradient within rtol "
         f"{LOGIC_RTOL}, atol {LOGIC_ATOL_SCALE} of its scale (worst "
         f"{worst:.2e} of it)")
@@ -2592,6 +2869,277 @@ def drive_gnn(np, torch, card: str) -> dict:
     return counts
 
 
+# ------------------------------------------------------------- phase 12
+class DropCount:
+    """While active, every ``moe_route`` call (``moe_block`` calls it)
+    records its dropped and routed choices as device tensors, so the
+    run is not synced; ``per_call()`` reads them after."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self._layers, self._route, self.calls = layers, layers.moe_route, []
+
+        def counted(xt, router_w, cfg):
+            r = self._route(xt, router_w, cfg)
+            self.calls.append(((~r.keep).sum(), r.keep.numel()))
+            return r
+        layers.moe_route = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._layers.moe_route = self._route
+
+    def per_call(self) -> "list[tuple[int, int]]":
+        return [(int(d), n) for d, n in self.calls]
+
+
+def no_drops(cfg):
+    """``cfg`` with a capacity factor of E / k: an expert has room for
+    every token, so no MoE layer drops one in any pass."""
+    import dataclasses
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.tree import leaves
+    return sum(a.numel() * a.element_size() for a in leaves(tree))
+
+
+def family_f32_logic(torch, arch: str, spec: dict) -> None:
+    """Phase 12 (1): the arch's full width at a shallow depth (2 layers;
+    gemma3 one 6-layer cycle) in f32: both of 2 greedy decode steps after
+    a 4-prompt prefill equal a prefill of the extended sequences at atol
+    LM_F32_ATOL.  An MoE arch runs at a capacity factor of E / k and
+    must drop nothing (prefill's B x (S + 1) tokens and decode's B get
+    other capacities, so under drops the identity fails even when the
+    code is right).  gemma3's prompt is one window (1,024): decode wraps
+    its rolling caches, and decode equals prefill only when the prompt
+    is at most the window or a multiple of it (the reference's fault
+    after any other length, ROADMAP.md queue 3).  The two steps are then
+    re-run on the same inputs, once sound, which must stay inside the
+    atol, and once with each fault of ``lm_controls`` planted in every
+    step (gemma3's ring faults included), each of which must put a logit
+    outside it."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models import transformer as tf
+    cfg = no_drops(dataclasses.replace(
+        get_arch(arch).CONFIG, n_layers=spec["logic_layers"],
+        compute_dtype=torch.float32))
+    s = spec["logic_prompt"]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    params = tf.init_params(cfg, gen, device="cuda", dtype=torch.float32)
+    prompts = torch.randint(0, cfg.vocab, (4, s), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    with DropCount() as drops:
+        logits, filled = tf.prefill(params, prompts, cfg)
+        cache = tf.make_cache(cfg, 4, s + 16, dtype=torch.float32,
+                              device="cuda")
+        fill_cache(cfg, cache, filled)
+        del filled
+        kept = decode_slots(torch, cache, s, 2)
+        flash_decode.launches = 0
+        got, inputs = lm_decode(torch, params, cfg, cache,
+                                logits.argmax(-1).to(torch.int32), s, 2)
+        torch.cuda.synchronize()
+        launches = flash_decode.launches
+        want = lm_reference(torch, params, cfg, prompts, inputs)
+        controls = lm_controls(torch, params, cfg, cache, kept, inputs,
+                               want, s, p_bf16=False)
+    dropped = sum(d for d, _ in drops.per_call())
+    if launches != 2 * cfg.n_layers:
+        raise AssertionError(f"{arch}: flash_decode launched {launches} "
+                             f"times in the f32 run")
+    if dropped:
+        raise AssertionError(f"{arch}: {dropped} MoE choices dropped at "
+                             f"capacity factor E / k")
+    worst = {k: d for k, (_, d) in controls.items()}
+    say(f"{arch} f32 check controls (2 steps re-run on the served inputs, "
+        f"each fault in every step; max |diff| against prefill, atol "
+        f"{LM_F32_ATOL}): "
+        + "; ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    check_decode_vs_prefill(
+        torch, got.reshape(-1, got.shape[-1]),
+        want.reshape(-1, got.shape[-1]), 1.0,
+        f"{arch}, f32, full width, {cfg.n_layers} layers, prompt {s}, both "
+        f"steps" + (f", {len(drops.calls)} MoE calls, 0 dropped"
+                    if cfg.moe else ""),
+        atol=LM_F32_ATOL)
+    assert_controls(worst, LM_F32_ATOL, "max |diff|")
+
+
+def family_decode_drops(torch, cell) -> None:
+    """The share of choices dropped in each MoE layer of one more
+    decode step at the published capacity factor (untimed)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import moe_capacity
+    params, caches, cfg = cell.args[0], cell.args[1], cell.meta["cfg"]
+    b = cell.meta["batch"]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    toks = torch.randint(0, cfg.vocab, (b,), device="cuda", generator=gen)
+    with DropCount() as drops:
+        tf.decode_step(params, caches, toks, cell.meta["seq_len"] - 8, cfg)
+    share = [d / n for d, n in drops.per_call()]
+    say(f"{cell.arch} {cell.shape}: dropped share per MoE layer at capacity "
+        f"factor {cfg.moe.capacity_factor} (batch {b}, capacity "
+        f"{moe_capacity(b, cfg.moe)} an expert): mean "
+        f"{sum(share) / len(share):.4f}, max {max(share):.4f}, "
+        f"{[round(x, 3) for x in share]}")
+
+
+def family_serve(torch, arch: str, spec: dict, card: str) -> dict:
+    """Phase 12 (2) and (3): the full-depth bf16 model (decode_32k's
+    cell, its batch cut to spec["decode_batch"]) serves LM_PROMPTS
+    greedy requests held to a prefill of the extended sequences (an MoE
+    arch at a capacity factor of E / k, nothing dropped), then the
+    decode cell itself: KV from the generator, FAMILY_DECODE_STEPS timed
+    steps, a profile, the MoE drop share at the published capacity
+    factor.  An arch that runs long_500k (gemma3) then runs it at batch
+    1.  Returns the launch counts of each path."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_cell
+    counts = {}
+    t0 = time.perf_counter()
+    cell = build_cell(arch, "decode_32k", device="cuda",
+                      batch=spec["decode_batch"])
+    torch.cuda.synchronize()
+    params, cfg = cell.args[0], cell.meta["cfg"]
+    w_bytes = tree_bytes(params)
+    kv_bytes = tree_bytes(cell.args[1])
+    say(f"{arch}: {cfg.n_layers} layers, {cfg.param_count() / 1e9:.3f} B "
+        f"params ({cfg.active_param_count() / 1e9:.3f} B active), "
+        f"{w_bytes / 1e9:.2f} GB bf16 weights and a {kv_bytes / 1e9:.2f} GB "
+        f"decode_32k cache (batch {cell.meta['batch']}; cuts "
+        f"{cell.meta.get('reduced')}) made on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    reset_counts()
+    with DropCount() as drops:
+        served = lm_serve_requests(torch, params, no_drops(cfg), gen, card,
+                                   spec["prompt"], spec["cache"],
+                                   spec["rel_l2"], arch, p_bf16=False)
+    # the served run's count (the controls' re-runs launch more)
+    counts[f"{arch}_serve"] = dict(paths_now(), flash_decode=served)
+    if cfg.moe is not None:
+        dropped = sum(d for d, _ in drops.per_call())
+        if dropped:
+            raise AssertionError(f"{arch} serve: {dropped} MoE choices "
+                                 f"dropped at capacity factor E / k")
+    free(torch)
+    # the timed steps' count (lm_decode_32k zeroes it before them; its
+    # warm-up and profile launch more)
+    reset_counts()
+    timed = lm_decode_32k(torch, cell, gen, w_bytes, kv_bytes, card,
+                          steps=FAMILY_DECODE_STEPS)
+    counts[f"{arch}_decode_32k"] = dict(paths_now(), flash_decode=timed)
+    if cfg.moe is not None:
+        family_decode_drops(torch, cell)
+    del cell, params
+    free(torch)
+    if "long_500k" not in get_arch(arch).SKIP_SHAPES:
+        t0 = time.perf_counter()
+        cell = build_cell(arch, "long_500k", device="cuda")
+        torch.cuda.synchronize()
+        say(f"{arch} long_500k: batch {cell.meta['batch']}, "
+            f"{tree_bytes(cell.args[1]) / 1e9:.2f} GB of caches (global "
+            f"layers {cell.meta['seq_len']} slots, local "
+            f"{cfg.sliding_window}), made in {time.perf_counter() - t0:.1f} s")
+        reset_counts()
+        timed = lm_decode_32k(torch, cell, gen, tree_bytes(cell.args[0]),
+                              tree_bytes(cell.args[1]), card,
+                              steps=FAMILY_DECODE_STEPS)
+        counts[f"{arch}_long_500k"] = dict(paths_now(), flash_decode=timed)
+        del cell
+        free(torch)
+    return counts
+
+
+def family_train(torch, arch: str, spec: dict, card: str) -> dict:
+    """Phase 12 (4): train_4k through the train cell at
+    ``lm_train_layers``'s depth (whole cycles) and batch 1 x 4,096: a
+    warm-up step and FAMILY_TRAIN_STEPS counted ones, losses finite,
+    median step, peak memory, a profile.  Returns the counted steps'
+    launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_cell, lm_train_layers
+    free_bytes = torch.cuda.mem_get_info()[0]
+    layers = lm_train_layers(get_arch(arch).CONFIG, free_bytes,
+                             spec["train_reserve"])
+    t0 = time.perf_counter()
+    cell = build_cell(arch, "train_4k", device="cuda", batch=LM_TRAIN_BATCH,
+                      layers=layers)
+    torch.cuda.synchronize()
+    cfg, state = cell.meta["cfg"], cell.args[0]
+    n_params = cfg.param_count()
+    say(f"{arch} train_4k: cuts {cell.meta['reduced']} (depth: "
+        f"{free_bytes / 1e9:.2f} GB free, 16 B a parameter, "
+        f"{spec['train_reserve'] / 2 ** 30:.0f} GiB kept for activations); "
+        f"{n_params / 1e9:.3f} B params, f32 state "
+        f"{16 * n_params / 1e9:.2f} GB with the gradients; made in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB resident")
+    batches = [cell.batch_at(i) for i in range(FAMILY_TRAIN_STEPS + 1)]
+    warm_ms, warm_loss = timed_steps(
+        torch, lambda i, b: cell.fn(state, *b)[1]["loss"], batches[:1])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ms, losses = timed_steps(
+        torch, lambda i, b: cell.fn(state, *b)[1]["loss"], batches[1:])
+    counts = paths_now()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(x == x and abs(x) < float("inf")
+               for x in warm_loss + losses):
+        raise AssertionError(f"{arch} train losses not finite: {losses}")
+    tokens = LM_TRAIN_BATCH * cell.meta["seq_len"]
+    say(f"{arch} train_4k: {FAMILY_TRAIN_STEPS} steps after a warm-up "
+        f"({warm_ms[0]:.1f} ms), losses "
+        f"{[round(x, 5) for x in warm_loss + losses]}, median step "
+        f"{median(ms):.1f} ms (CUDA events; {[round(x, 1) for x in ms]}), "
+        f"{tokens / (median(ms) / 1e3):.0f} tokens/s, model "
+        f"{cell.model_flops / (median(ms) / 1e3) / 1e12:.1f} TFLOP/s, peak "
+        f"device memory {peak / 1e9:.2f} GB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f}, "
+        f"on {card}")
+    nxt = cell.batch_at(FAMILY_TRAIN_STEPS + 1)
+    profile_device(torch, lambda: cell.fn(state, *nxt), 1,
+                   f"{arch} train_4k steps", card, top=12)
+    del cell, state, batches, nxt
+    free(torch)
+    return counts
+
+
+def drive_family(torch, card: str) -> dict:
+    """Phase 12: the rest of the LM family, an arch at a time, each path
+    freeing its memory before the next.  Returns the launch counts of
+    each served and trained path."""
+    paths = {}
+    t_phase = time.perf_counter()
+    for arch, spec in FAMILY.items():
+        took = [time.perf_counter()]
+        family_f32_logic(torch, arch, spec)
+        free(torch)
+        took.append(time.perf_counter())
+        paths.update(family_serve(torch, arch, spec, card))
+        took.append(time.perf_counter())
+        if arch in FAMILY_GRAD_CHECK:
+            lm_train_logic(torch, arch, spec["logic_layers"])
+            free(torch)
+        took.append(time.perf_counter())
+        paths[f"{arch}_train"] = family_train(torch, arch, spec, card)
+        took.append(time.perf_counter())
+        parts = [b - a for a, b in zip(took, took[1:])]
+        say(f"{arch} took {took[-1] - took[0]:.1f} s (f32 logic "
+            f"{parts[0]:.1f}, serve and decode {parts[1]:.1f}, gradient "
+            f"check {parts[2]:.1f}, train {parts[3]:.1f})")
+    say(f"phase 12 (the rest of the LM family) took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -2654,6 +3202,7 @@ def main() -> int:
     check_relax_synthetic(np, torch, 45, 998, 301, 5)
     rows["flash_decode"] = check_flash_decode(torch, card)
     free(torch)
+    rows["flash_decode"]["shapes"] = check_flash_decode_family(torch, card)
     rows["embedding_bag"] = check_bag_sum(torch, card)
     free(torch)
 
@@ -2704,6 +3253,9 @@ def main() -> int:
     for name, n in drive_gnn(np, torch, card).items():
         paths[name]["gnn_train"] = n
     say(f"GNN phase took {time.perf_counter() - t0:.1f} s")
+    for path, counts in drive_family(torch, card).items():
+        for name, n in counts.items():
+            paths[name][path] = n
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
         raise AssertionError("the smoke imported jax or the JAX package")
@@ -2723,7 +3275,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
             "shape": r["shape"], "plan": r.get("plan"),
-            "parts": r.get("parts")})
+            "parts": r.get("parts"), "shapes": r.get("shapes")})
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

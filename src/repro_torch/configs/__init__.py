@@ -1,13 +1,11 @@
-"""Architecture registry of the port: one module per arch it runs so far
-(the JAX package's configs, verbatim).  Each module exposes
+"""Architecture registry of the port: one module per arch of the JAX
+package's registry, in its order (its configs, verbatim).  Each module
+exposes
 
 * ``FAMILY``        — "lm" | "gnn" | "recsys"
 * ``CONFIG``        — the full-size config
 * ``smoke_config()``— reduced same-family config for CPU tests
 * ``SKIP_SHAPES``   — shape names this arch cannot run (with the reason)
-
-The other LM archs come with the modules they need (``ROADMAP.md``
-queue 1).
 """
 from __future__ import annotations
 
@@ -15,13 +13,18 @@ import importlib
 from typing import List
 
 ARCH_IDS: List[str] = [
-    "glm4-9b",
+    "glm4-9b", "command-r-35b", "gemma3-12b", "granite-moe-1b-a400m",
+    "qwen3-moe-30b-a3b",
     "schnet", "gin-tu", "equiformer-v2", "gcn-cora",
     "dlrm-rm2",
 ]
 
 _MODULES = {
     "glm4-9b": "glm4_9b",
+    "command-r-35b": "command_r_35b",
+    "gemma3-12b": "gemma3_12b",
+    "granite-moe-1b-a400m": "granite_moe_1b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b",
     "schnet": "schnet_cfg",
     "gin-tu": "gin_tu",
     "equiformer-v2": "equiformer_v2_cfg",

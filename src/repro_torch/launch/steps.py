@@ -68,10 +68,17 @@ class Cell:
 
 def _lm_flops(cfg: tf.TransformerConfig, kind: str, batch: int,
               seq: int) -> float:
-    """Analytic model FLOPs of one step (the JAX builder's formula for
-    dense full-attention archs)."""
+    """Analytic model FLOPs of one step (the JAX builder's formula: the
+    active parameters, and an attention context of S/2 a token, ~W on a
+    local layer)."""
     n_act = cfg.active_param_count()
-    attn = 4 * cfg.n_heads * cfg.hd * seq / 2  # qk + av per token per layer
+    windowed = cfg.sliding_window and cfg.local_global_period > 1
+    period = cfg.local_global_period
+    ctx = seq / 2
+    if windowed:
+        ctx = ((period - 1) / period * min(cfg.sliding_window, seq)
+               + (1 / period) * ctx)
+    attn = 4 * cfg.n_heads * cfg.hd * ctx  # qk + av per token per layer
     if kind == "train":
         toks = batch * seq
         return 6.0 * n_act * toks + 3 * cfg.n_layers * attn * toks
@@ -79,7 +86,12 @@ def _lm_flops(cfg: tf.TransformerConfig, kind: str, batch: int,
         toks = batch * seq
         return 2.0 * n_act * toks + cfg.n_layers * attn * toks
     # decode: one token per sequence; attention reads the full cache
-    per_tok_attn = 4 * cfg.n_heads * cfg.hd * seq * cfg.n_layers
+    per_tok_attn = 4 * cfg.n_heads * cfg.hd * seq
+    if windowed:
+        per_tok_attn = ((period - 1) / period * 4 * cfg.n_heads * cfg.hd
+                        * min(cfg.sliding_window, seq)
+                        + (1 / period) * 4 * cfg.n_heads * cfg.hd * seq)
+    per_tok_attn *= cfg.n_layers
     return batch * (2.0 * n_act + per_tok_attn)
 
 
@@ -130,8 +142,9 @@ def _lm_train_step(cfg: tf.TransformerConfig):
 
 def lm_train_layers(cfg: tf.TransformerConfig, device_bytes: int,
                     reserve_bytes: int) -> int:
-    """The most layers (at most ``cfg.n_layers``, at least 1) whose f32
-    parameters, gradients and AdamW m and v (16 bytes a parameter) fit in
+    """The most layers (at most ``cfg.n_layers``, at least one cycle of
+    ``local_global_period``, always whole cycles) whose f32 parameters,
+    gradients and AdamW m and v (16 bytes a parameter) fit in
     ``device_bytes`` beside the embedding and head's and
     ``reserve_bytes`` of activations."""
     one = dataclasses.replace(cfg, n_layers=1, local_global_period=1)
@@ -139,7 +152,9 @@ def lm_train_layers(cfg: tf.TransformerConfig, device_bytes: int,
         one, n_layers=0).param_count()
     fixed = cfg.param_count() - cfg.n_layers * per_layer
     room = device_bytes - reserve_bytes - 16 * fixed
-    return max(1, min(cfg.n_layers, room // (16 * per_layer)))
+    period = cfg.local_global_period
+    n = min(cfg.n_layers, room // (16 * per_layer))
+    return max(period, n - n % period)
 
 
 def _build_lm_train_cell(arch_id, shape_name, cfg, smoke, device, meta):
@@ -172,6 +187,10 @@ def _build_lm_cell(arch_id, shape_name, mod, smoke, device, batch,
     s = sp["seq_len"]
     reduced = {}
     if layers is not None and layers != cfg.n_layers:
+        if layers < 1 or layers % cfg.local_global_period:
+            raise ValueError(
+                f"{arch_id}: layers={layers} is not a positive multiple of "
+                f"its {cfg.local_global_period}-layer cycle")
         reduced["n_layers"] = [cfg.n_layers, layers]
         cfg = dataclasses.replace(cfg, n_layers=layers)
     if b != sp["global_batch"]:

@@ -1,5 +1,7 @@
-"""Training entry point of the port: glm4-9b, dlrm-rm2 or a GNN (gcn-cora,
-gin-tu, schnet, equiformer-v2) on one card, checkpointed and resumable.
+"""Training entry point of the port: any arch of the registry (the LMs
+glm4-9b, command-r-35b, gemma3-12b, granite-moe-1b-a400m and
+qwen3-moe-30b-a3b; dlrm-rm2; the GNNs gcn-cora, gin-tu, schnet and
+equiformer-v2) on one card, checkpointed and resumable.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rm2 \\
         --smoke --steps 3 --device cpu
@@ -11,12 +13,12 @@ checkpoint.  Step ``i`` trains on batch ``i`` of the arch's data stream
 (``cell.batch_at``), a pure function of (seed, step), so a resumed run
 sees the batches an uninterrupted one would.  ``--smoke`` trains the
 reduced config; without it the full config at the assigned shape
-(dlrm-rm2 and every GNN cell fit one card; glm4-9b's 40 layers with f32
-AdamW state, 16 bytes a parameter, do not: ``build_cell(..., layers=,
-batch=)`` cuts them, as ``chip_smoke.py`` does).  For a GNN the default
-shape ``train_4k`` means ``full_graph_sm``, as in the JAX module.  It
-runs on the card unless ``--device cpu``.  The other archs of the JAX
-package wait for their modules (``ROADMAP.md`` queue 1).
+(dlrm-rm2, every GNN cell and granite-moe fit one card; the other LMs'
+full depth with f32 AdamW state, 16 bytes a parameter, does not:
+``build_cell(..., layers=, batch=)`` cuts them, as ``chip_smoke.py``
+does).  For a GNN the default shape ``train_4k`` means
+``full_graph_sm``, as in the JAX module.  It runs on the card unless
+``--device cpu``.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from .steps import build_cell
 
 def build_arg_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
     ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--smoke", action="store_true")
@@ -49,10 +51,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> dict:
     """Train; returns the last step and its metrics as floats."""
     args = build_arg_parser().parse_args(argv)
-    if args.arch not in ARCH_IDS:
-        raise NotImplementedError(
-            f"the port trains {ARCH_IDS}; {args.arch!r} waits for its "
-            "modules (ROADMAP.md queue 1)")
     device = resolve_device(args.device)
     mod = get_arch(args.arch)
     shape = args.shape

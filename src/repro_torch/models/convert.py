@@ -35,7 +35,9 @@ def transformer_params_from_numpy(tree: Dict[str, Any],
                                   ) -> Dict[str, Any]:
     """``{"embed", "ln_f", optional "head", "layers": [per cycle position
     {name: [n_cycles, ...]}]}`` -> the port's parameters on ``device``
-    (default ``cuda``) in ``dtype`` (default ``cfg.param_dtype``)."""
+    (default ``cuda``) in ``dtype`` (default ``cfg.param_dtype``).  The
+    layer keys are the config's: an MoE layer's ``router`` and expert
+    stacks ``wg``/``wu``/``wd`` in place of the dense MLP's."""
     device = resolve_device(device)
     dt = cfg.param_dtype if dtype is None else dtype
     if len(tree["layers"]) != cfg.local_global_period:
@@ -45,8 +47,8 @@ def transformer_params_from_numpy(tree: Dict[str, Any],
     layers = []
     for pos in tree["layers"]:
         if set(pos) != set(shapes):
-            raise ValueError(f"layer keys {sorted(pos)} are not the dense "
-                             f"layer's {sorted(shapes)}")
+            raise ValueError(f"layer keys {sorted(pos)} are not the "
+                             f"config's {sorted(shapes)}")
         stack = {}
         for name, a in pos.items():
             stack[name] = _tensor(a, device, dt)

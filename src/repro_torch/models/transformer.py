@@ -1,8 +1,13 @@
 """Decoder-only LM of the port: parameters, the training forward and
 loss, prefill and decode (serving).
 
-The JAX package's ``models/transformer.py`` for the dense GQA archs
-(glm4-9b), on one device.  Parameters keep its pytree layout: ``embed``
+The JAX package's ``models/transformer.py`` on one device, for all five
+LM archs of its registry: dense GQA (glm4-9b, command-r-35b), gemma3's
+5:1 local:global sliding window (``sliding_window`` with
+``local_global_period=6``; local layers keep rolling caches of
+``window`` slots) and top-k MoE (granite-moe, qwen3-moe:
+``moe=MoEConfig(...)``, whose aux loss ``forward`` returns).
+Parameters keep its pytree layout: ``embed``
 [V, D], ``ln_f`` [D], optional ``head`` [D, V], and ``layers``, a list
 per cycle position of dicts of ``[n_cycles, ...]`` stacks, so
 ``models/convert.py`` carries JAX weights across unchanged.  Both
@@ -16,8 +21,8 @@ Decode attention runs the hand-written ``flash_decode`` kernel (through
 (:func:`forward`, :func:`loss_fn`) follows the JAX functions: each cycle
 of layers is recomputed in the backward pass when ``cfg.remat`` is set
 (``torch.utils.checkpoint``, as the JAX scan body is ``jax.checkpoint``'d),
-and so is each chunk of the cross-entropy.  MoE, sliding-window layers
-and the ``block_outs`` remat policy come later (``ROADMAP.md`` queue 1).
+and so is each chunk of the cross-entropy.  The ``block_outs`` remat
+policy and ``attn_opt`` come later (``ROADMAP.md`` queue 1).
 """
 from __future__ import annotations
 
@@ -29,8 +34,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .common import dense_init
-from .layers import (attention_causal, attention_decode, rms_norm,
-                     rope_cos_sin, rotate, swiglu)
+from .layers import (MoEConfig, attention_causal, attention_decode,
+                     attention_window, moe_block, rms_norm, rope_cos_sin,
+                     rotate, swiglu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,13 +50,16 @@ class TransformerConfig:
     vocab: int
     head_dim: Optional[int] = None          # defaults to d_model // n_heads
     rope_theta: float = 1e4
-    local_global_period: int = 1            # layers stacked per cycle position
+    moe: Optional[MoEConfig] = None
+    sliding_window: Optional[int] = None    # window for *local* layers
+    local_global_period: int = 1            # 6 => 5 local + 1 global (gemma3)
     tie_embeddings: bool = True
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
     remat: bool = True                      # recompute each cycle in backward
     attn_chunk: int = 1024
     loss_chunk: int = 2048                  # tokens a cross-entropy chunk
+    subquadratic: bool = False              # True iff long-context decode ok
     # "none" saves only cycle boundaries; the JAX package's "block_outs"
     # (save each block's output) is not ported (ROADMAP.md queue 1).
     remat_policy: str = "none"
@@ -66,15 +75,30 @@ class TransformerConfig:
                              f"cycles of {self.local_global_period}")
         return self.n_layers // self.local_global_period
 
+    def layer_is_local(self, pos_in_cycle: int) -> bool:
+        """gemma3 pattern: positions 0..p-2 local, p-1 global."""
+        if self.sliding_window is None or self.local_global_period == 1:
+            return self.sliding_window is not None
+        return pos_in_cycle != self.local_global_period - 1
+
     def param_count(self) -> int:
         d, hd = self.d_model, self.hd
         attn = d * (self.n_heads * hd) * 2 + d * (self.n_kv_heads * hd) * 2
-        per_layer = attn + 3 * d * self.d_ff + 2 * d
+        if self.moe is None:
+            mlp = 3 * d * self.d_ff
+        else:
+            mlp = (self.moe.n_experts * 3 * d * self.moe.d_ff
+                   + d * self.moe.n_experts)
+        per_layer = attn + mlp + 2 * d
         emb = self.vocab * d * (1 if self.tie_embeddings else 2)
         return self.n_layers * per_layer + emb + d
 
     def active_param_count(self) -> int:
-        return self.param_count()
+        if self.moe is None:
+            return self.param_count()
+        d, m = self.d_model, self.moe
+        experts = self.n_layers * 3 * d * m.d_ff
+        return self.param_count() - experts * m.n_experts + experts * m.top_k
 
 
 # ---------------------------------------------------------------------------
@@ -83,18 +107,30 @@ class TransformerConfig:
 
 def _layer_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
     d, hd = cfg.d_model, cfg.hd
-    return {"ln1": (d,), "ln2": (d,),
-            "wq": (d, cfg.n_heads * hd), "wk": (d, cfg.n_kv_heads * hd),
-            "wv": (d, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, d),
-            "wg": (d, cfg.d_ff), "wu": (d, cfg.d_ff), "wd": (cfg.d_ff, d)}
+    shapes = {"ln1": (d,), "ln2": (d,),
+              "wq": (d, cfg.n_heads * hd), "wk": (d, cfg.n_kv_heads * hd),
+              "wv": (d, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, d)}
+    if cfg.moe is None:
+        shapes.update(wg=(d, cfg.d_ff), wu=(d, cfg.d_ff), wd=(cfg.d_ff, d))
+    else:
+        e, f = cfg.moe.n_experts, cfg.moe.d_ff
+        shapes.update(router=(d, e), wg=(e, d, f), wu=(e, d, f),
+                      wd=(e, f, d))
+    return shapes
+
+
+def _fan_in_axis(cfg: TransformerConfig, name: str) -> int:
+    """The expert stacks draw with fan-in on axis 1, as in JAX."""
+    return 1 if cfg.moe is not None and name in ("wg", "wu", "wd") else 0
 
 
 def init_params(cfg: TransformerConfig,
                 generator: Optional[torch.Generator] = None, device=None,
                 dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """Random parameters with the JAX ``init_params`` law (normal x
-    fan_in^-0.5 for matrices, zeros for the norm scales), drawn from
-    ``generator`` on ``device`` (default ``cuda``; the generator must
+    fan_in^-0.5 for matrices, the experts' fan-in on their axis 1, zeros
+    for the norm scales), drawn from ``generator`` on ``device``
+    (default ``cuda``; the generator must
     live there, default seed 0) and stored in ``dtype`` (default
     ``cfg.param_dtype``).  Each layer is drawn in f32 and cast into its
     slot of the stack, so the full model is made on the card without an
@@ -115,7 +151,9 @@ def init_params(cfg: TransformerConfig,
             stack[name] = torch.empty((cfg.n_cycles,) + shp, dtype=dt,
                                       device=device)
             for c in range(cfg.n_cycles):
-                stack[name][c] = dense_init(gen, shp, dtype=dt, device=device)
+                stack[name][c] = dense_init(gen, shp,
+                                            _fan_in_axis(cfg, name),
+                                            dtype=dt, device=device)
         per_pos.append(stack)
     params = {
         "embed": dense_init(gen, (cfg.vocab, cfg.d_model), dtype=dt,
@@ -138,20 +176,45 @@ def lm_head_weight(params, cfg: TransformerConfig) -> torch.Tensor:
 def make_cache(cfg: TransformerConfig, batch: int, seq_len: int,
                dtype: torch.dtype = torch.bfloat16, device=None
                ) -> List[Dict[str, torch.Tensor]]:
-    """Cache list: per cycle position, K and V of [n_cycles, B, S, Kh, hd],
-    zero-filled on ``device`` (default ``cuda``)."""
+    """Cache list: per cycle position, K and V of [n_cycles, B, S*, Kh,
+    hd], zero-filled on ``device`` (default ``cuda``).  S* is
+    ``seq_len``, or ``min(window, seq_len)`` for a local position's
+    rolling cache (what lets gemma3's long_500k fit)."""
     device = resolve_device(device)
-    shp = (cfg.n_cycles, batch, seq_len, cfg.n_kv_heads, cfg.hd)
-    return [{"k": torch.zeros(shp, dtype=dtype, device=device),
-             "v": torch.zeros(shp, dtype=dtype, device=device)}
-            for _ in range(cfg.local_global_period)]
+    caches = []
+    for pos in range(cfg.local_global_period):
+        s = (min(cfg.sliding_window, seq_len) if cfg.layer_is_local(pos)
+             else seq_len)
+        shp = (cfg.n_cycles, batch, s, cfg.n_kv_heads, cfg.hd)
+        caches.append({"k": torch.zeros(shp, dtype=dtype, device=device),
+                       "v": torch.zeros(shp, dtype=dtype, device=device)})
+    return caches
 
 
 # ---------------------------------------------------------------------------
 # Training: forward + chunked loss
 # ---------------------------------------------------------------------------
 
-def _attn_train(x, lp, cfg: TransformerConfig, positions, cos, sin):
+def _attend(q, k, v, cfg: TransformerConfig, local: bool, positions):
+    """Prefill and training attention: the window schedule on a local
+    layer, the causal one elsewhere."""
+    if local:
+        return attention_window(q, k, v, cfg.sliding_window,
+                                q_positions=positions)
+    return attention_causal(q, k, v, chunk=cfg.attn_chunk,
+                            q_positions=positions, kv_positions=positions)
+
+
+def _mlp(h, lp, cfg: TransformerConfig):
+    """(the MLP's output, its aux loss or None): SwiGLU, or the MoE block
+    on ``h`` [B, S, D]."""
+    if cfg.moe is None:
+        return swiglu(h, lp["wg"], lp["wu"], lp["wd"]), None
+    return moe_block(h, lp["router"], lp["wg"], lp["wu"], lp["wd"], cfg.moe)
+
+
+def _attn_train(x, lp, cfg: TransformerConfig, local: bool, positions, cos,
+                sin):
     b, s, _ = x.shape
     hd = cfg.hd
     h = rms_norm(x, lp["ln1"])
@@ -160,30 +223,36 @@ def _attn_train(x, lp, cfg: TransformerConfig, positions, cos, sin):
     v = (h @ lp["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
     k = rotate(k, cos, sin)
     q = rotate(q, cos, sin)
-    o = attention_causal(q, k, v, chunk=cfg.attn_chunk,
-                         q_positions=positions, kv_positions=positions)
+    o = _attend(q, k, v, cfg, local, positions)
     return o.reshape(b, s, cfg.n_heads * hd) @ lp["wo"]
 
 
-def _cycle_train(x, cycle, cfg: TransformerConfig, positions, cos, sin):
+def _cycle_train(x, aux, cycle, cfg: TransformerConfig, positions, cos,
+                 sin):
     """One cycle of layers (``cycle``: a dict of one layer's parameters a
     position), each cast to ``compute_dtype`` here so that a recomputed
-    cycle keeps no cast copy alive."""
+    cycle keeps no cast copy alive.  Returns (x, aux + each MoE layer's
+    aux, added in JAX's order)."""
     cd = cfg.compute_dtype
-    for layer in cycle:
+    for p_i, layer in enumerate(cycle):
         lp = {name: a.to(cd) for name, a in layer.items()}
-        x = x + _attn_train(x, lp, cfg, positions, cos, sin)
-        x = x + swiglu(rms_norm(x, lp["ln2"]), lp["wg"], lp["wu"], lp["wd"])
-    return x
+        x = x + _attn_train(x, lp, cfg, cfg.layer_is_local(p_i), positions,
+                            cos, sin)
+        dx, a = _mlp(rms_norm(x, lp["ln2"]), lp, cfg)
+        x = x + dx
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def forward(params, tokens: torch.Tensor, cfg: TransformerConfig,
             positions: Optional[torch.Tensor] = None):
     """tokens [B, S] -> (final hidden states [B, S, D] in
-    ``compute_dtype``, aux loss: a 0-d f32 zero, as for every dense
-    arch).  ``params["layers"]`` holds ``[n_cycles, ...]`` stacks, or
-    lists of per-cycle tensors (what the train step passes, so that each
-    cycle's gradient lands in its own slot of one buffer).
+    ``compute_dtype``, aux loss: 0-d f32, the sum of the MoE layers'
+    aux losses, zero for a dense arch).  ``params["layers"]`` holds
+    ``[n_cycles, ...]`` stacks, or lists of per-cycle tensors (what the
+    train step passes, so that each cycle's gradient lands in its own
+    slot of one buffer).
 
     Rounding follows the JAX forward: the whole embedding is cast to
     ``compute_dtype`` before the gather (its gradient is summed in that
@@ -200,16 +269,17 @@ def forward(params, tokens: torch.Tensor, cfg: TransformerConfig,
     scale = torch.sqrt(torch.tensor(float(cfg.d_model), dtype=cd)).item()
     x = params["embed"].to(cd)[tokens] * scale
     cos, sin = rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for c in range(cfg.n_cycles):
         cycle = [{name: a[c] for name, a in pos.items()}
                  for pos in params["layers"]]
         if cfg.remat:
-            x = checkpoint(_cycle_train, x, cycle, cfg, positions, cos, sin,
-                           use_reentrant=False)
+            x, aux = checkpoint(_cycle_train, x, aux, cycle, cfg, positions,
+                                cos, sin, use_reentrant=False)
         else:
-            x = _cycle_train(x, cycle, cfg, positions, cos, sin)
+            x, aux = _cycle_train(x, aux, cycle, cfg, positions, cos, sin)
     x = rms_norm(x, params["ln_f"].to(cd))
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def _chunk_loss(xc: torch.Tensor, yc: torch.Tensor, w: torch.Tensor
@@ -271,8 +341,10 @@ def decode_step(params, caches, tokens: torch.Tensor, cur_len: int,
                 cfg: TransformerConfig):
     """One decode step: tokens [B] int, cur_len int -> (logits [B, V] f32,
     caches).  The new token sits at position ``cur_len``; entries
-    [0, cur_len) are valid.  The caches are updated in place and
-    returned."""
+    [0, cur_len) are valid (a local layer's rolling cache holds the last
+    ``window`` of them).  The caches are updated in place and returned.
+    An MoE layer routes the step's B tokens as one batch (JAX's
+    ``h2[:, None, :]``, so its capacity is JAX's)."""
     b = tokens.shape[0]
     hd = cfg.hd
     x = _embed(params, tokens, cfg)                       # [B, D]
@@ -286,11 +358,13 @@ def decode_step(params, caches, tokens: torch.Tensor, cur_len: int,
         vn = (h @ lp["wv"]).reshape(b, cfg.n_kv_heads, hd)
         q = rotate(q[:, None], cos, sin)[:, 0]
         kn = rotate(kn[:, None], cos, sin)[:, 0]
+        window = cfg.sliding_window if cfg.layer_is_local(p_i) else None
         o, _, _ = attention_decode(q, caches[p_i]["k"][c],
-                                   caches[p_i]["v"][c], kn, vn, cur_len)
+                                   caches[p_i]["v"][c], kn, vn, cur_len,
+                                   window=window)
         x = x + (o.reshape(b, cfg.n_heads * hd) @ lp["wo"])
         h2 = rms_norm(x, lp["ln2"])
-        x = x + swiglu(h2, lp["wg"], lp["wu"], lp["wd"])
+        x = x + _mlp(h2[:, None, :], lp, cfg)[0][:, 0]
     cd = cfg.compute_dtype
     x = rms_norm(x, params["ln_f"].to(cd))
     logits = (x @ lm_head_weight(params, cfg).to(cd)).float()
@@ -299,7 +373,12 @@ def decode_step(params, caches, tokens: torch.Tensor, cur_len: int,
 
 def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig):
     """tokens [B, S] -> (last-position logits [B, V] f32, caches filled
-    [0, S) in ``compute_dtype``, laid out as :func:`make_cache`'s)."""
+    [0, S) in ``compute_dtype``, laid out as :func:`make_cache`'s; a
+    local layer keeps its last ``min(window, S)`` keys, at slots
+    ``0..w-1`` as JAX does.  Decode's slot ``cur % window`` continues
+    that ring only when S is at most the window or a multiple of it;
+    after another S, JAX's decode evicts a key still inside the window,
+    and the port, held to JAX, does the same."""
     b, s = tokens.shape
     hd = cfg.hd
     cd = cfg.compute_dtype
@@ -314,13 +393,13 @@ def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig):
         v = (h @ lp["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
         q = rotate(q, cos, sin)
         k = rotate(k, cos, sin)
-        o = attention_causal(q, k, v, chunk=cfg.attn_chunk,
-                             q_positions=positions, kv_positions=positions)
-        caches[p_i]["k"][c] = k
-        caches[p_i]["v"][c] = v
+        o = _attend(q, k, v, cfg, cfg.layer_is_local(p_i), positions)
+        w = caches[p_i]["k"].shape[2]
+        caches[p_i]["k"][c] = k[:, s - w:]
+        caches[p_i]["v"][c] = v[:, s - w:]
         x = x + (o.reshape(b, s, cfg.n_heads * hd) @ lp["wo"])
         h2 = rms_norm(x, lp["ln2"])
-        x = x + swiglu(h2, lp["wg"], lp["wu"], lp["wd"])
+        x = x + _mlp(h2, lp, cfg)[0]
     x = rms_norm(x[:, -1], params["ln_f"].to(cd))
     logits = (x @ lm_head_weight(params, cfg).to(cd)).float()
     return logits, caches

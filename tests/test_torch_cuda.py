@@ -715,3 +715,118 @@ def test_gnn_forward_backward_on_card(cuda_device, arch, shape, repl):
         assert got.device.type == "cuda", k
         torch.testing.assert_close(got.cpu(), w, rtol=1e-4,
                                    atol=1e-5 * w.abs().max().item(), msg=k)
+
+
+def _moe_inputs(gen, t, d, e, f, dtype):
+    x = torch.randn((1, t, d), generator=gen)
+    router = torch.randn((d, e), generator=gen) * d ** -0.5
+    wg, wu = (torch.randn((e, d, f), generator=gen) * d ** -0.5
+              for _ in range(2))
+    wd = torch.randn((e, f, d), generator=gen) * f ** -0.5
+    return [a.to(dtype) for a in (x, router, wg, wu, wd)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d,e,k,f,cf", [
+    (128, 64, 8, 2, 32, 1.25), (128, 64, 8, 2, 32, 0.5),
+    (32, 1024, 32, 8, 512, 1.25),            # granite-moe's decode_32k
+    (8, 2048, 128, 8, 768, 1.25)])           # qwen3-moe's decode_32k
+def test_moe_block_on_card(cuda_device, t, d, e, k, f, cf):
+    """The MoE block on the card against the CPU: the same routing and
+    drops, f32 within atol 1e-5 of the largest output; in bf16 two runs
+    bit-equal (the combine adds in a fixed order, no atomics) and no
+    host sync (``set_sync_debug_mode("error")``)."""
+    from repro_torch.models import layers as tl
+    cfg = tl.MoEConfig(e, k, f, capacity_factor=cf)
+    gen = torch.Generator().manual_seed(t + e)
+    cpu = _moe_inputs(gen, t, d, e, f, torch.float32)
+    on = [a.to(cuda_device) for a in cpu]
+    want, want_aux = tl.moe_block(*cpu, cfg)
+    got, aux = tl.moe_block(*on, cfg)
+    r_cpu = tl.moe_route(cpu[0][0], cpu[1], cfg)
+    r_card = tl.moe_route(on[0][0], on[1], cfg)
+    for name in ("expert", "slot", "keep"):
+        assert torch.equal(getattr(r_card, name).cpu(),
+                           getattr(r_cpu, name)), name
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-6, atol=0)
+    bf = [a.to(torch.bfloat16) for a in on]
+    first, _ = tl.moe_block(*bf, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second, _ = tl.moe_block(*bf, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cur_len", [5, 1023, 1024, 1500, 524287])
+def test_rolling_decode_dh256_on_card(cuda_device, cur_len):
+    """gemma3's local layer at its published head layout (16 heads, 8 KV
+    heads, dh 256: the SIMT form) over a 1024-slot rolling cache: the
+    new K/V at slot cur_len % 1024, flash_decode over the valid slots,
+    against its plain version within atol 1e-4."""
+    from repro_torch.models import layers as tl
+    w = 1024
+    gen = torch.Generator(device=cuda_device).manual_seed(cur_len)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda_device,
+                           dtype=torch.bfloat16)
+    q, kc, vc, kn, vn = (rand(2, 16, 256), rand(2, w, 8, 256),
+                         rand(2, w, 8, 256), rand(2, 8, 256),
+                         rand(2, 8, 256))
+    before = flash_decode.launches
+    out, k2, v2 = tl.attention_decode(q, kc, vc, kn, vn, cur_len, window=w)
+    assert flash_decode.launches == before + 1 and k2 is kc
+    assert torch.equal(kc[:, cur_len % w], kn)
+    want = flash_decode_ref(q, kc, vc, min(cur_len, w - 1) + 1)
+    torch.testing.assert_close(out.float(), want.to(torch.bfloat16).float(),
+                               atol=1e-2, rtol=1e-2)
+    raw = flash_decode(q, kc, vc, min(cur_len, w - 1) + 1)
+    np.testing.assert_allclose(raw.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "gemma3-12b"])
+def test_family_decode_step_on_card(cuda_device, arch):
+    """A decode step of the smoke config on the card equals the CPU's
+    within atol 1e-4 in f32, launches flash_decode once a layer, and
+    makes no host sync (after a first step that builds the kernel)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import map_tree
+    cfg = dataclasses.replace(get_arch(arch).smoke_config(),
+                              compute_dtype=torch.float32)
+    params = tf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    want, caches = tf.prefill(params, toks, cfg)
+    on = map_tree(lambda a: a.to(cuda_device), params)
+    got, card_caches = tf.prefill(on, toks.to(cuda_device), cfg)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+    nxt = want.argmax(-1)
+    full = tf.make_cache(cfg, 2, 48, dtype=torch.float32, device="cpu")
+    for f, part in zip(full, caches):
+        f["k"][:, :, :40] = part["k"]
+        f["v"][:, :, :40] = part["v"]
+    card_full = map_tree(lambda a: a.to(cuda_device), full)
+    card_nxt = nxt.to(cuda_device)
+    want, _ = tf.decode_step(params, full, nxt, 40, cfg)
+    tf.decode_step(on, map_tree(lambda a: a.clone(), card_full), card_nxt,
+                   40, cfg)
+    torch.cuda.synchronize()
+    before = flash_decode.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, _ = tf.decode_step(on, card_full, card_nxt, 40, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert flash_decode.launches == before + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)

@@ -379,7 +379,7 @@ def test_cells_refuse_what_they_do_not_have():
         tsteps.build_cell("dlrm-rm2", "serve_p99", smoke=True, device="cpu",
                           variant="opt")
     with pytest.raises(KeyError, match="unknown arch"):
-        tsteps.build_cell("qwen3-moe-30b-a3b", "train_4k", device="cpu")
+        tsteps.build_cell("llama-7b", "train_4k", device="cpu")
 
 
 def test_opt_layout_buckets_equiformer_chunks():

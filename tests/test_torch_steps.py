@@ -7,9 +7,15 @@ import dataclasses
 import pytest
 import torch
 
+from repro.configs import all_cells as jax_all_cells
 from repro.launch import steps as jax_steps
-from repro_torch.configs import glm4_9b
-from repro_torch.launch.steps import _dlrm_flops, _lm_flops, build_cell
+from repro_torch.configs import all_cells, get_arch, glm4_9b
+from repro_torch.launch.steps import (_dlrm_flops, _lm_flops, build_cell,
+                                      lm_train_layers)
+
+FAMILY = ("command-r-35b", "gemma3-12b", "granite-moe-1b-a400m",
+          "qwen3-moe-30b-a3b")
+FAMILY_CELLS = [(a, s) for a, s in all_cells()[0] if a in FAMILY]
 
 
 @pytest.mark.parametrize("arch,shape", [
@@ -58,7 +64,7 @@ def test_cells_refuse_what_they_do_not_serve():
     with pytest.raises(ValueError, match="full-attention"):
         build_cell("glm4-9b", "long_500k", smoke=True, device="cpu")
     with pytest.raises(KeyError, match="unknown arch"):
-        build_cell("gemma3-12b", "decode_32k", smoke=True, device="cpu")
+        build_cell("llama-7b", "decode_32k", smoke=True, device="cpu")
     with pytest.raises(ValueError, match="LM's depth"):
         build_cell("dlrm-rm2", "train_batch", smoke=True, device="cpu",
                    layers=2)
@@ -127,8 +133,8 @@ def test_train_cli_resumes(tmp_path, capsys):
                                "--ckpt-dir", str(tmp_path / "b")])
     assert second["step"] == whole["step"] == 4
     assert second["loss"] == whole["loss"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(["--arch", "gemma3-12b", "--device", "cpu"])
+    with pytest.raises(SystemExit):           # not an arch of the registry
+        train.main(["--arch", "llama-7b", "--device", "cpu"])
 
 
 def test_batch_cut_is_recorded():
@@ -138,3 +144,90 @@ def test_batch_cut_is_recorded():
     assert cell.run().shape == (3,)
     assert "reduced" not in build_cell("dlrm-rm2", "serve_p99", smoke=True,
                                        device="cpu").meta
+
+
+def test_registry_is_the_jax_registry():
+    """All ten archs in the JAX order, the same runnable and skipped
+    cells: every LM arch but gemma3 skips long_500k."""
+    from repro.configs import ARCH_IDS as JAX_IDS
+    from repro_torch.configs import ARCH_IDS
+    assert ARCH_IDS == JAX_IDS
+    run, skipped = all_cells()
+    jrun, jskipped = jax_all_cells()
+    assert run == jrun and skipped == jskipped
+    assert ("gemma3-12b", "long_500k") in run
+    assert sorted(a for a, s, _ in skipped if s == "long_500k") == sorted(
+        set(FAMILY + ("glm4-9b",)) - {"gemma3-12b"})
+
+
+@pytest.mark.parametrize("arch,shape", FAMILY_CELLS)
+def test_family_flops_match_the_jax_builder(arch, shape):
+    sp = jax_steps.SHAPE_PARAMS["lm"][shape]
+    assert _lm_flops(get_arch(arch).CONFIG, sp["kind"], sp["global_batch"],
+                     sp["seq_len"]) == jax_steps.model_flops_for(arch, shape)
+
+
+@pytest.mark.parametrize("arch,shape", FAMILY_CELLS)
+def test_family_smoke_cells_run_on_the_cpu(arch, shape):
+    """Every runnable cell of the four archs at smoke size: a train cell
+    takes two steps in place, a serving cell returns finite logits and
+    caches laid out as ``make_cache``'s (a local layer's rolling cache
+    of ``window`` slots, written at ``cur_len % window``)."""
+    cell = build_cell(arch, shape, smoke=True, device="cpu")
+    cfg = cell.meta["cfg"]
+    assert cell.model_flops > 0 and cell.meta["seq_len"] == (
+        128 if cell.kind == "decode" else 64)
+    if cell.kind == "train":
+        state = cell.args[0]
+        for step in range(2):
+            out, metrics = cell.run()
+            assert out is state and torch.isfinite(metrics["loss"])
+            assert metrics["gnorm"] > 0
+        return
+    logits, caches = cell.run()
+    assert logits.shape == (2, cfg.vocab) and torch.isfinite(logits).all()
+    want = [min(cfg.sliding_window, cell.meta["seq_len"])
+            if cfg.layer_is_local(p) else cell.meta["seq_len"]
+            for p in range(cfg.local_global_period)]
+    assert [c["k"].shape[2] for c in caches] == want
+    if cell.kind == "decode":
+        cur = cell.args[3]
+        assert cur == cell.meta["seq_len"] - 1
+        for c, n in zip(caches, want):
+            assert c["k"][:, :, cur % n].any()
+
+
+@pytest.mark.parametrize("arch", FAMILY + ("glm4-9b",))
+def test_long_500k_runs_only_where_the_jax_package_runs_it(arch):
+    if arch == "gemma3-12b":
+        cell = build_cell(arch, "long_500k", smoke=True, device="cpu")
+        assert cell.kind == "decode" and cell.args[2].shape == (2,)
+        assert torch.isfinite(cell.run()[0]).all()
+        return
+    with pytest.raises(ValueError, match="full-attention"):
+        build_cell(arch, "long_500k", smoke=True, device="cpu")
+
+
+def test_depth_cuts_keep_whole_cycles():
+    """gemma3's 6-layer cycle: ``lm_train_layers`` gives whole cycles
+    (at least one), and ``build_cell(layers=)`` refuses a cut that is
+    not a multiple of the cycle."""
+    cfg = get_arch("gemma3-12b").CONFIG
+    per_layer = (cfg.param_count() - dataclasses.replace(
+        cfg, n_layers=0, local_global_period=1).param_count()) // cfg.n_layers
+    fixed = cfg.param_count() - cfg.n_layers * per_layer
+    for n, want in ((15, 12), (12, 12), (5, 6), (1, 6), (48, 48)):
+        budget = 16 * (fixed + n * per_layer) + 2 ** 30
+        assert lm_train_layers(cfg, budget, 2 ** 30) == want
+    assert lm_train_layers(cfg, 10 ** 15, 0) == 48
+    smoke = get_arch("gemma3-12b").smoke_config()          # 3-layer cycle
+    for bad in (1, 4, 0):
+        with pytest.raises(ValueError, match="cycle"):
+            build_cell("gemma3-12b", "train_4k", smoke=True, device="cpu",
+                       layers=bad)
+    cell = build_cell("gemma3-12b", "train_4k", smoke=True, device="cpu",
+                      layers=3, batch=1)
+    assert cell.meta["reduced"] == {"n_layers": [smoke.n_layers, 3],
+                                    "batch": [2, 1]}
+    assert cell.meta["cfg"].n_cycles == 1
+    assert torch.isfinite(cell.run()[1]["loss"])
