@@ -15,22 +15,24 @@ never JAX or the JAX package.  Phases, each of which asserts:
    kernel's, the plain version's and (where one PyTorch call computes
    the same function) the library call's times (CUDA events), ptxas'
    registers and spills of every kernel (none may spill in the two
-   redesigned split passes nor in the sweep kernel).  The HoD kernels
-   and ``bag_sum`` must be bit-equal (``torch.equal``: fp32 adds and
-   mins, or sums in the plain version's order); ``flash_decode`` within
-   atol 1e-4 of its f32 output.  The split kernels' edge cases run at
-   full width too (M 1 and 33, K below a tile and below the split
-   count, ragged K with a short last chunk, a strided and offset ``a``,
-   all-+inf rows and columns; kv_len 1 and mid-tile, short last splits,
-   f32 and bf16 q).  ``edge_relax`` runs on the served index's real
+   redesigned split passes, the dh-256 one among them, nor in the sweep
+   kernel).  The HoD kernels and ``bag_sum`` must be bit-equal
+   (``torch.equal``: fp32 adds and mins, or sums in the plain version's
+   order); ``flash_decode`` within atol 1e-4 of its f32 output.  The
+   split kernels' edge cases run at full width too (M 1 and 33, K below
+   a tile and below the split count, ragged K with a short last chunk, a
+   strided and offset ``a``, all-+inf rows and columns; kv_len 1 and
+   mid-tile, short last splits, f32 and bf16 q, at glm4's dh 128 and at
+   gemma3's dh 256).  ``edge_relax`` runs on the served index's real
    levels (built first, as in phase 4): each whole sweep in one launch
    and the widest forward level alone, timed at S = 32 and checked at
    S = 1, 7, 32, 33, 64 and 128, plus two synthetic levels with split
    and masked rows.  ``flash_decode`` also at phase 12's per-layer
    shapes (FD_FAMILY: the dh-64 tensor-core form at G 2 and 8, dh 128
-   at G 8, gemma3's dh 256 in the SIMT form at 32,768 and 524,288
-   positions and on a rolling 1,024-slot cache), each within atol 1e-4
-   of its plain version, timed beside SDPA and its byte bound;
+   at G 8, gemma3's dh 256 (the tensor-core form, one KV head a block)
+   at 32,768 and 524,288 positions and on a rolling 1,024-slot cache),
+   each within atol 1e-4 of its plain version, timed beside SDPA and its
+   byte bound;
 4. the HoD slice at full size: the road-network stand-in (grid side 200,
    40,000 nodes), the serve CLI's build config with the closure limit
    raised so the 15,722-node core is closed on the card, and a
@@ -242,9 +244,9 @@ LM_REL_L2, LM_F32_ATOL = 2.5e-2, 1e-4
 FD_B, FD_H, FD_KH, FD_DH, FD_S = 32, 32, 2, 128, 32768
 # ... and phase 12's per-layer shapes (what, B, H, Kh, dh, S, kv_len):
 # the dh-64 tensor-core form at G 2 and G 8, dh 128 at G 8, gemma3's dh
-# 256 (the SIMT form) on a global layer at 32,768 and 524,288 positions
-# and on a local layer's rolling 1,024-slot cache, full and before it
-# wraps.
+# 256 (the tensor-core form, one KV head a block) on a global layer at
+# 32,768 and 524,288 positions and on a local layer's rolling 1,024-slot
+# cache, full and before it wraps.
 FD_FAMILY = (
     ("granite-moe decode_32k", 32, 16, 8, 64, 32768, 32761),
     ("qwen3-moe decode_32k", 8, 32, 4, 64, 32768, 32761),
@@ -1621,21 +1623,51 @@ def check_flash_decode(torch, card: str) -> dict:
         err = max(err, e)
     # the ring's edges at full width: f32 q (three q terms), kv_len 1,
     # a kv_len that ends mid-tile and mid-ring, and forced split counts
-    # whose last split is short (512 tiles in 3 or 5 splits)
+    # whose last split is short (512 tiles in 3 or 5 splits); at glm4's
+    # dh 128 (two KV heads a block) and gemma3's dh 256 (one, with twin
+    # warps), on each one's decode_32k global layer
     from repro_torch.kernels.flash_decode import ops as fd_ops
-    edges = ((q.float(), kv_main, None), (q, 1, None),
-             (q.float(), 1, None), (q, 64 * 300 + 17, None),
-             (q, kv_main, 3), (q.float(), kv_main, 5))
-    for qe, kv_len, n_split in edges:
-        got = (flash_decode(qe, k, v, kv_len) if n_split is None
-               else fd_ops._launch(qe, k, v, kv_len, n_split=n_split))
-        e = (got - flash_decode_ref(qe, k, v, kv_len)).abs().max().item()
-        if not e <= 1e-4:
-            raise AssertionError(f"flash_decode {qe.dtype} q kv_len={kv_len} "
-                                 f"n_split={n_split}: max error {e} > 1e-4")
-        err = max(err, e)
-    say("flash_decode edge cases at full width (f32 and bf16 q; kv_len 1, "
-        "19217 mid-tile, 32761 in 3 and 5 splits): within atol 1e-4")
+
+    def edge_cases(q, k, v):
+        worst = 0.0
+        for qe, kv_len, n_split in (
+                (q.float(), kv_main, None), (q, 1, None),
+                (q.float(), 1, None), (q, 64 * 300 + 17, None),
+                (q, kv_main, 3), (q.float(), kv_main, 5)):
+            got = (flash_decode(qe, k, v, kv_len) if n_split is None
+                   else fd_ops._launch(qe, k, v, kv_len, n_split=n_split))
+            e = (got - flash_decode_ref(qe, k, v, kv_len)).abs().max().item()
+            if not e <= 1e-4:
+                raise AssertionError(
+                    f"flash_decode q {list(qe.shape)} {qe.dtype} caches "
+                    f"{list(k.shape)} kv_len={kv_len} n_split={n_split}: "
+                    f"max error {e} > 1e-4")
+            worst = max(worst, e)
+        return worst
+
+    err = max(err, edge_cases(q, k, v))
+    _, b3, h3, kh3, dh3, s3, _ = next(
+        r for r in FD_FAMILY if r[0] == "gemma3 decode_32k global")
+    q3 = torch.randn((b3, h3, dh3), generator=gen, device="cuda", dtype=bf16)
+    k3 = torch.randn((b3, s3, kh3, dh3), generator=gen, device="cuda",
+                     dtype=bf16)
+    v3 = torch.randn((b3, s3, kh3, dh3), generator=gen, device="cuda",
+                     dtype=bf16)
+    ring3 = []
+    for qd in (q3, q3.float()):
+        _, per_sm, smem, stages, form, _ = fd_ops.device_config(qd, k3)
+        if form != dh3:
+            raise AssertionError(f"flash_decode at gemma3's dh {dh3} with "
+                                 f"{qd.dtype} q took the form "
+                                 f"{form or 'SIMT'}, not the tensor cores")
+        ring3.append(f"{qd.dtype} q {stages} stages, {smem} B, {per_sm} "
+                     f"block an SM")
+    err3 = edge_cases(q3, k3, v3)
+    del q3, k3, v3
+    say(f"flash_decode edge cases at full width (f32 and bf16 q; kv_len 1, "
+        f"19217 mid-tile, 32761 in 3 and 5 splits): within atol 1e-4, at "
+        f"dh 128 and at dh 256 (max |kernel - plain| {err3:.3e}; "
+        f"{'; '.join(ring3)})")
     # odd shapes: S not a tile multiple, kv_len 1; f32 caches take the
     # SIMT form, bf16 ones the tensor-core form, at dh 16 and 32 too with
     # one and two KV heads a block (TMA boxes of 16, 32 and 64 columns)
@@ -1701,7 +1733,9 @@ def check_flash_decode(torch, card: str) -> dict:
 def check_flash_decode_family(torch, card: str) -> list:
     """flash_decode at the per-layer shapes phase 12's decode cells give
     it (bf16 caches, bf16 q): each against its plain version within atol
-    1e-4, timed (CUDA events) beside SDPA (GQA) and its byte bound."""
+    1e-4, timed (CUDA events, queued behind a sleep kernel: a local
+    layer's call is shorter than its launch's host cost) beside SDPA
+    (GQA) and its byte bound."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
     from repro_torch.kernels.flash_decode import ops as fd_ops
@@ -1727,9 +1761,10 @@ def check_flash_decode_family(torch, card: str) -> list:
                "form": f"tensor cores, dh {form}" if form else "SIMT",
                "plan": (f"{n_split} splits of {split_len}, {heads} KV heads "
                         f"a block, {b * kh // heads * n_split} blocks on "
-                        f"{sms} x {per_sm}, {smem} B shared a block"),
+                        f"{sms} x {per_sm}, {stages} stages, {smem} B "
+                        f"shared a block"),
                "ms": time_ms(torch, lambda: flash_decode(q, k, v, kv_len),
-                             iters=iters)}
+                             iters=iters, queued=True)}
         row["bound_ms"], row["bound_by"] = bound(
             2.0 * b * kh * kv_len * dh * 2 + b * h * dh * 6,
             4.0 * b * h * kv_len * dh, BF16_TC_OPS_PER_S)
@@ -1738,7 +1773,7 @@ def check_flash_decode_family(torch, card: str) -> list:
         try:        # a yardstick only: a backend may refuse the shape
             row["library_ms"] = time_ms(
                 torch, lambda: F.scaled_dot_product_attention(
-                    qs, ks, vs, enable_gqa=True), iters=iters)
+                    qs, ks, vs, enable_gqa=True), iters=iters, queued=True)
         except RuntimeError as e:
             row["library_ms"] = None
             say(f"  SDPA refused {what}: {str(e).splitlines()[0][:120]}")

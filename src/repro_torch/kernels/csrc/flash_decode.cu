@@ -29,9 +29,9 @@
 // heads of one KV head are folded into the rows of its warps' products,
 // so each K/V row is read once per (b, kh), and S is split across blocks:
 // at decode_32k there are only B*Kh = 64 (b, kh) pairs for 132 SMs.  A
-// block takes HB KV heads of one batch row (HB = 2 when Kh is even, as
-// glm4's 2): a position's K (and V) record of both heads is 512
-// contiguous bytes, so a 64-position tile is one 32 KB run, not two
+// block takes HB KV heads of one batch row (HB = 2 when Kh is even and
+// dh <= 128, as glm4's 2): a position's K (and V) record of both heads is
+// 512 contiguous bytes, so a 64-position tile is one 32 KB run, not two
 // halves fetched by two blocks at two times.  The wrapper
 // (ops.py::plan_splits) cuts [0, n_valid) into splits of whole 64-position
 // tiles, as many as keep every block resident in one wave, all of one
@@ -45,11 +45,12 @@
 // meets p = 0.  All softmax arithmetic is f32 with expf (not __expf).
 // Pass 1 comes in two forms:
 //
-// * bf16 caches, G <= 16, dh in {16, 32, 64, 128} (the serving path at
-//   dh 128): tensor cores, warp-specialised.  One producer thread fills a ring of stages
-//   in shared memory, each one 64-position tile of K and of V for the
-//   block's heads, with TMA: a 3-d tensor map per cache (Kh*dh columns,
-//   n_valid positions, B rows; encoded on the host for each call, so
+// * bf16 caches, G <= 16, dh in {16, 32, 64, 128, 256} (the serving path
+//   at every arch's head size): tensor cores, warp-specialised.  One
+//   producer thread fills a ring of stages in shared memory, each one
+//   64-position tile of K and of V for the block's heads, with TMA: a
+//   3-d tensor map per cache (Kh*dh columns, n_valid positions, B rows;
+//   encoded on the host for each call, so
 //   positions >= n_valid lie outside it and are zero-filled, never read)
 //   cut in boxes of 64 positions x 64 columns (HB*dh columns when the
 //   block's heads span fewer: 16 or 32 at dh 16 and 32), swizzled over
@@ -77,13 +78,33 @@
 //   (one term when the caller's q was bf16).  Each warp keeps its own
 //   running max, sum and acc in registers; a head's four merge in shared
 //   memory at the end.
-// * otherwise (f32 caches, G > 16, other dh): SIMT f32.  The tile of K and
-//   V is staged in shared memory as f32, the G x 64 scores are dot products
-//   from shared memory (four heads a thread, K rows padded to dh+4 floats so
-//   the float4 reads are conflict-free), one warp per head updates the
-//   running max and sum, and the PV product accumulates into float4
-//   registers (G*dh/256 of them a thread).  It needs ~80% of the card's
-//   f32 FMA rate to keep up with memory at G=16, dh=128 and does not.
+//   At dh 256 (gemma3) a block takes one KV head, and a 64-position stage
+//   is the same 64 KB of TMA boxes as dh 128's two heads (4 boxes of 64
+//   columns each for K and for V, 128-byte swizzle).  The block fills an
+//   SM alone (launch bounds of one block, the whole 227 KB): 3 stages
+//   with a bf16 q (8,448 B of q rows) and with an f32 q's three terms
+//   (25,344 B).  Eight consumer warps: warps w and w + 4 take the same 16
+//   positions, both run Q K^T over all 256 columns (a cheap product, its
+//   max and sum come out alike in both), and each owns 128 of the output
+//   columns, so a thread holds 64 accumulators and 32 V fragment
+//   registers, as at dh 128.  q's fragments are read from shared memory
+//   at each step (in registers they would be 64 more a thread).  ptxas:
+//   168 registers, no spills.  Measured on an H100 80GB HBM3 at 700 W
+//   (chip_smoke.py, tools/time_flash_decode.py): a decode_32k global
+//   layer (q [16,16,256], caches [16,32768,8,256]) 1.357 ms against a
+//   1.282 ms byte bound and SDPA's 1.453 (the SIMT form: 11.34); a full
+//   1,024-slot rolling layer 0.058 ms against 0.040 (with 16 tiles a
+//   block, presumably the ring's fill and the combine).  This form was the
+//   first tried; a 32-position tile at two blocks an SM was not, as this
+//   one leaves at most 6% to the bound on the long layers.
+// * otherwise (f32 caches, G > 16, other dh such as 48 or 96): SIMT f32.
+//   The tile of K and V is staged in shared memory as f32, the G x 64
+//   scores are dot products from shared memory (four heads a thread, K
+//   rows padded to dh+4 floats so the float4 reads are conflict-free),
+//   one warp per head updates the running max and sum, and the PV
+//   product accumulates into float4 registers (G*dh/256 of them a
+//   thread).  It needs ~80% of the card's f32 FMA rate to keep up with
+//   memory at G=16, dh=128 and does not.
 //
 // The kernels allocate nothing (the wrapper passes the split scratch) and
 // launch on the caller's stream; the C entry point returns
@@ -296,20 +317,36 @@ decode_split_kernel(const void* __restrict__ q, int q_bf16, float q_scale,
 }
 
 // ---------------------------------------------------------------------------
-// Pass 1 on tensor cores (bf16 caches, G <= 16, dh in {16, 32, 64, 128}).
+// Pass 1 on tensor cores (bf16 caches, G <= 16, dh in {16, 32, 64, 128,
+// 256}).
 
-// A block takes HB KV heads of one batch row (HB = 2 when Kh is even):
-// 4 consumer warps a head, 16 positions of a tile each, and one producer
-// warp.  With HB = 2 a tile's K (or V) rows of both heads are one run of
-// 64 x 512 contiguous bytes.
-template <int HB>
-__host__ __device__ constexpr int tc_threads() { return (4 * HB + 1) * 32; }
+// A block takes HB KV heads of one batch row (HB = 2 when Kh is even and
+// dh <= 128): 4 position warps a head, 16 positions of a tile each, and
+// one producer warp.  With HB = 2 a tile's K (or V) rows of both heads
+// are one run of 64 x 512 contiguous bytes.  At dh 256 each position warp
+// has a twin (warps w and w + 4) that takes the same 16 positions: both
+// compute Q K^T over all 256 columns, each owns half of the output
+// columns, so a warp's accumulator and V fragments stay at dh-128 sizes.
+template <int DH>
+__host__ __device__ constexpr int tc_col_ways() { return DH > 128 ? 2 : 1; }
+template <int DH, int HB>
+__host__ __device__ constexpr int tc_threads() {
+  return (4 * HB * tc_col_ways<DH>() + 1) * 32;
+}
+// Resident blocks an SM the form is laid out for: two when one head of
+// dh <= 128 leaves a block half an SM's work, else one.
+template <int DH, int HB>
+__host__ __device__ constexpr int tc_blocks() {
+  return HB == 1 && DH <= 128 ? 2 : 1;
+}
 constexpr int kMaxStages = 4;
 // Shared memory a block may take: half an SM's 228 KB less the 1 KB the
-// runtime reserves for each block when one head a block lets two blocks
-// share an SM, a block's whole 227 KB when two heads fill it alone.
-template <int HB>
-constexpr int tc_budget() { return HB == 1 ? 232448 / 2 - 1024 : 232448; }
+// runtime reserves for each block when two blocks share an SM, a block's
+// whole 227 KB when it fills the SM alone.
+template <int DH, int HB>
+constexpr int tc_budget() {
+  return tc_blocks<DH, HB>() == 2 ? 232448 / 2 - 1024 : 232448;
+}
 constexpr int kBarBytes = 4 * kMaxStages * 8;
 // A TMA box: kTile positions x BC columns, BC = 64 (128 bytes) or, when
 // the block's heads span fewer, all HB*dh of them (64 or 32 bytes); laid
@@ -421,8 +458,9 @@ template <int DH, int HB>
 constexpr int tc_stage_bytes() { return 2 * HB * DH * 2 * kTile; }
 template <int DH, int HB>
 int tc_stages(int q_terms) {
-  const int fit = (tc_budget<HB>() - kBarBytes - tc_q_bytes<DH, HB>(q_terms) -
-                   kAlign) / tc_stage_bytes<DH, HB>();
+  const int fit = (tc_budget<DH, HB>() - kBarBytes -
+                   tc_q_bytes<DH, HB>(q_terms) - kAlign) /
+                  tc_stage_bytes<DH, HB>();
   return fit < 2 ? 2 : (fit > kMaxStages ? kMaxStages : fit);
 }
 template <int DH, int HB>
@@ -433,7 +471,7 @@ size_t tc_smem(int q_terms) {
 }
 
 template <int DH, int HB>
-__global__ void __launch_bounds__(tc_threads<HB>(), HB == 1 ? 2 : 1)
+__global__ void __launch_bounds__(tc_threads<DH, HB>(), tc_blocks<DH, HB>())
 decode_split_tc_kernel(const void* __restrict__ q, int q_bf16, float q_scale,
                        const __grid_constant__ CUtensorMap tmap_k,
                        const __grid_constant__ CUtensorMap tmap_v,
@@ -441,10 +479,17 @@ decode_split_tc_kernel(const void* __restrict__ q, int q_bf16, float q_scale,
                        float* __restrict__ part_m, float* __restrict__ part_l,
                        int n_kv, int n_group, int n_valid, int n_split,
                        int split_len, int stages) {
-  constexpr int C = 4 * HB;           // consumer warps
-  constexpr int THREADS = tc_threads<HB>();
+  constexpr int CW = tc_col_ways<DH>();  // warps sharing 16 positions
+  constexpr int PW = 4 * HB;          // position warps: 16 positions each
+  constexpr int C = PW * CW;          // consumer warps
+  constexpr int THREADS = tc_threads<DH, HB>();
   constexpr int RQ = DH + 8;          // a staged q row: dh bf16 + 16 bytes
-  constexpr int NT = DH / 8;          // 8-column tiles of the output
+  constexpr int DW = DH / CW;         // output columns a warp owns
+  constexpr int NT = DW / 8;          // its 8-column tiles
+  // A bf16 q's fragments stay in registers up to dh 128; at dh 256 they
+  // would take 64 registers a thread, so every term is read from shared
+  // memory at each step.
+  constexpr bool kQRegs = DH <= 128;
   constexpr int BC = box_cols<DH, HB>();
   constexpr int NB = HB * DH / BC;    // TMA boxes of a K or V tile
   constexpr int BOX = BC * 2 * kTile;  // bytes a box
@@ -467,6 +512,10 @@ decode_split_tc_kernel(const void* __restrict__ q, int q_bf16, float q_scale,
   const int split = blockIdx.x, kh0 = blockIdx.y * HB, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gr = lane >> 2, tg = lane & 3;  // fragment row, column pair
+  // A consumer warp's head in the block, its 16 positions of a tile, its
+  // share of the columns, and its position warp's index in the block.
+  const int h = warp / (4 * CW), pw = warp % 4, cw = warp / 4 % CW;
+  const int pid = h * 4 + pw;
 
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -479,13 +528,13 @@ decode_split_tc_kernel(const void* __restrict__ q, int q_bf16, float q_scale,
   }
   const long long bk0 = static_cast<long long>(b) * n_kv + kh0;
   for (int i = tid; i < HB * 16 * DH; i += THREADS) {
-    const int h = i / (16 * DH), g = i / DH % 16, d = i % DH;
+    const int hq = i / (16 * DH), g = i / DH % 16, d = i % DH;
     __nv_bfloat16 t[3];
-    split3(g < n_group ? load_q(q, ((bk0 + h) * n_group + g) * DH + d,
+    split3(g < n_group ? load_q(q, ((bk0 + hq) * n_group + g) * DH + d,
                                 q_bf16, q_scale)
                        : 0.f, t);
     for (int j = 0; j < q_terms; ++j)
-      sq[((h * q_terms + j) * 16 + g) * RQ + d] = t[j];
+      sq[((hq * q_terms + j) * 16 + g) * RQ + d] = t[j];
   }
   __syncthreads();                    // barriers and q visible to all warps
 
@@ -521,16 +570,18 @@ decode_split_tc_kernel(const void* __restrict__ q, int q_bf16, float q_scale,
   float m_run[2] = {neg_inf(), neg_inf()}, l_run[2] = {0.f, 0.f};
 
   if (warp < C) {
-    const int h = warp / 4, pw = warp % 4;   // head in the block, positions
     const __nv_bfloat16* sqh = sq + h * q_terms * 16 * RQ;
     auto q_frag = [&](unsigned* qf, int j, int ks) {
       ldsm_x4(qf, sqh + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RQ +
                       ks * 16 + (lane >> 4) * 8);
     };
-    // A bf16 q (one term, the serving path) stays in registers.
-    unsigned q1[DH / 16][4];
+    // A bf16 q (one term, the serving path) stays in registers up to dh
+    // 128.
+    [[maybe_unused]] unsigned q1[kQRegs ? DH / 16 : 1][4];
+    if constexpr (kQRegs) {
 #pragma unroll
-    for (int ks = 0; ks < DH / 16; ++ks) q_frag(q1[ks], 0, ks);
+      for (int ks = 0; ks < DH / 16; ++ks) q_frag(q1[ks], 0, ks);
+    }
     for (int it = 0; it < n_tiles; ++it) {
       const int s = it % stages;
       const unsigned parity = (it / stages) & 1;
@@ -545,9 +596,11 @@ decode_split_tc_kernel(const void* __restrict__ q, int q_bf16, float q_scale,
         unsigned kf[4];
         ldsm_x4(kf, tk + swz<BC>(pw * 16 + (lane & 7) + (lane >> 4) * 8,
                                  h * DH + ks * 16 + ((lane >> 3) & 1) * 8));
-        mma_bf16(sc[0], q1[ks], kf[0], kf[1]);
-        mma_bf16(sc[1], q1[ks], kf[2], kf[3]);
-        for (int j = 1; j < q_terms; ++j) {
+        if constexpr (kQRegs) {
+          mma_bf16(sc[0], q1[ks], kf[0], kf[1]);
+          mma_bf16(sc[1], q1[ks], kf[2], kf[3]);
+        }
+        for (int j = kQRegs ? 1 : 0; j < q_terms; ++j) {
           unsigned qf[4];
           q_frag(qf, j, ks);
           mma_bf16(sc[0], qf, kf[0], kf[1]);
@@ -618,16 +671,16 @@ decode_split_tc_kernel(const void* __restrict__ q, int q_bf16, float q_scale,
       // All of this warp's V fragments first, so the stage's V is released
       // before the PV products run.
       mbar_wait(&full_v[s], parity);
-      unsigned vf[DH / 16][4];
+      unsigned vf[DW / 16][4];
 #pragma unroll
-      for (int dp = 0; dp < DH / 16; ++dp)
+      for (int dp = 0; dp < DW / 16; ++dp)
         ldsm_x4_t(vf[dp],
                   tv + swz<BC>(pw * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
-                               h * DH + dp * 16 + (lane >> 4) * 8));
+                               h * DH + cw * DW + dp * 16 + (lane >> 4) * 8));
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty_v[s]);
 #pragma unroll
-      for (int dp = 0; dp < DH / 16; ++dp) {
+      for (int dp = 0; dp < DW / 16; ++dp) {
 #pragma unroll
         for (int j = 0; j < 3; ++j) {
           mma_bf16(acc[2 * dp], pf[j], vf[dp][0], vf[dp][1]);
@@ -637,34 +690,37 @@ decode_split_tc_kernel(const void* __restrict__ q, int q_bf16, float q_scale,
     }
   }
 
-  // Merge each head's four consumer warps' (max, sum, acc) in shared
+  // Merge each head's four position warps' (max, sum, acc) in shared
   // memory (the ring is idle now: every copy landed before its stage was
-  // consumed), then write this split's partials.
-  float* rm = reinterpret_cast<float*>(ring);  // [warps][16] max
-  float* rl = rm + C * 16;                     // [warps][16] sum
-  float* ra = rl + C * 16;                     // [warps][16][DH] acc
+  // consumed), then write this split's partials.  Twin warps hold the
+  // same max and sum (the same scores, computed alike); each writes its
+  // own columns of acc.
+  float* rm = reinterpret_cast<float*>(ring);  // [PW][16] max
+  float* rl = rm + PW * 16;                    // [PW][16] sum
+  float* ra = rl + PW * 16;                    // [PW][16][DH] acc
+  static_assert((2 + DH) * PW * 16 * 4 <= 2 * STAGE, "merge outgrows ring");
   __syncthreads();
   if (warp < C) {
-    if (tg == 0) {
-      rm[warp * 16 + gr] = m_run[0];
-      rm[warp * 16 + gr + 8] = m_run[1];
-      rl[warp * 16 + gr] = l_run[0];
-      rl[warp * 16 + gr + 8] = l_run[1];
+    if (cw == 0 && tg == 0) {
+      rm[pid * 16 + gr] = m_run[0];
+      rm[pid * 16 + gr + 8] = m_run[1];
+      rl[pid * 16 + gr] = l_run[0];
+      rl[pid * 16 + gr + 8] = l_run[1];
     }
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      const int d = n * 8 + tg * 2;
-      ra[(warp * 16 + gr) * DH + d] = acc[n][0];
-      ra[(warp * 16 + gr) * DH + d + 1] = acc[n][1];
-      ra[(warp * 16 + gr + 8) * DH + d] = acc[n][2];
-      ra[(warp * 16 + gr + 8) * DH + d + 1] = acc[n][3];
+      const int d = cw * DW + n * 8 + tg * 2;
+      ra[(pid * 16 + gr) * DH + d] = acc[n][0];
+      ra[(pid * 16 + gr) * DH + d + 1] = acc[n][1];
+      ra[(pid * 16 + gr + 8) * DH + d] = acc[n][2];
+      ra[(pid * 16 + gr + 8) * DH + d + 1] = acc[n][3];
     }
   }
   __syncthreads();
   for (int i = tid; i < HB * n_group * DH; i += THREADS) {
-    const int h = i / (n_group * DH), e = i % (n_group * DH);
+    const int hm = i / (n_group * DH), e = i % (n_group * DH);
     const int g = e / DH, d = e % DH;
-    const int w0 = h * 4;
+    const int w0 = hm * 4;
     float m = neg_inf();
 #pragma unroll
     for (int w = w0; w < w0 + 4; ++w) m = fmaxf(m, rm[w * 16 + g]);
@@ -677,7 +733,7 @@ decode_split_tc_kernel(const void* __restrict__ q, int q_bf16, float q_scale,
       a += sc * ra[(w * 16 + g) * DH + d];
       l += sc * rl[w * 16 + g];
     }
-    const long long part = (bk0 + h) * n_split + split;
+    const long long part = (bk0 + hm) * n_split + split;
     part_acc[part * n_group * DH + e] = a;
     if (d == 0) {
       part_m[part * n_group + g] = m;
@@ -832,7 +888,7 @@ int launch_tc(const void* q, int q_bf16, float q_scale, const void* k,
   const long long n_part = static_cast<long long>(batch) * n_kv * n_split *
                            n_group;
   decode_split_tc_kernel<DH, HB><<<dim3(n_split, n_kv / HB, batch),
-                                   tc_threads<HB>(), smem, stream>>>(
+                                   tc_threads<DH, HB>(), smem, stream>>>(
       q, q_bf16, q_scale, map_k, map_v, part_acc, part_ml, part_ml + n_part,
       n_kv, n_group, n_valid, n_split, split_len, tc_stages<DH, HB>(q_terms));
   return combine(part_acc, part_ml, out, batch, n_kv, n_group, DH, n_split,
@@ -853,13 +909,15 @@ int launch_tc(int hb, const void* q, int q_bf16, float q_scale,
                          split_len, stream);
 }
 
-// KV heads a block of the tensor-core form takes: two when Kh is even.
-int tc_heads(int n_kv) { return n_kv % 2 == 0 ? 2 : 1; }
+// KV heads a block of the tensor-core form takes: two when Kh is even
+// and dh <= 128 (at dh 256 one head's stage is already 64 KB).
+int tc_heads(int n_kv, int dh) { return dh <= 128 && n_kv % 2 == 0 ? 2 : 1; }
 
 // Which form a call takes: the tensor-core dh, or 0 for SIMT.
 int tc_form(int kv_bf16, int n_group, int dh) {
   if (!kv_bf16 || n_group > 16) return 0;
-  return (dh == 16 || dh == 32 || dh == 64 || dh == 128) ? dh : 0;
+  return (dh == 16 || dh == 32 || dh == 64 || dh == 128 || dh == 256) ? dh
+                                                                      : 0;
 }
 
 template <int DH, int HB>
@@ -868,7 +926,7 @@ int tc_config(int q_terms, int* out) {
   cudaError_t err = raise_smem_limit<decode_split_tc_kernel<DH, HB>>(smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &out[0], decode_split_tc_kernel<DH, HB>, tc_threads<HB>(), smem);
+        &out[0], decode_split_tc_kernel<DH, HB>, tc_threads<DH, HB>(), smem);
   out[1] = static_cast<int>(smem);
   out[2] = tc_stages<DH, HB>(q_terms);
   out[3] = DH;
@@ -904,12 +962,13 @@ int simt_config(int n_group, int dh, int* out) {
 // out[4] the KV heads a block takes.
 extern "C" int flash_decode_config(int kv_bf16, int q_bf16, int n_kv,
                                    int n_group, int dh, int* out) {
-  const int hb = tc_heads(n_kv), q_terms = q_bf16 ? 1 : 3;
+  const int hb = tc_heads(n_kv, dh), q_terms = q_bf16 ? 1 : 3;
   switch (tc_form(kv_bf16, n_group, dh)) {
     case 16: return tc_config<16>(hb, q_terms, out);
     case 32: return tc_config<32>(hb, q_terms, out);
     case 64: return tc_config<64>(hb, q_terms, out);
     case 128: return tc_config<128>(hb, q_terms, out);
+    case 256: return tc_config<256, 1>(q_terms, out);
     default: break;
   }
   return kv_bf16 ? simt_config<__nv_bfloat16>(n_group, dh, out)
@@ -936,7 +995,7 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v,
   float* pa = static_cast<float*>(part_acc);
   float* pml = static_cast<float*>(part_ml);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int hb = tc_heads(n_kv);
+  const int hb = tc_heads(n_kv, dh);
   switch (tc_form(kv_bf16, n_group, dh)) {
     case 16: return launch_tc<16>(hb, q, q_bf16, q_scale, k, v, o, pa, pml,
                                   batch, seq, n_kv, n_group, n_valid, n_split,
@@ -950,6 +1009,9 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v,
     case 128: return launch_tc<128>(hb, q, q_bf16, q_scale, k, v, o, pa, pml,
                                     batch, seq, n_kv, n_group, n_valid,
                                     n_split, split_len, st);
+    case 256: return launch_tc<256, 1>(q, q_bf16, q_scale, k, v, o, pa, pml,
+                                       batch, seq, n_kv, n_group, n_valid,
+                                       n_split, split_len, st);
     default: break;
   }
   if (n_group * dh > kMaxAcc * 4 * kThreads)

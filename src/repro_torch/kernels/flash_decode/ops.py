@@ -20,7 +20,8 @@ _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float] \
 #: KV positions a block stages per step; a split covers whole tiles.
 TILE = 64
 #: The SIMT form keeps G*dh/256 float4 accumulators a thread, at most 4
-#: (the tensor-core form, bf16 caches with G <= 16, stays below).
+#: (the tensor-core form, bf16 caches with G <= 16 and dh <= 256, stays
+#: within it).
 MAX_G_DH = 4096
 
 
@@ -32,9 +33,11 @@ def plan_splits(b: int, kh: int, n_valid: int, sms: int,
     split may be shorter, none is empty).  The pass is bound by bytes, so
     every block should stream from the start to the end of the call: as
     many splits as keep all blocks resident in one wave of
-    ``sms * blocks_per_sm`` slots, and all of one length.  decode_32k's
-    layer (b 32, both KV heads in a block, n_valid 32761) on 132 SMs x 1:
-    4 splits of 8192 positions, 128 blocks."""
+    ``sms * blocks_per_sm`` slots, and all of one length.  glm4's
+    decode_32k layer (b 32, both KV heads in a block, n_valid 32761) on
+    132 SMs x 1: 4 splits of 8192 positions, 128 blocks; gemma3's (b 16,
+    one of 8 KV heads a block at dh 256): 1 split, 128 blocks; its
+    long_500k layer (b 1, n_valid 524281): 16 splits of 32768."""
     if min(b, kh, n_valid, sms, blocks_per_sm) < 1:
         raise ValueError(f"plan_splits: needs positive sizes, got b={b} "
                          f"kh={kh} n_valid={n_valid} sms={sms} "

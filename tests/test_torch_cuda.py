@@ -107,7 +107,16 @@ def test_minplus_kernel_edge_cases_on_card(cuda_device, m, k, n, pad, n_k):
     (2, 32, 2, 32, 2048, 640, 3),            # dh 32: 64-column boxes
     (3, 15, 3, 32, 1000, 999, 4),            # dh 32, one head: 32 columns
     (2, 8, 2, 16, 1000, 700, 3),             # dh 16, two heads: 32 columns
-    (1, 8, 1, 16, 2048, 2000, 5)])           # dh 16, one head: 16 columns
+    (1, 8, 1, 16, 2048, 2000, 5),            # dh 16, one head: 16 columns
+    # dh 256 (gemma3's head size: one KV head a block, twin warps): Kh 8
+    # at G 2 and Kh 1 at G 16
+    (2, 16, 8, 256, 1024, 1, None),          # kv_len 1
+    (2, 16, 8, 256, 2048, 64 * 7 + 17, None),  # mid-tile, mid-ring
+    (1, 16, 1, 256, 2048, 64 * 4 + 1, 1),    # one split: mid-ring
+    (2, 16, 8, 256, 1000, 999, None),        # S no tile multiple
+    (2, 16, 8, 256, 2048, 640, 3),           # last split short (4+4+2)
+    (1, 16, 1, 256, 4096, 4096, 5),          # 13 + 13 + 13 + 13 + 12 tiles
+    (1, 16, 1, 256, 1000, 1000, None)])
 @pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_ring_edge_cases_on_card(cuda_device, b, h, kh, dh, s,
                                               kv_len, n_split, q_dtype):
@@ -250,10 +259,11 @@ def test_flash_decode_kernel_on_card(cuda_device, b, h, kh, dh, s, kv_len,
                                      dtype, q_dtype):
     """The split-KV kernel against its plain version; atol 1e-4 on the f32
     output (both keep scores and p in f32; only the order of the softmax
-    sums differs).  bf16 caches with G <= 16 and dh in {16, 32, 64, 128}
-    take the tensor-core form (an f32 q as three bf16 terms), the rest
-    SIMT.  The last two shapes give the SIMT form more than one
-    accumulator a thread with dh/4 not dividing its 256 threads."""
+    sums differs).  bf16 caches with G <= 16 and dh in {16, 32, 64, 128,
+    256} take the tensor-core form (an f32 q as three bf16 terms), the
+    rest SIMT: every f32 cache (dh 256 among them) and dh 48 and 96.  The
+    last two shapes give the SIMT form more than one accumulator a thread
+    with dh/4 not dividing its 256 threads."""
     rng = np.random.default_rng(b * h + s)
     q = t(rng.normal(size=(b, h, dh)).astype(np.float32)).to(q_dtype)
     kc = t(rng.normal(size=(b, s, kh, dh)).astype(np.float32)).to(dtype)
@@ -766,9 +776,9 @@ def test_moe_block_on_card(cuda_device, t, d, e, k, f, cf):
 @pytest.mark.parametrize("cur_len", [5, 1023, 1024, 1500, 524287])
 def test_rolling_decode_dh256_on_card(cuda_device, cur_len):
     """gemma3's local layer at its published head layout (16 heads, 8 KV
-    heads, dh 256: the SIMT form) over a 1024-slot rolling cache: the
-    new K/V at slot cur_len % 1024, flash_decode over the valid slots,
-    against its plain version within atol 1e-4."""
+    heads, dh 256: the tensor-core form) over a 1024-slot rolling cache:
+    the new K/V at slot cur_len % 1024, flash_decode over the valid
+    slots, against its plain version within atol 1e-4."""
     from repro_torch.models import layers as tl
     w = 1024
     gen = torch.Generator(device=cuda_device).manual_seed(cur_len)

@@ -16,8 +16,11 @@ from repro.kernels.flash_decode.ops import flash_decode_ref as jax_ref
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
 from torchsupport import t as _t
 
+# (b, h, kh, dh, smax, kv_len, block_k); the last two at gemma3's dh 256,
+# narrow (G 2 and G 4)
 SHAPES = [(1, 4, 4, 16, 64, 1, 32), (2, 8, 2, 16, 96, 17, 32),
-          (2, 8, 8, 32, 128, 128, 64), (1, 16, 4, 64, 256, 200, 128)]
+          (2, 8, 8, 32, 128, 128, 64), (1, 16, 4, 64, 256, 200, 128),
+          (1, 4, 2, 256, 96, 77, 32), (2, 8, 2, 256, 128, 128, 64)]
 
 
 def _inputs(b, h, kh, dh, smax, seed):

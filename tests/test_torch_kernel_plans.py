@@ -71,6 +71,18 @@ def test_flash_plan_at_decode_32k(kv_len, want):
     assert plan_splits(32, 2, kv_len, H100_SMS, 2) == want
 
 
+@pytest.mark.parametrize("b,kv_len,want", [
+    (16, 32761, (1, 32768)),     # decode_32k, a global layer
+    (16, 1024, (1, 1024)),       # a local layer's rolling cache, full
+    (16, 601, (1, 640)),         # ... before it wraps
+    (1, 524281, (16, 32768)),    # long_500k, a global layer
+    (1, 1024, (16, 64))])        # long_500k, a local layer
+def test_flash_plan_at_gemma3(b, kv_len, want):
+    """gemma3's decode layers on the H100: 8 KV heads at dh 256, one a
+    block, one block an SM."""
+    assert plan_splits(b, 8, kv_len, H100_SMS, 1) == want
+
+
 def test_flash_plan_rejects_empty_shapes():
     with pytest.raises(ValueError):
         plan_splits(1, 1, 0, H100_SMS, 2)
