@@ -173,7 +173,23 @@ never JAX or the JAX package.  Phases, each of which asserts:
    gemma3 also hold loss and gradients on the card to the CPU at (1)'s
    depth (phase 10's tolerances).  Its paths in the kernels line:
    ``<arch>_serve``, ``<arch>_decode_32k``, ``<arch>_train`` and
-   ``gemma3-12b_long_500k``.
+   ``gemma3-12b_long_500k``;
+13. the optimized LM variant (``build_cell(..., variant="opt")``:
+   ``attn_opt`` and the ``block_outs`` remat policy), after phase 12.
+   (a) glm4-9b's 2-layer f32 logic check of phase 10 with the variant,
+   loss and every gradient on the card against the CPU, the card loss
+   within rtol 1e-5 of phase 10's base loss; (b) train_4k of glm4-9b and
+   the four FAMILY archs at the depth and batch of their base cells
+   (phases 10 and 12, the same weights), a warm-up and 2 counted steps:
+   losses finite, the warm-up loss within 2e-2 of the base cell's,
+   median step, tokens/s, model TFLOP/s, peak memory above the resident
+   state beside the base numbers, profiles of glm4-9b and gemma3-12b;
+   (c) gemma3-12b at the depth (whole cycles) its measured opt
+   activations allow, a warm-up and 2 steps; (d) a 256 MiB slice of the
+   glm4-9b opt cell's gradient int8-quantized on the card with noise
+   drawn on the CPU, ``q`` and ``scale`` bit-equal to the CPU's,
+   ``compressed_mean``'s time and ``wire_bytes``.  Its paths in the
+   kernels line: ``<arch>_train_opt``.
 
 Each path frees its memory before the next.  Every launch counter is
 zeroed just before a served run and read just after it.  It prints one
@@ -183,8 +199,8 @@ own count, phase 8's paths ``hod_mixed_slo``,
 ``hod_store_mixed_slo`` and ``hod_topk_store``, phase 9's
 ``hod_fleet_raw`` and ``hod_fleet_delta`` (each the sum over its runs
 at 1, 2 and 4 shards) and ``hod_fleet_mixed_slo``, phase 10's
-``dlrm_train`` and ``lm_train``, phase 11's ``gnn_train`` and phase
-12's paths included;
+``dlrm_train`` and ``lm_train``, phase 11's ``gnn_train``, phase
+12's and phase 13's paths included;
 ``bag_sum_backward`` has no TPU kernel and names the JAX lookup's
 ``jnp.take``), the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``.  Any failure
@@ -345,6 +361,24 @@ FAMILY = {
 }
 FAMILY_DECODE_STEPS, FAMILY_TRAIN_STEPS = 4, 2
 FAMILY_GRAD_CHECK = ("granite-moe-1b-a400m", "gemma3-12b")
+
+# Phase 13: the optimized LM variant (build_cell(variant="opt"): attn_opt
+# and the block_outs remat policy).  The f32 logic check runs phase 10's
+# (LOGIC_RTOL and LOGIC_ATOL_SCALE against the CPU) and its card loss must
+# equal the base variant's within OPT_LOGIC_RTOL (in f32 the two differ
+# only in the order of sums).  Each of OPT_ARCHS trains train_4k at its
+# base cell's depth and batch, a warm-up and FAMILY_TRAIN_STEPS counted
+# steps; the warm-up losses of the two variants within OPT_LOSS_ATOL
+# (tests/test_perf_variants.py:37 holds JAX's two to 2e-2); OPT_PROFILED
+# get a profile.  OPT_DEEPER then trains as deep as its measured opt
+# activations, kept x OPT_RESERVE_SLACK, allow.  A slice of glm4's opt
+# gradient (OPT_COMPRESS_BYTES) is int8-quantized on the card with noise
+# from SEED_COMPRESS, bit-equal to the CPU.
+OPT_ARCHS = ("glm4-9b",) + tuple(FAMILY)
+OPT_PROFILED = ("glm4-9b", "gemma3-12b")
+OPT_DEEPER = "gemma3-12b"
+OPT_LOGIC_RTOL, OPT_LOSS_ATOL, OPT_RESERVE_SLACK = 1e-5, 2e-2, 1.25
+OPT_COMPRESS_BYTES, SEED_COMPRESS = 256 * 2 ** 20, 4
 
 # The served run whose launch count the kernels line reports: the one at
 # the shape each kernel is timed at.
@@ -2364,6 +2398,20 @@ def median(xs):
     return sorted(xs)[len(xs) // 2]
 
 
+def train_numbers(cell, warm_loss: list, ms: list, peak: int,
+                  resident: int) -> dict:
+    """An LM train cell's numbers: depth, warm-up loss, median step (ms),
+    tokens/s, model TFLOP/s, peak device memory and the resident state
+    before the steps (bytes), parameters."""
+    cfg = cell.meta["cfg"]
+    tokens = cell.meta["batch"] * cell.meta["seq_len"]
+    step = median(ms)
+    return {"layers": cfg.n_layers, "warm_loss": warm_loss[0], "ms": step,
+            "tokens_s": tokens / (step / 1e3),
+            "tflops": cell.model_flops / (step / 1e3) / 1e12, "peak": peak,
+            "resident": resident, "n_params": cfg.param_count()}
+
+
 def bwd_violations(got, want, absum, cnt) -> int:
     """Elements of touched rows where ``got`` and ``want`` (the same f32
     terms summed in two orders, ``cnt`` terms a row) differ by more than
@@ -2573,16 +2621,18 @@ def check_grads(torch, got, want, what: str) -> float:
     return worst
 
 
-def lm_train_logic(torch, arch: str = "glm4-9b", n_layers: int = 2) -> None:
+def lm_train_logic(torch, arch: str = "glm4-9b", n_layers: int = 2,
+                   variant: str = "base") -> float:
     """An LM's full width (glm4-9b's) at ``n_layers`` layers in f32 on
     LM_LOGIC_SEQ tokens: the train loss (an MoE arch's aux loss in it)
-    and every gradient on the card against the same model on the CPU."""
+    and every gradient on the card against the same model on the CPU;
+    ``variant="opt"`` trains with ``attn_opt`` and ``block_outs`` on
+    both.  Returns the card's loss."""
     import dataclasses
-    from repro_torch.configs import get_arch
-    from repro_torch.launch.steps import lm_value_and_grad
+    from repro_torch.launch.steps import lm_cell_config, lm_value_and_grad
     from repro_torch.tree import map_tree
-    cfg = dataclasses.replace(get_arch(arch).CONFIG, n_layers=n_layers,
-                              compute_dtype=torch.float32,
+    cfg = dataclasses.replace(lm_cell_config(arch, variant=variant),
+                              n_layers=n_layers, compute_dtype=torch.float32,
                               loss_chunk=LM_LOGIC_SEQ // 2)
     from repro_torch.models import transformer as tf
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -2603,21 +2653,24 @@ def lm_train_logic(torch, arch: str = "glm4-9b", n_layers: int = 2) -> None:
     if not abs(loss - want_loss.item()) <= 1e-5 * abs(want_loss.item()):
         raise AssertionError(f"LM f32 loss {loss} on the card, "
                              f"{want_loss.item()} on the CPU")
-    say(f"{arch} train logic (full width, {n_layers} layers, f32, "
-        f"{LM_LOGIC_SEQ} tokens): loss {loss:.6f} on the card, "
+    say(f"{arch} train logic ({variant}, full width, {n_layers} layers, "
+        f"f32, {LM_LOGIC_SEQ} tokens): loss {loss:.6f} on the card, "
         f"{want_loss.item():.6f} on "
         f"the CPU ({cpu_s:.1f} s); every gradient within rtol "
         f"{LOGIC_RTOL}, atol {LOGIC_ATOL_SCALE} of its scale (worst "
         f"{worst:.2e} of it)")
+    return loss
 
 
-def drive_lm_train(torch, card: str) -> dict:
+def drive_lm_train(torch, card: str, base: dict) -> dict:
     """Phase 10b: the f32 logic check, then glm4-9b train_4k at full
     width, depth and batch cut to fit one card, bf16 compute, remat on.
-    Returns the launch counts of the counted steps."""
+    Returns the launch counts of the counted steps; puts the logic
+    check's loss and the cell's numbers in ``base["glm4-9b"]`` (phase
+    13 holds the optimized variant to them)."""
     from repro_torch.configs import glm4_9b
     from repro_torch.launch.steps import build_cell, lm_train_layers
-    lm_train_logic(torch)
+    logic_loss = lm_train_logic(torch)
     free(torch)
     free_bytes = torch.cuda.mem_get_info()[0]
     layers = lm_train_layers(glm4_9b.CONFIG, free_bytes, LM_TRAIN_RESERVE)
@@ -2659,6 +2712,8 @@ def drive_lm_train(torch, card: str) -> dict:
         f"device memory {peak / 1e9:.2f} GB of "
         f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f}, "
         f"on {card}")
+    base["glm4-9b"] = train_numbers(cell, warm_loss, ms, peak, resident)
+    base["glm4-9b"]["logic_loss"] = logic_loss
     nxt = cell.batch_at(LM_TRAIN_STEPS + 1)
     profile_device(torch, lambda: cell.fn(state, *nxt), 1,
                    "glm4-9b train_4k steps", card, top=15)
@@ -2720,11 +2775,12 @@ def resume_check(torch, arch: str, shape: str, root: str) -> None:
         f"bit ({len(flatten_with_paths(state))} leaves)")
 
 
-def drive_train(torch, card: str) -> "tuple[dict, dict]":
+def drive_train(torch, card: str, base: dict) -> "tuple[dict, dict]":
     """Phase 10: returns (bag_sum_backward's row, launch counts of the
-    dlrm_train and lm_train paths)."""
+    dlrm_train and lm_train paths); glm4-9b's train numbers go in
+    ``base``."""
     row, dlrm_counts = drive_dlrm_train(torch, card)
-    lm_counts = drive_lm_train(torch, card)
+    lm_counts = drive_lm_train(torch, card, base)
     root = tempfile.mkdtemp(prefix="train_ckpt_")
     try:
         for arch, shape in (("dlrm-rm2", "train_batch"),
@@ -3093,12 +3149,13 @@ def family_serve(torch, arch: str, spec: dict, card: str) -> dict:
     return counts
 
 
-def family_train(torch, arch: str, spec: dict, card: str) -> dict:
+def family_train(torch, arch: str, spec: dict, card: str,
+                 base: dict) -> dict:
     """Phase 12 (4): train_4k through the train cell at
     ``lm_train_layers``'s depth (whole cycles) and batch 1 x 4,096: a
     warm-up step and FAMILY_TRAIN_STEPS counted ones, losses finite,
     median step, peak memory, a profile.  Returns the counted steps'
-    launch counts."""
+    launch counts; the cell's numbers go in ``base[arch]``."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.steps import build_cell, lm_train_layers
     free_bytes = torch.cuda.mem_get_info()[0]
@@ -3110,13 +3167,14 @@ def family_train(torch, arch: str, spec: dict, card: str) -> dict:
     torch.cuda.synchronize()
     cfg, state = cell.meta["cfg"], cell.args[0]
     n_params = cfg.param_count()
+    resident = torch.cuda.memory_allocated()
     say(f"{arch} train_4k: cuts {cell.meta['reduced']} (depth: "
         f"{free_bytes / 1e9:.2f} GB free, 16 B a parameter, "
         f"{spec['train_reserve'] / 2 ** 30:.0f} GiB kept for activations); "
         f"{n_params / 1e9:.3f} B params, f32 state "
         f"{16 * n_params / 1e9:.2f} GB with the gradients; made in "
         f"{time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB resident")
+        f"{resident / 1e9:.2f} GB resident")
     batches = [cell.batch_at(i) for i in range(FAMILY_TRAIN_STEPS + 1)]
     warm_ms, warm_loss = timed_steps(
         torch, lambda i, b: cell.fn(state, *b)[1]["loss"], batches[:1])
@@ -3139,6 +3197,7 @@ def family_train(torch, arch: str, spec: dict, card: str) -> dict:
         f"device memory {peak / 1e9:.2f} GB of "
         f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f}, "
         f"on {card}")
+    base[arch] = train_numbers(cell, warm_loss, ms, peak, resident)
     nxt = cell.batch_at(FAMILY_TRAIN_STEPS + 1)
     profile_device(torch, lambda: cell.fn(state, *nxt), 1,
                    f"{arch} train_4k steps", card, top=12)
@@ -3147,10 +3206,11 @@ def family_train(torch, arch: str, spec: dict, card: str) -> dict:
     return counts
 
 
-def drive_family(torch, card: str) -> dict:
+def drive_family(torch, card: str, base: dict) -> dict:
     """Phase 12: the rest of the LM family, an arch at a time, each path
     freeing its memory before the next.  Returns the launch counts of
-    each served and trained path."""
+    each served and trained path; each train cell's numbers go in
+    ``base``."""
     paths = {}
     t_phase = time.perf_counter()
     for arch, spec in FAMILY.items():
@@ -3164,13 +3224,182 @@ def drive_family(torch, card: str) -> dict:
             lm_train_logic(torch, arch, spec["logic_layers"])
             free(torch)
         took.append(time.perf_counter())
-        paths[f"{arch}_train"] = family_train(torch, arch, spec, card)
+        paths[f"{arch}_train"] = family_train(torch, arch, spec, card,
+                                              base)
         took.append(time.perf_counter())
         parts = [b - a for a, b in zip(took, took[1:])]
         say(f"{arch} took {took[-1] - took[0]:.1f} s (f32 logic "
             f"{parts[0]:.1f}, serve and decode {parts[1]:.1f}, gradient "
             f"check {parts[2]:.1f}, train {parts[3]:.1f})")
     say(f"phase 12 (the rest of the LM family) took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
+# ------------------------------------------------------------- phase 13
+def opt_train(torch, arch: str, layers: int, card: str,
+              profile: bool) -> "tuple[dict, dict, object]":
+    """Phase 13 (b), (c): ``arch``'s train_4k cell with
+    ``variant="opt"`` at ``layers`` layers and batch 1 x 4,096 (seed 0,
+    so phases 10 and 12's weights at the same depth): a warm-up step and
+    FAMILY_TRAIN_STEPS counted ones, losses finite, median step (CUDA
+    events), peak memory, a profile if ``profile``.  Returns (the counted
+    steps' launch counts, the cell's numbers, the cell)."""
+    from repro_torch.launch.steps import build_cell
+    t0 = time.perf_counter()
+    cell = build_cell(arch, "train_4k", device="cuda", batch=LM_TRAIN_BATCH,
+                      layers=layers, variant="opt")
+    torch.cuda.synchronize()
+    cfg, state = cell.meta["cfg"], cell.args[0]
+    if not (cfg.attn_opt and cfg.remat_policy == "block_outs"
+            and cell.meta["variant"] == "opt"):
+        raise AssertionError(f"{arch}: the opt cell trains {cfg}")
+    resident = torch.cuda.memory_allocated()
+    build_s = time.perf_counter() - t0
+    batches = [cell.batch_at(i) for i in range(FAMILY_TRAIN_STEPS + 1)]
+    _, warm_loss = timed_steps(
+        torch, lambda i, b: cell.fn(state, *b)[1]["loss"], batches[:1])
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ms, losses = timed_steps(
+        torch, lambda i, b: cell.fn(state, *b)[1]["loss"], batches[1:])
+    counts = paths_now()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(x == x and abs(x) < float("inf")
+               for x in warm_loss + losses):
+        raise AssertionError(f"{arch} opt train losses not finite: "
+                             f"{warm_loss + losses}")
+    got = train_numbers(cell, warm_loss, ms, peak, resident)
+    say(f"{arch} train_4k opt ({cfg.n_layers} layers, cuts "
+        f"{cell.meta.get('reduced')}; made in {build_s:.1f} s, "
+        f"{resident / 1e9:.2f} GB resident): losses "
+        f"{[round(x, 5) for x in warm_loss + losses]}, median step "
+        f"{got['ms']:.1f} ms (CUDA events; {[round(x, 1) for x in ms]}), "
+        f"{got['tokens_s']:.0f} tokens/s, model {got['tflops']:.1f} "
+        f"TFLOP/s, peak device memory {peak / 1e9:.2f} GB "
+        f"({(peak - resident) / 1e9:.2f} GB above the resident state), "
+        f"on {card}")
+    if profile:
+        nxt = cell.batch_at(FAMILY_TRAIN_STEPS + 1)
+        prof = profile_device(torch, lambda: cell.fn(state, *nxt), 1,
+                              f"{arch} train_4k opt steps", card, top=12)
+        got["idle_share"] = prof.get("idle_share")
+    del batches
+    return counts, got, cell
+
+
+def opt_versus_base(arch: str, opt: dict, base: dict) -> None:
+    """The opt cell's numbers beside the base cell's at the same depth;
+    the two warm-up losses (same weights and batch) within
+    OPT_LOSS_ATOL."""
+    diff = abs(opt["warm_loss"] - base["warm_loss"])
+    say(f"{arch} train_4k opt vs base at {base['layers']} layers: median "
+        f"{opt['ms']:.1f} vs {base['ms']:.1f} ms "
+        f"({base['ms'] / opt['ms']:.3f}x), {opt['tokens_s']:.0f} vs "
+        f"{base['tokens_s']:.0f} tokens/s, {opt['tflops']:.1f} vs "
+        f"{base['tflops']:.1f} model TFLOP/s, peak "
+        f"{opt['peak'] / 1e9:.2f} vs {base['peak'] / 1e9:.2f} GB (above "
+        f"the resident state {(opt['peak'] - opt['resident']) / 1e9:.2f} "
+        f"vs {(base['peak'] - base['resident']) / 1e9:.2f}); warm-up loss "
+        f"{opt['warm_loss']:.6f} vs {base['warm_loss']:.6f} (|diff| "
+        f"{diff:.2e}, bound {OPT_LOSS_ATOL})")
+    if not diff <= OPT_LOSS_ATOL:
+        raise AssertionError(f"{arch}: opt warm-up loss {opt['warm_loss']} "
+                             f"against the base's {base['warm_loss']}")
+
+
+def opt_compress(torch, cell, card: str) -> None:
+    """Phase 13 (d): one gradient of the glm4-9b opt cell (its first
+    layer's leaves, in tree order, while they fit OPT_COMPRESS_BYTES):
+    ``quantize_int8`` on the card with noise drawn once on the CPU, ``q``
+    and ``scale`` bit-equal to the CPU's; ``compressed_mean``'s time on
+    the card (one rank, CUDA events) and ``wire_bytes`` against f32."""
+    from repro_torch.launch.steps import lm_value_and_grad
+    from repro_torch.optim import (compressed_mean, quantize_int8,
+                                   uniform_noise, wire_bytes)
+    from repro_torch.tree import flatten_with_paths
+    state, toks, labels = cell.args
+    _, grads = lm_value_and_grad(state["params"], toks, labels,
+                                 cell.meta["cfg"])
+    whole = {k: wire_bytes(grads, k) for k in ("none", "int8")}
+    part, nbytes = {}, 0
+    for k, g in flatten_with_paths(grads["layers"]):
+        g = g[0]
+        if nbytes + 4 * g.numel() <= OPT_COMPRESS_BYTES:
+            part[k] = g.clone()
+            nbytes += 4 * g.numel()
+    del grads
+    free(torch)
+    gen = torch.Generator().manual_seed(SEED_COMPRESS)
+    noise = {k: uniform_noise(g.shape, gen) for k, g in part.items()}
+    on_card = {k: n.to("cuda") for k, n in noise.items()}
+    for k, g in part.items():
+        q, scale = quantize_int8(g, on_card[k])
+        want_q, want_scale = quantize_int8(g.cpu(), noise[k])
+        if not (torch.equal(q.cpu(), want_q)
+                and torch.equal(scale.cpu(), want_scale)):
+            raise AssertionError(f"quantize_int8 of {k}: the card's q or "
+                                 "scale differs from the CPU's")
+    mean_ms = time_ms(torch, lambda: compressed_mean(part, on_card), 5)
+    sliced = {k: wire_bytes(part, k) for k in ("none", "int8")}
+    say(f"glm4-9b opt gradient, {len(part)} leaves of layer 0 "
+        f"({', '.join(part)}; {nbytes / 2 ** 20:.1f} MiB f32): "
+        f"quantize_int8 q and scale bit-equal on the card and the CPU; "
+        f"compressed_mean(int8) {mean_ms:.4f} ms a call (CUDA events, one "
+        f"rank); wire bytes int8 {sliced['int8']} vs f32 {sliced['none']} "
+        f"({sliced['none'] / sliced['int8']:.3f}x); the whole gradient "
+        f"{whole['int8'] / 1e9:.3f} vs {whole['none'] / 1e9:.3f} GB, on "
+        f"{card}")
+
+
+def drive_opt(torch, card: str, base: dict) -> dict:
+    """Phase 13: the optimized LM variant (``variant="opt"``).  (a) the
+    f32 logic check with ``attn_opt`` and ``block_outs``, its card loss
+    beside phase 10's base loss; (b) each LM arch's train_4k at its base
+    cell's depth, against the base numbers, glm4-9b's cell also (d)
+    compressing a gradient; (c) gemma3-12b as deep as its opt activations
+    allow.  Returns the launch counts of the ``<arch>_train_opt`` paths."""
+    from repro_torch.launch.steps import lm_cell_config, lm_train_layers
+    t_phase = time.perf_counter()
+    loss = lm_train_logic(torch, variant="opt")
+    want = base["glm4-9b"]["logic_loss"]
+    if not abs(loss - want) <= OPT_LOGIC_RTOL * abs(want):
+        raise AssertionError(f"glm4-9b f32 opt loss {loss} on the card, "
+                             f"base {want}")
+    say(f"glm4-9b f32 logic: opt card loss {loss:.7f}, base card loss "
+        f"{want:.7f} (rtol {OPT_LOGIC_RTOL})")
+    free(torch)
+    paths, got = {}, {}
+    for arch in OPT_ARCHS:
+        t0 = time.perf_counter()
+        paths[f"{arch}_train_opt"], got[arch], cell = opt_train(
+            torch, arch, base[arch]["layers"], card, arch in OPT_PROFILED)
+        opt_versus_base(arch, got[arch], base[arch])
+        if arch == "glm4-9b":
+            opt_compress(torch, cell, card)
+        del cell
+        free(torch)
+        say(f"{arch} opt took {time.perf_counter() - t0:.1f} s")
+    arch = OPT_DEEPER
+    g = got[arch]
+    act = g["peak"] - g["resident"] - 4 * g["n_params"]
+    cfg = lm_cell_config(arch, variant="opt")
+    layers = lm_train_layers(cfg, torch.cuda.mem_get_info()[0],
+                             int(OPT_RESERVE_SLACK * act))
+    say(f"{arch} opt depth: {act / 1e9:.2f} GB of activations at "
+        f"{g['layers']} layers (peak less the state and 4 B a parameter of "
+        f"gradients), kept x{OPT_RESERVE_SLACK}: {layers} layers fit "
+        f"(base variant: {base[arch]['layers']})")
+    if layers > g["layers"]:
+        _, deep, cell = opt_train(torch, arch, layers, card, False)
+        del cell
+        free(torch)
+        say(f"{arch} opt at {layers} layers fits: peak "
+            f"{deep['peak'] / 1e9:.2f} GB, median {deep['ms']:.1f} ms, "
+            f"{deep['tflops']:.1f} model TFLOP/s (base variant: "
+            f"{base[arch]['layers']} layers, peak "
+            f"{base[arch]['peak'] / 1e9:.2f} GB)")
+    say(f"phase 13 (the optimized LM variant) took "
         f"{time.perf_counter() - t_phase:.1f} s")
     return paths
 
@@ -3278,7 +3507,9 @@ def main() -> int:
     free(torch)
     say(f"DLRM phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    rows["bag_sum_backward"], train_paths = drive_train(torch, card)
+    base_train = {}
+    rows["bag_sum_backward"], train_paths = drive_train(torch, card,
+                                                        base_train)
     paths["bag_sum_backward"] = {}
     for path, counts in train_paths.items():
         for name, n in counts.items():
@@ -3288,7 +3519,11 @@ def main() -> int:
     for name, n in drive_gnn(np, torch, card).items():
         paths[name]["gnn_train"] = n
     say(f"GNN phase took {time.perf_counter() - t0:.1f} s")
-    for path, counts in drive_family(torch, card).items():
+    for path, counts in drive_family(torch, card, base_train).items():
+        for name, n in counts.items():
+            paths[name][path] = n
+    free(torch)
+    for path, counts in drive_opt(torch, card, base_train).items():
         for name, n in counts.items():
             paths[name][path] = n
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")

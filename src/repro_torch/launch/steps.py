@@ -175,9 +175,24 @@ def _build_lm_train_cell(arch_id, shape_name, cfg, smoke, device, meta):
                 batch_at=lambda step: _on(stream.batch_at(step), device))
 
 
-def _build_lm_cell(arch_id, shape_name, mod, smoke, device, batch,
-                   layers=None):
-    cfg = mod.smoke_config() if smoke else mod.CONFIG
+def lm_cell_config(arch_id: str, smoke: bool = False,
+                   variant: str = "base") -> tf.TransformerConfig:
+    """An LM cell's config: the smoke config, or the published one.
+    ``variant="opt"`` is the JAX package's ``_OptLM``: the published
+    config trains with ``attn_opt`` and the ``block_outs`` remat policy;
+    the smoke config stays the base one, as JAX's does."""
+    mod = get_arch(arch_id)
+    if smoke:
+        return mod.smoke_config()
+    if variant == "opt":
+        return dataclasses.replace(mod.CONFIG, attn_opt=True,
+                                   remat_policy="block_outs")
+    return mod.CONFIG
+
+
+def _build_lm_cell(arch_id, shape_name, smoke, device, batch, layers=None,
+                   variant="base"):
+    cfg = lm_cell_config(arch_id, smoke, variant)
     sp = dict(SHAPE_PARAMS["lm"][shape_name])
     kind = sp["kind"]
     if smoke:
@@ -195,7 +210,7 @@ def _build_lm_cell(arch_id, shape_name, mod, smoke, device, batch,
         cfg = dataclasses.replace(cfg, n_layers=layers)
     if b != sp["global_batch"]:
         reduced["batch"] = [sp["global_batch"], b]
-    meta = {"cfg": cfg, "batch": b, "seq_len": s}
+    meta = {"cfg": cfg, "batch": b, "seq_len": s, "variant": variant}
     if reduced:
         meta["reduced"] = reduced
     if kind == "train":
@@ -529,8 +544,9 @@ def build_cell(arch_id: str, shape_name: str, smoke: bool = False,
     ``device`` (default ``cuda``; raises without a card unless given
     ``"cpu"``).  ``batch`` overrides the assigned batch of an LM or DLRM
     cell and ``layers`` an LM's depth (cuts, recorded in
-    ``meta["reduced"]``); ``variant="opt"`` picks a GNN cell's bucketed
-    edge layouts.  Weights and inputs come from seed 0."""
+    ``meta["reduced"]``); ``variant="opt"`` picks an LM's optimized
+    training (:func:`lm_cell_config`) or a GNN cell's bucketed edge
+    layouts.  Weights and inputs come from seed 0."""
     device = resolve_device(device)
     mod = get_arch(arch_id)
     skip = getattr(mod, "SKIP_SHAPES", {})
@@ -539,12 +555,12 @@ def build_cell(arch_id: str, shape_name: str, smoke: bool = False,
                          f"{skip[shape_name]}")
     if variant not in ("base", "opt"):
         raise ValueError(f"variant must be 'base' or 'opt', got {variant!r}")
-    if variant != "base" and mod.FAMILY != "gnn":
-        raise NotImplementedError(f"{arch_id}: only the GNN cells have an "
-                                  "'opt' variant in the port")
+    if variant != "base" and mod.FAMILY not in ("lm", "gnn"):
+        raise NotImplementedError(f"{arch_id}: only the LM and GNN cells "
+                                  "have an 'opt' variant")
     if mod.FAMILY == "lm":
-        return _build_lm_cell(arch_id, shape_name, mod, smoke, device, batch,
-                              layers)
+        return _build_lm_cell(arch_id, shape_name, smoke, device, batch,
+                              layers, variant)
     if layers is not None:
         raise ValueError(f"{arch_id}: layers= cuts an LM's depth only")
     if mod.FAMILY == "gnn":

@@ -7,10 +7,12 @@ its algorithms and its rounding points (see each function), except
 kernel (rolling window caches included).  Prefill and training
 attention has no TPU kernel and stays plain: the same blockwise
 running-softmax schedules as the JAX module (:func:`attention_causal`,
-:func:`attention_window`), differentiated by autograd.  The MoE block's
-expert products are batched matmuls, as the JAX module leaves them to
-XLA.  The perf variant of causal attention comes later (``ROADMAP.md``
-queue 1).
+:func:`attention_window`), differentiated by autograd.  The optimized
+LM variant's training attention, :func:`attention_causal_opt` (flat GQA
+heads, bf16 probabilities), gives its products operands in the
+compute dtype and f32 results (:func:`matmul_f32`: the tensor cores on
+the card).  The MoE block's expert products are batched matmuls, as the
+JAX module leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -127,6 +129,110 @@ def attention_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         se = torch.clamp(se, min=1e-30)
         outs.append(acc / se.permute(0, 3, 1, 2)[..., None])
     out = torch.cat(outs, dim=1).reshape(b, t, h, dh)
+    return out[:, :t0].to(v.dtype)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``a @ b`` of two 3-d bf16 (or f16) CUDA tensors with f32 results
+    (``torch.bmm(..., out_dtype=float32)``, which has no derivative).  Its
+    backward takes the f32 cotangent rounded to the operands' dtype, so
+    the gradient products run on the tensor cores too, and returns
+    gradients in that dtype, as JAX's transpose of the product does
+    (XLA on a TPU rounds the cotangent the same way at its default
+    precision)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return torch.bmm(g, b.mT), torch.bmm(a.mT, g)
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched ``a @ b`` ([..., m, k] x [..., k, n]) with f32 results,
+    JAX's ``preferred_element_type=f32``.  f32 operands multiply as they
+    are.  Otherwise the device decides: on the card the operands stay in
+    their dtype (:class:`_MatmulF32`); on the CPU they are widened first,
+    which gives the same values, since a bf16 product is exact in f32."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return a @ b
+    if a.device.type == "cpu":
+        return a.float() @ b.float()
+    lead = a.shape[:-2]
+    out = _MatmulF32.apply(a.reshape(-1, *a.shape[-2:]),
+                           b.reshape(-1, *b.shape[-2:]))
+    return out.reshape(*lead, *out.shape[-2:])
+
+
+def attention_causal_opt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, chunk: int = 1024,
+                         q_positions: Optional[torch.Tensor] = None,
+                         kv_positions: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """The optimized variant's exact causal GQA (the JAX module's
+    ``attention_causal_opt``): the schedule of :func:`attention_causal`,
+    with the KV heads repeated to the flat query-head axis (head ``h``
+    reads KV head ``h // G``), scores from operands in q's dtype with f32
+    results, and ``p = exp(sc - m)`` cast to v's dtype before its row sum
+    (summed in f32, rounded to v's dtype, widened) and before PV (f32
+    results).  ``m``, the sum and the accumulator stay f32.  q: [B, T,
+    H, dh]; k, v: [B, S, Kh, dh].  Returns [B, T, H, dh] in v's dtype.
+    The JAX function's sharding annotations are no-ops on one device
+    and are left out."""
+    b, t0, h, dh = q.shape
+    s0, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    cq = min(chunk, t0)
+    ck = min(chunk, s0)
+    dev = q.device
+    qpos = (torch.arange(t0, dtype=torch.int32, device=dev)
+            if q_positions is None else q_positions)
+    kpos = (torch.arange(s0, dtype=torch.int32, device=dev)
+            if kv_positions is None else kv_positions)
+    pad_t, pad_s = (-t0) % cq, (-s0) % ck
+    if pad_t:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_t))
+        qpos = F.pad(qpos, (0, pad_t), value=-1)
+    if pad_s:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_s))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_s))
+        kpos = F.pad(kpos, (0, pad_s), value=2 ** 30)
+    t, s = t0 + pad_t, s0 + pad_s
+    # heads ahead of positions, once: every chunk below is a view whose
+    # (B, H) batch flattens without a copy
+    q = (q * q_scale(dh, q.dtype)).transpose(1, 2).contiguous()
+    k = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+    v = v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+    neg_inf = float("-inf")
+
+    outs = []
+    for i in range(t // cq):
+        qi, qpi = q[:, :, i * cq:(i + 1) * cq], qpos[i * cq:(i + 1) * cq]
+        m = torch.full((b, h, cq), neg_inf, device=dev)
+        se = torch.zeros((b, h, cq), device=dev)
+        acc = torch.zeros((b, h, cq, dh), device=dev)
+        for j in range(s // ck):
+            sl = slice(j * ck, (j + 1) * ck)
+            ki, vi, kpi = k[:, :, sl], v[:, :, sl], kpos[sl]
+            sc = matmul_f32(qi, ki.mT)                      # [B,H,cq,ck]
+            causal = qpi[:, None] >= kpi[None, :]
+            sc = sc.masked_fill(~causal, neg_inf)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.exp(sc - m_safe[..., None]).to(vi.dtype)
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+            se = se * corr + p.sum(dim=-1, dtype=torch.float32).to(
+                p.dtype).float()
+            acc = acc * corr[..., None] + matmul_f32(p, vi)
+            m = m_new
+        se = torch.clamp(se, min=1e-30)
+        outs.append(acc / se[..., None])
+    out = torch.cat(outs, dim=2).transpose(1, 2)
     return out[:, :t0].to(v.dtype)
 
 

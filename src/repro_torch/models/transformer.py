@@ -21,8 +21,11 @@ Decode attention runs the hand-written ``flash_decode`` kernel (through
 (:func:`forward`, :func:`loss_fn`) follows the JAX functions: each cycle
 of layers is recomputed in the backward pass when ``cfg.remat`` is set
 (``torch.utils.checkpoint``, as the JAX scan body is ``jax.checkpoint``'d),
-and so is each chunk of the cross-entropy.  The ``block_outs`` remat
-policy and ``attn_opt`` come later (``ROADMAP.md`` queue 1).
+and so is each chunk of the cross-entropy.  The optimized variant's two
+settings: ``attn_opt`` trains a global layer with
+``layers.attention_causal_opt`` (prefill keeps ``attention_causal``, as
+JAX's does), and ``remat_policy="block_outs"`` recomputes each attention
+and each MLP block on its own in place of the whole cycle.
 """
 from __future__ import annotations
 
@@ -34,9 +37,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .common import dense_init
-from .layers import (MoEConfig, attention_causal, attention_decode,
-                     attention_window, moe_block, rms_norm, rope_cos_sin,
-                     rotate, swiglu)
+from .layers import (MoEConfig, attention_causal, attention_causal_opt,
+                     attention_decode, attention_window, moe_block,
+                     rms_norm, rope_cos_sin, rotate, swiglu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,12 +59,16 @@ class TransformerConfig:
     tie_embeddings: bool = True
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
-    remat: bool = True                      # recompute each cycle in backward
+    remat: bool = True                      # recompute in backward
     attn_chunk: int = 1024
     loss_chunk: int = 2048                  # tokens a cross-entropy chunk
     subquadratic: bool = False              # True iff long-context decode ok
-    # "none" saves only cycle boundaries; the JAX package's "block_outs"
-    # (save each block's output) is not ported (ROADMAP.md queue 1).
+    # the optimized variant's training attention on global layers:
+    # layers.attention_causal_opt (flat GQA heads, bf16 probabilities)
+    attn_opt: bool = False
+    # "none" recomputes each cycle of layers in backward; "block_outs"
+    # each attention and each MLP block on its own, saving the residual
+    # stream before each (the torch form of JAX's saved block outputs)
     remat_policy: str = "none"
 
     @property
@@ -195,14 +202,17 @@ def make_cache(cfg: TransformerConfig, batch: int, seq_len: int,
 # Training: forward + chunked loss
 # ---------------------------------------------------------------------------
 
-def _attend(q, k, v, cfg: TransformerConfig, local: bool, positions):
+def _attend(q, k, v, cfg: TransformerConfig, local: bool, positions,
+            opt: bool = False):
     """Prefill and training attention: the window schedule on a local
-    layer, the causal one elsewhere."""
+    layer, the causal one elsewhere (``opt``: the optimized variant's,
+    which training takes under ``cfg.attn_opt``; prefill never does)."""
     if local:
         return attention_window(q, k, v, cfg.sliding_window,
                                 q_positions=positions)
-    return attention_causal(q, k, v, chunk=cfg.attn_chunk,
-                            q_positions=positions, kv_positions=positions)
+    causal = attention_causal_opt if opt else attention_causal
+    return causal(q, k, v, chunk=cfg.attn_chunk, q_positions=positions,
+                  kv_positions=positions)
 
 
 def _mlp(h, lp, cfg: TransformerConfig):
@@ -213,8 +223,15 @@ def _mlp(h, lp, cfg: TransformerConfig):
     return moe_block(h, lp["router"], lp["wg"], lp["wu"], lp["wd"], cfg.moe)
 
 
-def _attn_train(x, lp, cfg: TransformerConfig, local: bool, positions, cos,
-                sin):
+_ATTN_PARAMS = ("ln1", "wq", "wk", "wv", "wo")
+
+
+def _attn_block(x, layer, cfg: TransformerConfig, local: bool, positions,
+                cos, sin):
+    """A layer's attention block on the residual stream ``x``, its
+    parameters cast to ``compute_dtype`` here, so that a recomputed block
+    keeps no cast copy alive."""
+    lp = {name: layer[name].to(cfg.compute_dtype) for name in _ATTN_PARAMS}
     b, s, _ = x.shape
     hd = cfg.hd
     h = rms_norm(x, lp["ln1"])
@@ -223,22 +240,36 @@ def _attn_train(x, lp, cfg: TransformerConfig, local: bool, positions, cos,
     v = (h @ lp["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
     k = rotate(k, cos, sin)
     q = rotate(q, cos, sin)
-    o = _attend(q, k, v, cfg, local, positions)
+    o = _attend(q, k, v, cfg, local, positions, opt=cfg.attn_opt)
     return o.reshape(b, s, cfg.n_heads * hd) @ lp["wo"]
 
 
+def _mlp_block(x, layer, cfg: TransformerConfig):
+    """A layer's MLP block (its parameters cast here, as in
+    :func:`_attn_block`): (the block's output, its aux loss or None)."""
+    lp = {name: a.to(cfg.compute_dtype) for name, a in layer.items()
+          if name not in _ATTN_PARAMS}
+    return _mlp(rms_norm(x, lp["ln2"]), lp, cfg)
+
+
+def _run(fn, *args):
+    return fn(*args)
+
+
+def _run_checkpointed(fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 def _cycle_train(x, aux, cycle, cfg: TransformerConfig, positions, cos,
-                 sin):
+                 sin, run=_run):
     """One cycle of layers (``cycle``: a dict of one layer's parameters a
-    position), each cast to ``compute_dtype`` here so that a recomputed
-    cycle keeps no cast copy alive.  Returns (x, aux + each MoE layer's
-    aux, added in JAX's order)."""
-    cd = cfg.compute_dtype
+    position), each block through ``run`` (``_run_checkpointed`` under
+    ``block_outs``).  Returns (x, aux + each MoE layer's aux, added in
+    JAX's order)."""
     for p_i, layer in enumerate(cycle):
-        lp = {name: a.to(cd) for name, a in layer.items()}
-        x = x + _attn_train(x, lp, cfg, cfg.layer_is_local(p_i), positions,
-                            cos, sin)
-        dx, a = _mlp(rms_norm(x, lp["ln2"]), lp, cfg)
+        x = x + run(_attn_block, x, layer, cfg, cfg.layer_is_local(p_i),
+                    positions, cos, sin)
+        dx, a = run(_mlp_block, x, layer, cfg)
         x = x + dx
         if a is not None:
             aux = aux + a
@@ -257,11 +288,12 @@ def forward(params, tokens: torch.Tensor, cfg: TransformerConfig,
     Rounding follows the JAX forward: the whole embedding is cast to
     ``compute_dtype`` before the gather (its gradient is summed in that
     dtype, as XLA's scatter-add is), the layers and ``ln_f`` are cast to
-    it, and RoPE and the norms compute in f32."""
-    if cfg.remat_policy != "none":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} comes with the optimized "
-            "LM variant (ROADMAP.md queue 1)")
+    it, and RoPE and the norms compute in f32.  Under ``cfg.remat``
+    the backward pass recomputes each cycle (``remat_policy="none"``) or
+    each block (``"block_outs"``) once."""
+    if cfg.remat_policy not in ("none", "block_outs"):
+        raise ValueError(f"remat_policy must be 'none' or 'block_outs', "
+                         f"got {cfg.remat_policy!r}")
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
@@ -273,7 +305,10 @@ def forward(params, tokens: torch.Tensor, cfg: TransformerConfig,
     for c in range(cfg.n_cycles):
         cycle = [{name: a[c] for name, a in pos.items()}
                  for pos in params["layers"]]
-        if cfg.remat:
+        if cfg.remat and cfg.remat_policy == "block_outs":
+            x, aux = _cycle_train(x, aux, cycle, cfg, positions, cos, sin,
+                                  run=_run_checkpointed)
+        elif cfg.remat:
             x, aux = checkpoint(_cycle_train, x, aux, cycle, cfg, positions,
                                 cos, sin, use_reentrant=False)
         else:

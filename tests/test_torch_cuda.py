@@ -840,3 +840,82 @@ def test_family_decode_step_on_card(cuda_device, arch):
         torch.cuda.set_sync_debug_mode("default")
     assert flash_decode.launches == before + cfg.n_layers
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+# (b, t, h, kh, dh, chunk): tests/test_torch_opt_variant.py's shapes
+OPT_ATTN_SHAPES = [(2, 48, 8, 2, 16, 16), (1, 65, 4, 4, 8, 32),
+                   (2, 64, 16, 8, 16, 16), (1, 40, 16, 1, 8, 16),
+                   (1, 33, 4, 2, 256, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", OPT_ATTN_SHAPES)
+def test_attention_causal_opt_on_card(cuda_device, shape, dtype):
+    """The optimized variant's attention on the card against its CPU
+    path, output and the gradients of q, k and v.  f32: the same f32
+    products summed in another order, atol 1e-5.  bf16: the card's
+    products keep bf16 operands (the CPU widens them first, the same
+    values) but its backward rounds the f32 cotangent to bf16 before the
+    gradient products, which the CPU does not: the repo's bf16 bounds,
+    atol 2e-2 and rtol 5e-2 an element, relative L2 2e-2 a tensor."""
+    from repro_torch.models.layers import attention_causal_opt
+    b, t_, h, kh, dh, chunk = shape
+    rng = np.random.default_rng(sum(shape))
+    arrays = [rng.normal(size=s).astype(np.float32)
+              for s in ((b, t_, h, dh), (b, t_, kh, dh), (b, t_, kh, dh),
+                        (b, t_, h, dh))]
+    runs = []
+    for dev in ("cpu", cuda_device):
+        q, k, v = (t(a).to(dev, dtype).requires_grad_(True)
+                   for a in arrays[:3])
+        out = attention_causal_opt(q, k, v, chunk=chunk)
+        assert out.dtype == dtype
+        out.backward(t(arrays[3]).to(dev, dtype))
+        runs.append([x.detach().float().cpu()
+                     for x in (out, q.grad, k.grad, v.grad)])
+    for what, got, want in zip(("out", "dq", "dk", "dv"), runs[1], runs[0]):
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=0,
+                                       msg=what)
+            continue
+        torch.testing.assert_close(got, want, atol=2e-2, rtol=5e-2, msg=what)
+        assert (got - want).norm() <= 2e-2 * want.norm(), what
+
+
+@pytest.mark.cuda
+def test_opt_score_product_is_f32_from_bf16_on_card(cuda_device):
+    """``matmul_f32`` on bf16 card tensors keeps the operands in bf16
+    (the tensor cores) and returns f32: each element within the f32
+    rounding of a sum of dh exact products (dh x 2^-24 x the sum of
+    their magnitudes) of the widened product.  Its gradients are bf16."""
+    from repro_torch.models.layers import matmul_f32
+    rng = np.random.default_rng(0)
+    a, b = (t(rng.normal(size=s).astype(np.float32)).to(
+        cuda_device, torch.bfloat16).requires_grad_(True)
+            for s in ((2, 3, 96, 128), (2, 3, 128, 80)))
+    got = matmul_f32(a, b.detach().mT.contiguous().mT)
+    assert got.dtype == torch.float32 and got.shape == (2, 3, 96, 80)
+    want = a.detach().float() @ b.detach().float()
+    slack = 128 * 2.0 ** -24 * (a.detach().float().abs()
+                                @ b.detach().float().abs())
+    assert ((got.detach() - want).abs() <= slack).all()
+    got = matmul_f32(a, b)
+    got.backward(torch.ones_like(got))
+    assert a.grad.dtype == torch.bfloat16 and b.grad.dtype == torch.bfloat16
+    ones = torch.ones(2, 3, 96, 80, device=cuda_device)
+    torch.testing.assert_close(a.grad.float(), ones @ b.detach().float().mT,
+                               rtol=2 ** -7, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_quantize_int8_on_card_equals_cpu(cuda_device):
+    """``q`` and ``scale`` bit for bit on the card and the CPU, with
+    noise drawn once on the CPU."""
+    from repro_torch.optim import quantize_int8, uniform_noise
+    x = t(np.random.default_rng(0).normal(size=(1000, 257)).astype(
+        np.float32) * 3e-3)
+    noise = uniform_noise(x.shape, torch.Generator().manual_seed(1))
+    want_q, want_s = quantize_int8(x, noise)
+    q, s = quantize_int8(x.to(cuda_device), noise.to(cuda_device))
+    assert torch.equal(q.cpu(), want_q) and torch.equal(s.cpu(), want_s)

@@ -306,7 +306,9 @@ def test_lm_family_loss_and_grads_match_jax(arch, dtype):
 
 def test_lm_grads_equal_without_remat():
     """Recomputing each cycle and loss chunk changes no bit of the
-    gradients (the same operations run again)."""
+    gradients (the same operations run again), nor does recomputing each
+    block on its own (``remat_policy="block_outs"``); an unknown policy
+    is refused."""
     tcfg = dataclasses.replace(glm4_9b.smoke_config(),
                                compute_dtype=torch.float32)
     tp = transformer_params_from_numpy(_lm_params_np(), tcfg, device="cpu")
@@ -318,9 +320,15 @@ def test_lm_grads_equal_without_remat():
     assert torch.equal(la, lb)
     for x, y in zip(leaves(ga), leaves(gb)):
         assert torch.equal(x, y)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    lc, gc = tsteps.lm_value_and_grad(
+        tp, toks, toks.roll(-1, 1),
+        dataclasses.replace(tcfg, remat_policy="block_outs"))
+    assert torch.equal(la, lc)
+    for x, y in zip(leaves(ga), leaves(gc)):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="remat_policy"):
         ttf.loss_fn(tp, toks, toks, dataclasses.replace(
-            tcfg, remat_policy="block_outs"))
+            tcfg, remat_policy="everything"))
 
 
 def test_attention_backward_has_no_nan_on_padded_rows():
