@@ -15,8 +15,8 @@ never JAX or the JAX package.  Phases, each of which asserts:
    kernel's, the plain version's and (where one PyTorch call computes
    the same function) the library call's times (CUDA events), ptxas'
    registers and spills of every kernel (none may spill in the two
-   redesigned split passes, the dh-256 one among them, nor in the sweep
-   kernel).  The HoD kernels and ``bag_sum`` must be bit-equal
+   redesigned split passes, the dh-256 one among them, in the sweep
+   kernel, nor in the backward's histogram, sort pass and runs pass).  The HoD kernels and ``bag_sum`` must be bit-equal
    (``torch.equal``: fp32 adds and mins, or sums in the plain version's
    order); ``flash_decode`` within atol 1e-4 of its f32 output.  The
    split kernels' edge cases run at full width too (M 1 and 33, K below
@@ -124,9 +124,11 @@ never JAX or the JAX package.  Phases, each of which asserts:
    on the same ``grad_out`` (each element within 2.5 x (n - 1) x 2^-24 x
    its row's sum of |terms|, n the row's slots, so bit-equal at n = 1;
    a zero output and the crossing runs left at zero must break that
-   bound) and must be bit-equal at a second launch; the backward is
-   timed beside its plain version and ``index_add_``, its sort and the
-   dense zero fill apart.  (b) glm4-9b: its full width at 2
+   bound) and must be bit-equal at a second launch; its radix sort must
+   give ``backward_plan``'s (rows, slots) bit for bit; the backward is
+   timed beside its plain version and ``index_add_``, with its parts
+   (the radix sort beside ``torch.sort``, the runs pass, the carry pass)
+   and the dense zero fill apart.  (b) glm4-9b: its full width at 2
    layers in f32 on 64 tokens, loss and every gradient on the card
    against the CPU's; then train_4k at full width (d 4096, vocab
    151,552, GQA 32/2, d_ff 13,696) with the depth cut to what fits
@@ -2423,17 +2425,17 @@ def bwd_violations(got, want, absum, cnt) -> int:
     return int(((got - want).abs() > tol).sum())
 
 
-def check_bwd_output(torch, got, g, ids, mask, n_rows: int) -> dict:
+def check_bwd_output(torch, got, g, ids, mask, n_rows: int,
+                     chunk: int) -> dict:
     """Hold a dense table gradient ``got`` [n_rows, D] against
     ``bag_sum_backward_ref`` on the same inputs: every touched row within
     :func:`bwd_violations`'s bound, every untouched row zero, all finite.
     Two planted faults must break the bound: a zero output, and the rows
-    whose run of sorted slots crosses a chunk boundary left at zero (what
-    the kernel writes without its second pass).  Raises on a failure;
-    returns what the check saw."""
+    whose run of sorted slots crosses a boundary of the runs pass's
+    ``chunk`` left at zero (what the kernel writes without its second
+    pass).  Raises on a failure; returns what the check saw."""
     from repro_torch.kernels.embedding_bag import (backward_plan,
                                                    bag_sum_backward_ref)
-    from repro_torch.kernels.embedding_bag.ops import BWD_CHUNK
     rows, _ = backward_plan(ids, n_rows)
     cnt = torch.bincount(rows.long(), minlength=n_rows + 1)[:n_rows]
     del rows
@@ -2450,7 +2452,7 @@ def check_bwd_output(torch, got, g, ids, mask, n_rows: int) -> dict:
                              f"{stray} stray elements in untouched rows, "
                              f"max |err| {max_err}")
     start = torch.cumsum(cnt, 0)[hit] - n_h      # each run's first slot
-    crossing = start // BWD_CHUNK != (start + n_h - 1) // BWD_CHUNK
+    crossing = start // chunk != (start + n_h - 1) // chunk
     caught = {
         "zero output": bwd_violations(torch.zeros_like(got_h), want, absum,
                                       n_h),
@@ -2467,16 +2469,95 @@ def check_bwd_output(torch, got, g, ids, mask, n_rows: int) -> dict:
             "max_abs_sum": absum.max().item()}
 
 
+def check_bwd_index(torch, ids, n_rows: int) -> None:
+    """The card's index preparation (the radix sort kernels) against
+    ``backward_plan`` (``torch.sort``, stable): the same rows and slots,
+    bit for bit.  Raises otherwise."""
+    from repro_torch.kernels.embedding_bag import backward_plan
+    from repro_torch.kernels.embedding_bag.ops import backward_index
+    rows, slots = backward_index(ids, n_rows)
+    want_rows, want_slots = backward_plan(ids, n_rows)
+    if not (torch.equal(rows, want_rows)
+            and torch.equal(slots.long(), want_slots)):
+        bad = int(((rows != want_rows) | (slots.long() != want_slots)).sum())
+        raise AssertionError(f"bag_sum_backward's radix sort differs from "
+                             f"backward_plan at {bad} of {rows.numel()} "
+                             f"places")
+
+
+def bwd_call_times(torch, g, ids, mask, n_rows: int, buf,
+                   touched: int) -> dict:
+    """The wrapper's call into ``buf`` (queued behind a sleep kernel),
+    the plain version once and ``index_add_`` (the library's scatter of
+    the same sum; K = 1 here), by CUDA events; the byte bound, with
+    ``touched`` rows written."""
+    from repro_torch.kernels.embedding_bag import (bag_sum_backward,
+                                                   bag_sum_backward_ref)
+    n, d = ids.numel(), g.shape[1]
+    out = {"ms": time_ms(torch, lambda: bag_sum_backward(
+        g, ids, mask, n_rows, out=buf), iters=20, queued=True)}
+    out["plain_ms"] = time_ms(torch, lambda: bag_sum_backward_ref(
+        g, ids, mask, n_rows), iters=1, warmup=0)
+    flat = ids.reshape(-1).long()
+    src = g * mask.reshape(-1, 1)              # K = 1: one slot a bag
+    out["library_ms"] = time_ms(torch, lambda: buf.index_add_(0, flat, src),
+                                iters=20)
+    # Bytes: grad_out's rows, ids and mask (4 B a slot each) in, each
+    # touched row written once; one multiply and one add an element a slot.
+    out["bound_ms"], out["bound_by"] = bound(
+        4.0 * n * d + 8.0 * n + 4.0 * d * touched, 2.0 * n * d)
+    return out
+
+
+def bwd_parts(torch, g, ids, mask, n_rows: int, buf) -> dict:
+    """The call's parts on the card (CUDA events, queued): the radix sort
+    (``backward_index``) beside ``backward_plan``'s ``torch.sort``, the
+    sort's yardstick; the runs pass and the carry pass alone (each
+    idempotent on the sorted slots); the dense zero fill that a new
+    ``out`` takes apart."""
+    from repro_torch.kernels.embedding_bag import backward_plan
+    from repro_torch.kernels.embedding_bag import ops
+    plan = ops.plan_backward(ids.numel(), n_rows)
+    lib, stream = ops._bwd_lib(), ops._stream(g.device)
+    scratch = ops._scratch(plan, ids.numel(), g.shape[1], g.device)
+    rows, slots = ops._launch_sort(lib, ids, n_rows, plan, scratch, stream)
+    mask = mask.to(torch.float32).contiguous()
+
+    def reduce(which):
+        ops._launch_reduce(lib, rows, slots, mask, g, buf, ids.shape[1],
+                           plan, scratch["parts"], which, stream)
+    return {
+        "index_ms": time_ms(torch, lambda: ops.backward_index(ids, n_rows),
+                            iters=20, queued=True),
+        "torch_sort_ms": time_ms(torch, lambda: backward_plan(ids, n_rows),
+                                 iters=20),
+        "runs_ms": time_ms(torch, lambda: reduce(1), iters=20, queued=True),
+        "carry_ms": time_ms(torch, lambda: reduce(2), iters=20,
+                            queued=True),
+        "memset_ms": time_ms(torch, buf.zero_, iters=10)}
+
+
+def bwd_plan_text(n: int, n_rows: int) -> str:
+    from repro_torch.kernels.embedding_bag.ops import SORT_TILE, plan_backward
+    plan = plan_backward(n, n_rows)
+    widths = [w for _, w in plan.digits]
+    return (f"one call = {len(widths) + 4} launches: a memset of the sort's "
+            f"look-back words, bag_bwd_hist_kernel, {len(widths)} x "
+            f"bag_bwd_sort_pass_kernel ({plan.bits} key bits, digits of "
+            f"{widths} bits, {plan.tiles} tiles of {SORT_TILE}), "
+            f"bag_bwd_runs_kernel ({plan.n_chunks} chunks of {plan.chunk} "
+            f"slots), bag_bwd_carry_kernel; launches counts calls")
+
+
 def check_bag_sum_backward(torch, card: str, cell) -> dict:
-    """One DLRM step's table gradient, from the kernel through autograd,
+    """One DLRM step's table gradient, from the kernels through autograd,
     against ``bag_sum_backward_ref`` on the same ``grad_out`` (captured
     from the Function's backward) on the card by :func:`check_bwd_output`,
-    and bit-equal across two launches; timed at the train shape beside
-    the plain version and ``index_add_``, the memset of the dense
-    gradient timed apart."""
-    from repro_torch.kernels.embedding_bag import (BagSum, backward_plan,
-                                                   bag_sum_backward,
-                                                   bag_sum_backward_ref)
+    bit-equal across two launches, its radix sort equal to
+    ``backward_plan``; timed at the train shape beside the plain version
+    and ``index_add_``, with its parts (:func:`bwd_parts`)."""
+    from repro_torch.kernels.embedding_bag import BagSum, bag_sum_backward
+    from repro_torch.kernels.embedding_bag.ops import plan_backward
     from repro_torch.launch.steps import dlrm_value_and_grad
     state, batch = cell.args[0], cell.args[1:]
     seen = {}
@@ -2498,7 +2579,9 @@ def check_bag_sum_backward(torch, card: str, cell) -> dict:
     got = grads["tables"].view(n_rows, -1)
     d = got.shape[1]
     n = ids.numel()
-    chk = check_bwd_output(torch, got, g, ids, mask, n_rows)
+    check_bwd_index(torch, ids, n_rows)
+    chk = check_bwd_output(torch, got, g, ids, mask, n_rows,
+                           plan_backward(n, n_rows).chunk)
     again = bag_sum_backward(g, ids, mask, n_rows)
     if not torch.equal(again, got):
         raise AssertionError("bag_sum_backward gave other bits at its "
@@ -2506,7 +2589,8 @@ def check_bag_sum_backward(torch, card: str, cell) -> dict:
     touched = chk["touched"]
     say(f"bag_sum_backward at train_batch: grad_out [{n},{d}] f32, "
         f"{touched} rows touched ({chk['one_slot']} of one slot, "
-        f"bit-equal), the hottest {chk['hottest']} slots; max |grad_out| "
+        f"bit-equal), the hottest {chk['hottest']} slots; radix sort equal "
+        f"to backward_plan's (rows, slots); max |grad_out| "
         f"{chk['max_grad_out']:.3e}, max |d_table| "
         f"{chk['max_d_table']:.3e}, max row sum of |terms| "
         f"{chk['max_abs_sum']:.3e}; max |err| {chk['max_abs_err']:.3e} "
@@ -2520,32 +2604,20 @@ def check_bag_sum_backward(torch, card: str, cell) -> dict:
     free(torch)
     row = {"shape": f"grad_out [{n},{d}] f32, ids [{n},1] (Zipf), table "
                     f"[{n_rows},{d}]", "max_abs_err": chk["max_abs_err"],
-           "plan": "one call = 2 kernel launches (bag_bwd_runs_kernel, then "
-                   "bag_bwd_carry_kernel); launches counts calls"}
+           "plan": bwd_plan_text(n, n_rows)}
     buf = torch.zeros((n_rows, d), device="cuda")
-    row["ms"] = time_ms(torch, lambda: bag_sum_backward(
-        g, ids, mask, n_rows, out=buf), iters=20)
-    row["parts"] = {
-        "sort_ms": time_ms(torch, lambda: backward_plan(ids, n_rows),
-                           iters=20),
-        "memset_ms": time_ms(torch, buf.zero_, iters=10)}
-    row["plain_ms"] = time_ms(torch, lambda: bag_sum_backward_ref(
-        g, ids, mask, n_rows), iters=1, warmup=0)
-    flat = ids.reshape(-1).long()
-    src = g * mask.reshape(-1, 1)              # K = 1: one slot a bag
-    row["library_ms"] = time_ms(torch, lambda: buf.index_add_(0, flat, src),
-                                iters=20)
-    # Bytes: grad_out's rows, ids and mask (4 B a slot each) in, each
-    # touched row written once; one multiply and one add an element a slot.
-    row["bound_ms"], row["bound_by"] = bound(
-        4.0 * n * d + 8.0 * n + 4.0 * d * touched, 2.0 * n * d)
-    say(f"bag_sum_backward: kernel {row['ms']:.4f} ms (its sort "
-        f"{row['parts']['sort_ms']:.4f} ms), dense zero fill "
-        f"{row['parts']['memset_ms']:.4f} "
-        f"ms apart, plain {row['plain_ms']:.4f} ms, index_add_ (library) "
-        f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']}) on {card}")
-    del buf, src, flat
+    row.update(bwd_call_times(torch, g, ids, mask, n_rows, buf, touched))
+    row["parts"] = bwd_parts(torch, g, ids, mask, n_rows, buf)
+    p = row["parts"]
+    say(f"bag_sum_backward: kernels {row['ms']:.4f} ms a call (radix sort "
+        f"{p['index_ms']:.4f} ms, torch.sort's backward_plan "
+        f"{p['torch_sort_ms']:.4f} ms; runs pass {p['runs_ms']:.4f} ms, "
+        f"carry pass {p['carry_ms']:.4f} ms), dense zero fill "
+        f"{p['memset_ms']:.4f} ms apart, plain {row['plain_ms']:.4f} ms, "
+        f"index_add_ (library) {row['library_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}) on {card}; "
+        f"{row['plan']}")
+    del buf
     free(torch)
     return row
 
@@ -3446,13 +3518,16 @@ def main() -> int:
             say(f"  ptxas {name}: {fn}: {info['registers']} registers, "
                 f"{info['smem']} B static smem, spill stores "
                 f"{info['spill_stores']} B, loads {info['spill_loads']} B")
-    # The redesigned split passes and the sweep kernel must not spill
-    # (checked after the run, so that a spilling build still reports its
-    # times).
+    # The redesigned split passes, the sweep kernel and the backward's
+    # sort and runs kernels must not spill (checked after the run, so
+    # that a spilling build still reports its times).
     spills = {}
     for name, key in (("tropical_matmul", "minplus_kernel"),
                       ("flash_decode", "decode_split_tc_kernel"),
-                      ("edge_relax", "relax_sweep_kernel")):
+                      ("edge_relax", "relax_sweep_kernel"),
+                      ("embedding_bag", "bag_bwd_hist_kernel"),
+                      ("embedding_bag", "bag_bwd_sort_pass_kernel"),
+                      ("embedding_bag", "bag_bwd_runs_kernel")):
         hit = {fn: i for fn, i in ptxas[name].items() if key in fn}
         if not hit or any(i["spill_stores"] or i["spill_loads"]
                           for i in hit.values()):

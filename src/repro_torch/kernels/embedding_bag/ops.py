@@ -6,22 +6,156 @@ CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise.  Nothing falls back from one to the other.
 """
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from .._build import load
 from .ref import backward_plan, bag_sum_backward_ref, bag_sum_ref, take_fill
 
-__all__ = ["bag_sum", "bag_sum_backward"]
+__all__ = ["bag_sum", "bag_sum_backward", "backward_index", "plan_backward"]
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] \
     + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 2 \
-    + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_SORT_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 \
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_REDUCE_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 2 \
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
-#: Sorted slots a chunk of the backward's first pass: a run of one row
-#: longer than this is summed in parts, combined in chunk order.
-BWD_CHUNK = 32
+#: Keys a block of the backward's sort passes ranks (256 threads x 17: the
+#: train shape's 392 tiles fit the H100's 132 SMs at 3 blocks each).
+SORT_TILE = 4352
+#: The widest digit a sort pass takes: 256 buckets, one a thread.
+SORT_DIGIT_BITS = 8
+SORT_RADIX = 1 << SORT_DIGIT_BITS
+#: Sorted slots a chunk of the backward's runs pass: a run of one row
+#: longer than this is summed in parts, combined in chunk order.  Sized
+#: for the pass's eight rows in flight a lane, not for latency.
+BWD_CHUNK = 128
+
+
+class BackwardPlan(NamedTuple):
+    """The launch plan of :func:`bag_sum_backward` on the card."""
+    bits: int                  # key width: n_rows, the sentinel, fits
+    digits: tuple              # (shift, width) a sort pass, low digit first
+    tiles: int                 # SORT_TILE-key tiles a pass
+    zero_bytes: int            # zeroed scratch: look-back words, counts,
+                               # tile counters
+    chunk: int                 # sorted slots a chunk of the runs pass
+    n_chunks: int
+
+
+def plan_backward(n: int, n_rows: int) -> BackwardPlan:
+    """The backward's plan for ``n`` slots over ``n_rows`` rows: a stable
+    LSD radix sort over ``n_rows.bit_length()`` key bits (at least 1; the
+    key ``n_rows`` marks a slot that adds nothing, so it must fit), in
+    the fewest passes of at most SORT_DIGIT_BITS bits, the widths as even
+    as they go, wider ones first; the runs pass in chunks of BWD_CHUNK.
+    At dlrm-rm2's train shape (26e6 rows): 25 bits in 4 passes of 7, 6,
+    6, 6.  Raises when the int32 slot values or rows cannot hold the
+    shape."""
+    if not 0 <= n < 2 ** 31:
+        raise ValueError(f"bag_sum_backward: B*K = {n} slots; int32 slot "
+                         f"indices address at most 2**31 - 1")
+    if not 0 <= n_rows < 2 ** 31:
+        raise ValueError(f"bag_sum_backward: {n_rows} rows; int32 rows "
+                         f"address at most 2**31 - 1")
+    bits = max(1, n_rows.bit_length())
+    passes = -(-bits // SORT_DIGIT_BITS)
+    base, extra = divmod(bits, passes)
+    widths = [base + (i < extra) for i in range(passes)]
+    shifts = [sum(widths[:i]) for i in range(passes)]
+    tiles = -(-n // SORT_TILE)
+    zero_bytes = 8 * passes * tiles * SORT_RADIX \
+        + 4 * passes * (SORT_RADIX + 1)
+    return BackwardPlan(bits, tuple(zip(shifts, widths)), tiles,
+                        zero_bytes, BWD_CHUNK, -(-n // BWD_CHUNK))
+
+
+def _packed_widths(plan: BackwardPlan) -> int:
+    """The digits' widths as the kernel reads them, a byte a pass."""
+    return sum(w << (8 * i) for i, (_, w) in enumerate(plan.digits))
+
+
+def _scratch(plan: BackwardPlan, n: int, d: int, device) -> dict:
+    """What one card call allocates besides its output: the sorted rows
+    and slots, the sort's other buffer, its zeroed words and the runs
+    pass's head and tail parts."""
+    return {"sorted": torch.empty((2, n), dtype=torch.int32, device=device),
+            "tmp": torch.empty((2, n), dtype=torch.int32, device=device),
+            "zero": torch.empty(-(-plan.zero_bytes // 8), dtype=torch.int64,
+                                device=device),
+            "parts": torch.empty((2, plan.n_chunks, d), dtype=torch.float32,
+                                 device=device)}
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    """The backward's entry points, argument types set once."""
+    lib = load("embedding_bag")
+    lib.bag_bwd_sort.argtypes = _SORT_ARGTYPES
+    lib.bag_bwd_sort.restype = ctypes.c_int
+    lib.bag_bwd_reduce.argtypes = _REDUCE_ARGTYPES
+    lib.bag_bwd_reduce.restype = ctypes.c_int
+    return lib
+
+
+def _launch_sort(lib, ids, n_rows: int, plan: BackwardPlan, scratch: dict,
+                 stream: int):
+    """Launch the index preparation; returns (rows, slots), int32."""
+    rows, slots = scratch["sorted"]
+    keys, vals = scratch["tmp"]
+    err = lib.bag_bwd_sort(ids.data_ptr(), rows.data_ptr(), slots.data_ptr(),
+                           keys.data_ptr(), vals.data_ptr(),
+                           scratch["zero"].data_ptr(), plan.zero_bytes,
+                           ids.numel(), n_rows, plan.tiles,
+                           _packed_widths(plan), stream)
+    if err:
+        raise RuntimeError(f"embedding_bag backward sort launch failed: "
+                           f"CUDA error {err}")
+    return rows, slots
+
+
+def _launch_reduce(lib, rows, slots, mask, grad_out, out, n_slots: int,
+                   plan: BackwardPlan, parts, which: int, stream: int):
+    """Launch the runs pass (``which`` 1), the carry pass (2) or both (3)
+    over sorted ``rows``/``slots`` into ``out``."""
+    err = lib.bag_bwd_reduce(rows.data_ptr(), slots.data_ptr(),
+                             mask.data_ptr(), grad_out.data_ptr(),
+                             out.data_ptr(), parts[0].data_ptr(),
+                             parts[1].data_ptr(), rows.numel(),
+                             out.shape[0], n_slots, out.shape[1],
+                             plan.chunk, which, stream)
+    if err:
+        raise RuntimeError(f"embedding_bag backward launch failed: CUDA "
+                           f"error {err}")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def backward_index(ids: torch.Tensor, n_rows: int):
+    """The backward's index preparation alone: (rows ascending, slots),
+    the slots of ``ids`` stably sorted by row as :func:`backward_plan`
+    reads them.  On the CPU it is :func:`backward_plan` (slots int64); on
+    the card the radix sort kernels (slots int32, the same values)."""
+    if _on_cpu(ids):
+        return backward_plan(ids, n_rows)
+    if ids.device.type != "cuda" or ids.dtype != torch.int32 \
+            or not ids.is_contiguous():
+        raise ValueError(f"backward_index: ids must be contiguous int32 on "
+                         f"the CPU or a CUDA device, got {ids.dtype} on "
+                         f"{ids.device}")
+    n = ids.numel()
+    plan = plan_backward(n, n_rows)
+    if n == 0:
+        empty = torch.empty(0, dtype=torch.int32, device=ids.device)
+        return empty, empty.clone()
+    scratch = _scratch(plan, n, 0, ids.device)
+    return _launch_sort(_bwd_lib(), ids, n_rows, plan, scratch,
+                        _stream(ids.device))
 
 
 def _check(table, ids, mask) -> None:
@@ -82,15 +216,17 @@ def bag_sum_backward(grad_out: torch.Tensor, ids: torch.Tensor,
                         mask[b, k] * grad_out[b, :]
 
     (ids read as the forward reads them).  On the card the slots are
-    sorted by row (``torch.sort``, stable: index preparation) and the
-    kernel sums each row's run of slots and writes each touched row
-    once, with no atomics, so the result is the same bits at every
-    launch.  ``out``, if given, must be zero outside the rows the ids
-    touch (a zero fill, or the same call's earlier output); it is
-    written and returned, and the zero fill of a new ``out`` is a
-    separate ``torch.zeros``.  ``bag_sum_backward.launches`` counts
-    calls that reach the card; each launches two kernels, the runs pass
-    and the carry pass."""
+    sorted by row by this file's radix sort kernels (index preparation,
+    :func:`backward_index`), and the kernels sum each row's run of slots
+    and write each touched row once, with no float atomics, so the
+    result is the same bits at every launch.  ``out``, if given, must be
+    zero outside the rows the ids touch (a zero fill, or the same call's
+    earlier output); it is written and returned, and the zero fill of a
+    new ``out`` is a separate ``torch.zeros``.
+    ``bag_sum_backward.launches`` counts calls that reach the card; each
+    makes ``len(plan.digits) + 4`` launches (:func:`plan_backward`): a
+    memset, the histogram, a sort pass a digit, the runs pass and the
+    carry pass."""
     if grad_out.dim() != 2 or ids.dim() != 2 or mask.shape != ids.shape \
             or grad_out.shape[0] != ids.shape[0]:
         raise ValueError(f"bag_sum_backward: grad_out must be [B, D], ids "
@@ -104,11 +240,10 @@ def bag_sum_backward(grad_out: torch.Tensor, ids: torch.Tensor,
         return ref if out is None else out.copy_(ref)
     mask = mask.to(torch.float32).contiguous()
     _check(grad_out, ids, mask)
-    if not 0 <= n_rows < 2 ** 31:
-        raise ValueError("bag_sum_backward: int32 rows address at most "
-                         "2**31 - 1 rows")
     b, k = ids.shape
     d = grad_out.shape[1]
+    n = b * k
+    plan = plan_backward(n, n_rows)
     if out is None:
         out = torch.zeros((n_rows, d), dtype=torch.float32,
                           device=grad_out.device)
@@ -117,22 +252,13 @@ def bag_sum_backward(grad_out: torch.Tensor, ids: torch.Tensor,
         raise ValueError(f"bag_sum_backward: out must be a contiguous "
                          f"[{n_rows}, {d}] float32 tensor on "
                          f"{grad_out.device}")
-    n = b * k
     if n == 0 or d == 0 or n_rows == 0:
         return out
-    rows, slots = backward_plan(ids, n_rows)
-    n_chunks = -(-n // BWD_CHUNK)
-    parts = torch.empty((2, n_chunks, d), dtype=torch.float32,
-                        device=grad_out.device)
-    fn = load("embedding_bag").bag_sum_backward
-    fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
-    err = fn(rows.data_ptr(), slots.data_ptr(), mask.data_ptr(),
-             grad_out.data_ptr(), out.data_ptr(), parts[0].data_ptr(),
-             parts[1].data_ptr(), n, n_rows, k, d, BWD_CHUNK,
-             torch.cuda.current_stream(grad_out.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"embedding_bag backward launch failed: CUDA "
-                           f"error {err}")
+    lib, stream = _bwd_lib(), _stream(grad_out.device)
+    scratch = _scratch(plan, n, d, grad_out.device)
+    rows, slots = _launch_sort(lib, ids, n_rows, plan, scratch, stream)
+    _launch_reduce(lib, rows, slots, mask, grad_out, out, k, plan,
+                   scratch["parts"], 3, stream)
     bag_sum_backward.launches += 1
     return out
 

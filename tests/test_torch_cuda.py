@@ -5,6 +5,8 @@ GPU machine with ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda.py``; this file imports neither JAX nor the JAX
 package, so it runs where only the port is installed.
 """
+import zlib
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +17,8 @@ from repro_torch.kernels.embedding_bag import (backward_plan, bag_sum,
                                                bag_sum_backward,
                                                bag_sum_backward_ref,
                                                bag_sum_ref, take_fill)
+from repro_torch.kernels.embedding_bag.ops import (BWD_CHUNK, SORT_TILE,
+                                                   backward_index)
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.tropical_matmul import minplus, minplus_ref
@@ -339,6 +343,76 @@ def test_bag_sum_backward_kernel_on_card(cuda_device, v, b, k, d, hot):
     assert bag_sum_backward.launches == before + 2
     assert torch.equal(got, again)
     got = got.cpu()
+    err = (got - want).abs()
+    assert (err <= 1e-5 * want.abs() + 1e-6 * cnt[:, None]).all(), \
+        err.max().item()
+    assert torch.equal(got[cnt <= 1], want[cnt <= 1])
+    assert not got[cnt == 0].any()
+
+
+def _index_case(case):
+    """ids [B, K] int32 and n_rows of a ``backward_index`` case: uniform
+    ids with negative and out-of-range ones around n_rows, Zipf ids at
+    K > 1, every slot invalid, or every slot on one row."""
+    rng = np.random.default_rng(zlib.crc32(repr(case).encode()))
+    kind, n_rows, b, k = case
+    if kind == "uniform":
+        ids = rng.integers(-n_rows - 3, n_rows + 3, (b, k))
+    elif kind == "zipf":
+        ids = np.minimum(rng.zipf(1.2, (b, k)) - 1, n_rows - 1)
+        ids.flat[:4] = [-1, n_rows, -n_rows, -n_rows - 1]
+    elif kind == "invalid":
+        ids = rng.choice([n_rows, n_rows + 9, -n_rows - 1, -2 ** 31],
+                         (b, k))
+    else:                                        # "one row"
+        ids = np.full((b, k), n_rows // 2)
+    return t(ids.astype(np.int32)), n_rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    ("uniform", 1, 9000, 1), ("uniform", 2 ** 13 - 1, 9000, 1),
+    ("uniform", 2 ** 13, 9000, 1), ("uniform", 2 ** 13 + 1, 9000, 1),
+    ("uniform", 2 ** 24 - 1, 20000, 1), ("uniform", 2 ** 24, 20000, 1),
+    ("uniform", 2 ** 24 + 1, 20000, 1), ("uniform", 26_000_000, 65536, 1),
+    ("zipf", 26_000_000, 65536, 26), ("zipf", 1000, 3001, 3),
+    ("invalid", 1000, 5000, 1), ("one row", 1000, 4 * SORT_TILE + 77, 2),
+    ("uniform", 300, SORT_TILE, 1), ("uniform", 300, BWD_CHUNK * 9 + 5, 1)])
+def test_backward_index_on_card(cuda_device, case):
+    """The radix sort kernels give ``backward_plan``'s (rows, slots) bit
+    for bit: at n_rows 1, 2**k - 1, 2**k, 2**k + 1 and dlrm-rm2's 26e6,
+    Zipf ids at K > 1, every slot invalid, every slot on one row (a run
+    across every tile and chunk), n a whole tile and n not a multiple of
+    the chunk."""
+    ids, n_rows = _index_case(case)
+    rows, slots = backward_index(ids.to(cuda_device), n_rows)
+    want_rows, want_slots = backward_plan(ids, n_rows)
+    assert rows.dtype == torch.int32 and slots.dtype == torch.int32
+    assert torch.equal(rows.cpu(), want_rows)
+    assert torch.equal(slots.cpu().long(), want_slots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,offset,one_row", [
+    (6, 0, False), (64, 1, False), (64, 0, True), (7, 3, True)])
+def test_bag_sum_backward_vec1_and_one_row_on_card(cuda_device, d, offset,
+                                                  one_row):
+    """The one-float path (``D % 4 != 0``, or a ``grad_out`` view whose
+    start is not 16-byte aligned) and a single row hit by every slot (a
+    run across every chunk, summed by the carry pass), against the plain
+    version within the kernel test's bound; one-slot rows bit-equal."""
+    v, b, k = 500, 3000, 2
+    ids, mask, g = _zipf_bags(v, b, k, d, seed=d + offset)
+    if one_row:
+        ids = torch.full_like(ids, 3)
+    want = bag_sum_backward_ref(g, ids, mask, v)
+    cnt = _counts(ids, v)
+    flat = torch.zeros(b * d + offset, device=cuda_device)
+    flat[offset:] = g.reshape(-1).to(cuda_device)
+    g_card = flat[offset:].view(b, d)
+    assert (g_card.data_ptr() % 16 == 0) == (offset == 0)
+    got = bag_sum_backward(g_card, ids.to(cuda_device), mask.to(cuda_device),
+                           v).cpu()
     err = (got - want).abs()
     assert (err <= 1e-5 * want.abs() + 1e-6 * cnt[:, None]).all(), \
         err.max().item()

@@ -1,16 +1,25 @@
-"""The split planners of the port's two redesigned kernels, on the CPU.
+"""The planners of the port's redesigned kernels, on the CPU.
 
 ``flash_decode``'s ``plan_splits`` cuts each (batch, KV head) pair's
 valid positions into splits of whole tiles; ``tropical_matmul``'s
 ``plan_split_k`` cuts K into chunks of whole K tiles and ``copy_widths``
-picks the cp.async width each operand allows.  The kernels trust these
-plans (a gap or an overlap would be a wrong answer, an empty split a
-wasted block), so they are checked here as plain Python, over random
-shapes and at the shapes ``PERF.md`` states.
+picks the cp.async width each operand allows; ``embedding_bag``'s
+``plan_backward`` picks the radix sort's key width and digits and the
+runs pass's chunks.  The kernels trust these plans (a gap or an overlap
+would be a wrong answer, an empty split a wasted block), so they are
+checked here as plain Python, over random shapes and at the shapes
+``PERF.md`` states.
 """
+import numpy as np
 import pytest
+import torch
 
 from hypsupport import given, settings, st
+from repro_torch.kernels.embedding_bag import backward_plan
+from repro_torch.kernels.embedding_bag import ops as eb_ops
+from repro_torch.kernels.embedding_bag.ops import (SORT_DIGIT_BITS,
+                                                   SORT_RADIX, SORT_TILE,
+                                                   plan_backward)
 from repro_torch.kernels.flash_decode.ops import TILE, plan_splits
 from repro_torch.kernels.tropical_matmul.ops import (BK, BM, BN, copy_widths,
                                                      plan_split_k)
@@ -158,3 +167,125 @@ def test_copy_widths_at_the_core_search():
     assert copy_widths(15722, 15722, 40000, 4 * 24278, 256) == (8, 8)
     assert copy_widths(15724, 15724, 15724, 0, 0) == (16, 16)
     assert copy_widths(7, 5, 9, 4, 12) == (4, 4)
+
+
+# ---------------------------------------------------- bag_sum_backward
+def _assert_digits(plan, n_rows: int) -> None:
+    """The key width holds every key, the sentinel n_rows among them;
+    the digits cover [0, bits) once, low digit first, each 1-8 bits, in
+    the fewest passes, their widths at most one apart."""
+    assert n_rows < 2 ** plan.bits and plan.bits >= 1
+    assert plan.bits == max(1, n_rows.bit_length())
+    covered = 0
+    for shift, width in plan.digits:
+        assert shift == covered and 1 <= width <= SORT_DIGIT_BITS
+        covered += width
+    assert covered == plan.bits
+    assert len(plan.digits) == -(-plan.bits // SORT_DIGIT_BITS)
+    widths = [w for _, w in plan.digits]
+    assert max(widths) - min(widths) <= 1
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.integers(0, 2 ** 31 - 1), st.integers(0, 2 ** 31 - 1))
+def test_backward_plan_key_width_and_digits(n, n_rows):
+    _assert_digits(plan_backward(n, n_rows), n_rows)
+
+
+@pytest.mark.parametrize("k", range(31))
+def test_backward_plan_at_powers_of_two(k):
+    """2**k - 1, 2**k and 2**k + 1 rows: the sentinel n_rows needs
+    bit_length bits, one more than the rows below it at n_rows = 2**k."""
+    for n_rows in (2 ** k - 1, 2 ** k, 2 ** k + 1):
+        if n_rows < 2 ** 31:
+            _assert_digits(plan_backward(1000, n_rows), n_rows)
+    assert plan_backward(1000, 2 ** k).bits == k + 1
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.integers(0, 2 ** 31 - 1), st.integers(0, 2 ** 20))
+def test_backward_plan_chunks_and_tiles_partition_the_slots(n, n_rows):
+    """Chunks of ``chunk`` slots and tiles of SORT_TILE keys cover [0, n)
+    once, none empty: written out where n is small, and for any n the
+    last one ends at n and starts below it."""
+    plan = plan_backward(n, n_rows)
+    assert plan.chunk == eb_ops.BWD_CHUNK
+    for size, count in ((plan.chunk, plan.n_chunks),
+                        (SORT_TILE, plan.tiles)):
+        assert (count - 1) * size < n <= count * size or n == count == 0
+        if 0 < n <= 2 ** 16:
+            _assert_partition(_cover(n, size, count), n)
+
+
+@settings(max_examples=100, deadline=None)
+@given(st.integers(1, 2 ** 31 - 1), st.integers(0, 2 ** 31 - 1),
+       st.integers(1, 300))
+def test_backward_scratch_is_what_the_kernels_index(n, n_rows, d):
+    """The wrapper's allocation (``ops._scratch``, on the meta device)
+    holds the sorted rows and slots and the sort's other buffer (n int32
+    each), the look-back words ([passes][tiles][256] u64), the digit
+    counts ([passes][256] u32) and tile counters ([passes] u32) that the
+    C entry point zeroes, and the runs pass's head and tail parts."""
+    plan = plan_backward(n, n_rows)
+    got = eb_ops._scratch(plan, n, d, "meta")
+    passes = len(plan.digits)
+    need = 8 * passes * plan.tiles * SORT_RADIX + 4 * passes * SORT_RADIX \
+        + 4 * passes
+    assert plan.zero_bytes == need
+    assert got["zero"].dtype == torch.int64
+    assert got["zero"].numel() * 8 >= need > (got["zero"].numel() - 1) * 8
+    for name in ("sorted", "tmp"):
+        assert got[name].shape == (2, n) and got[name].dtype == torch.int32
+    assert got["parts"].shape == (2, plan.n_chunks, d)
+    assert got["parts"].dtype == torch.float32
+
+
+def test_backward_plan_at_the_train_shape():
+    """dlrm-rm2's train_batch: 26 x 10^6 rows need 25 key bits (the
+    sentinel 26,000,000 < 2**25), in 4 passes of 7, 6, 6, 6; 1,703,936
+    slots make 392 tiles (at most 3 an SM of the H100's 132) and 13,312
+    chunks of 128."""
+    plan = plan_backward(65536 * 26, 26_000_000)
+    assert plan.bits == 25
+    assert plan.digits == ((0, 7), (7, 6), (13, 6), (19, 6))
+    assert (plan.tiles, plan.chunk, plan.n_chunks) == (392, 128, 13312)
+    assert eb_ops._packed_widths(plan) == 7 | 6 << 8 | 6 << 16 | 6 << 24
+
+
+@pytest.mark.parametrize("n,n_rows", [(2 ** 31, 10), (2 ** 40, 10),
+                                      (-1, 10), (10, 2 ** 31), (10, -1)])
+def test_backward_plan_refuses_what_int32_cannot_address(n, n_rows):
+    """B*K >= 2**31 slots (int32 slot values) or rows outside int32 are
+    refused by the pure planner, before anything is allocated."""
+    with pytest.raises(ValueError, match="int32"):
+        plan_backward(n, n_rows)
+    plan_backward(2 ** 31 - 1, 2 ** 31 - 1)        # the largest that fits
+
+
+@pytest.mark.parametrize("n_rows,b,k,seed", [
+    (1, 500, 1, 0), (255, 3000, 2, 1), (256, 3000, 2, 2),
+    (257, 3000, 1, 3), (26_000_000, 65536, 1, 4), (1000, 20000, 3, 5)])
+def test_planned_digit_passes_equal_backward_plan(n_rows, b, k, seed):
+    """A CPU model of the kernels' passes: the keys by take_fill's rule
+    (the sentinel n_rows for a slot that adds nothing), then one stable
+    sort a planned digit, low digit first, carrying the slot index.  On
+    Zipf ids with negative and out-of-range ones it gives
+    ``backward_plan``'s (rows, slots)."""
+    rng = np.random.default_rng(seed)
+    ids = np.minimum(rng.zipf(1.2, (b, k)) - 1, n_rows - 1)
+    ids = ids.astype(np.int64) * rng.choice([1, 7919], (b, k)) % n_rows
+    pick = rng.permutation(b * k)[:b * k // 10]
+    ids.reshape(-1)[pick] = rng.integers(-2 * n_rows - 2, 2 * n_rows + 2,
+                                         pick.size)
+    ids = torch.from_numpy(ids.astype(np.int32))
+    flat = ids.reshape(-1).long()
+    idx = torch.where(flat < 0, flat + n_rows, flat)
+    keys = torch.where((idx >= 0) & (idx < n_rows), idx, n_rows)
+    vals = torch.arange(keys.numel())
+    for shift, width in plan_backward(keys.numel(), n_rows).digits:
+        digit = (keys >> shift) & ((1 << width) - 1)
+        order = torch.sort(digit, stable=True).indices
+        keys, vals = keys[order], vals[order]
+    rows, slots = backward_plan(ids, n_rows)
+    assert torch.equal(keys.to(torch.int32), rows)
+    assert torch.equal(vals, slots)
