@@ -191,7 +191,33 @@ never JAX or the JAX package.  Phases, each of which asserts:
    glm4-9b opt cell's gradient int8-quantized on the card with noise
    drawn on the CPU, ``q`` and ``scale`` bit-equal to the CPU's,
    ``compressed_mean``'s time and ``wire_bytes``.  Its paths in the
-   kernels line: ``<arch>_train_opt``.
+   kernels line: ``<arch>_train_opt``;
+14. distributed at world size 1 over NCCL (``launch.mesh.distributed``:
+   a one-rank NCCL group, destroyed after each part; budget 60 s).
+   (a) after phase 9, phase 4's request stream on phase 4's engine
+   under ``axis_rules(mesh, {"batch": "data"})`` over a ``("data",)``
+   mesh: answers, cache hits, padded slots and launches (16
+   ``edge_relax``, 8 ``tropical_matmul``) equal phase 4's; q/s beside
+   phase 4's, and a batch's answer gather (``QueryEngine._to_host``:
+   ``all_gather`` and the copy to the host) beside the unsharded copy;
+   (b) each of phase 4's batches cut into the shares of a world of 4
+   and of 3 (``core.query.share``, the engine's rule) and run one share
+   after another outside the mesh: their concatenation equals the whole
+   batch bit for bit, so the kernels run at the widths of a 4-card run
+   (8 and 11 sources).  (c) after phase 7, dlrm-rm2 serve_bulk and
+   retrieval_cand built under ``rules_recsys`` on the ``(1, 1)`` smoke
+   mesh (each table block cut by ``local_block``): outputs bit-equal to
+   phase 7's unsharded cells, ``bag_sum`` launching once a call;
+   (d) one glm4-9b decode_32k layer's split-KV ``attention_decode``
+   (plain torch) against its ``flash_decode`` path (phase 3's atol 1e-4
+   plus one bf16 rounding of the output), the caches' writes equal, and
+   one qwen3-moe ``moe_block`` layer expert-parallel against unmapped,
+   bit for bit, and as the expert blocks of 4 ranks run one after
+   another at their expert offsets and summed in bf16, within
+   ``2 k 2**-8 sum_j |c_j|`` of unmapped (a token's k contributions
+   added in another order).  Its paths in the kernels line: ``hod_dp``
+   (``edge_relax``, ``tropical_matmul``) and ``dlrm_serve_dp``
+   (``embedding_bag``).
 
 Each path frees its memory before the next.  Every launch counter is
 zeroed just before a served run and read just after it.  It prints one
@@ -887,7 +913,7 @@ def drive_slice(np, torch, card: str, g, ix, dev: str = "cuda") -> dict:
         profile_device(torch, lambda: eng.ssd(batch), 8,
                        f"SSD batches of {len(batch)}", card)
     return {"launches": launches, "requests": requests, "results": results,
-            "stats": st, "engine": eng}
+            "stats": st, "engine": eng, "qps": st.requests / wall}
 
 
 # ------------------------------------------------------------- phase 5
@@ -2291,9 +2317,11 @@ def lm_decode_32k(torch, cell, gen, w_bytes: int, kv_bytes: int,
 
 
 # ------------------------------------------------------------- phase 7
-def drive_dlrm(torch, card: str) -> dict:
+def drive_dlrm(torch, card: str, keep: dict) -> dict:
     """dlrm-rm2 serving at full size through the port's entry points;
-    returns bag_sum's launches in each cell's timed calls."""
+    returns bag_sum's launches in each cell's timed calls, and leaves
+    serve_bulk's and retrieval_cand's outputs on the host in ``keep``
+    (phase 14 holds its sharded cells to them)."""
     from repro_torch.kernels.embedding_bag import bag_sum
     from repro_torch.launch.steps import build_cell
     from repro_torch.models import dlrm
@@ -2346,6 +2374,9 @@ def drive_dlrm(torch, card: str) -> dict:
             check = (f"top-128 of {cell.meta['n_candidates']} candidates "
                      f"equal the CPU model's")
             per_s = calls / wall
+        if shape != "serve_p99":
+            keep[shape] = (out.cpu() if cell.kind == "serve"
+                           else tuple(o.cpu() for o in out))
         ms = wall / calls * 1e3
         say(f"dlrm-rm2 {shape}: batch {cell.meta['batch']}, {ms:.3f} ms/call, "
             f"{per_s:.0f} queries/s, model "
@@ -3476,6 +3507,227 @@ def drive_opt(torch, card: str, base: dict) -> dict:
     return paths
 
 
+# ------------------------------------------------------------ phase 14
+def drive_dp_hod(np, torch, card: str, mem: dict) -> dict:
+    """Phase 14 (a) and (b) on phase 4's engine; returns the split run's
+    launches."""
+    import torch.distributed as dist
+    from repro_torch import shardlib as sl
+    from repro_torch.kernels.edge_relax import relax_sweep_
+    from repro_torch.kernels.tropical_matmul import minplus
+    from repro_torch.launch.mesh import distributed
+    from repro_torch.core.query import share
+    from repro_torch.launch.serve import QueryServer
+
+    eng = mem["engine"]
+    with distributed("cuda"):
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError(f"phase 14 wants one NCCL rank, got "
+                                 f"{dist.get_backend()} x "
+                                 f"{dist.get_world_size()}")
+        mesh = sl.make_mesh((1,), ("data",), "cuda")
+        with sl.axis_rules(mesh, {"batch": "data"}):
+            server = QueryServer(eng, batch_size=BATCH, warm_start=True)
+            relax_sweep_.launches = 0
+            minplus.launches = 0
+            t0 = time.perf_counter()
+            results = server.serve_stream(mem["requests"])
+            wall = time.perf_counter() - t0
+            launches = {"edge_relax": relax_sweep_.launches,
+                        "tropical_matmul": minplus.launches}
+            batch = mem["requests"][:BATCH]
+            state = eng._ssd_dev(eng._perm_ids(batch))
+            split_ms = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                eng._to_host(state)
+                split_ms.append((time.perf_counter() - t1) * 1e3)
+        plain_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            eng._to_host(state)
+            plain_ms.append((time.perf_counter() - t1) * 1e3)
+    st, ref = server.stats, mem["stats"]
+    if (st.requests, st.batches, st.cache_hits, st.padded_slots) != \
+            (ref.requests, ref.batches, ref.cache_hits, ref.padded_slots):
+        raise AssertionError(f"split serving counts {st} != phase 4's {ref}")
+    for a, b in zip(results, mem["results"]):
+        if (a.source, a.cached, a.batched_with) != \
+                (b.source, b.cached, b.batched_with) \
+                or not np.array_equal(a.dist, b.dist):
+            raise AssertionError(f"split answer for source {a.source} "
+                                 "differs from phase 4's")
+    if launches != mem["launches"]:
+        raise AssertionError(f"split launches {launches} != phase 4's "
+                             f"{mem['launches']}")
+    say(f"data-parallel serving (1 NCCL rank): {st.requests} SSD requests "
+        f"in {st.batches} batches, {st.cache_hits} cache hits, "
+        f"{st.padded_slots} padded slots, launches {launches}, answers "
+        f"bit-equal to phase 4's; {st.requests / wall:.1f} q/s (phase 4: "
+        f"{mem['qps']:.1f} q/s); a batch's answer gather "
+        f"{median(split_ms):.3f} ms (all_gather + copy to the host) against "
+        f"{median(plain_ms):.3f} ms unsharded (host clock, median of 5, on "
+        f"{card})")
+
+    relax_sweep_.launches = 0
+    minplus.launches = 0
+    n_batches = 0
+    for lo in range(0, len(mem["requests"]), BATCH):
+        whole = mem["requests"][lo:lo + BATCH]
+        want = eng.ssd(whole)
+        for world in (4, 3):
+            got = np.concatenate([eng.ssd(share(whole, world, i))
+                                  for i in range(world)])[:len(whole)]
+            if not np.array_equal(got, want):
+                raise AssertionError(f"batch at {lo}: the shares of a world "
+                                     f"of {world} differ from the whole")
+        n_batches += 1
+    say(f"{n_batches} batches of {BATCH} cut into the shares of 4 ranks (8 "
+        f"sources) and 3 ranks (11, 11, 10 + 1 pad): concatenations equal "
+        f"the whole batches bit for bit; launches edge_relax "
+        f"{relax_sweep_.launches}, tropical_matmul {minplus.launches}")
+    return launches
+
+
+def drive_dp_models(np, torch, card: str, dlrm_out: dict) -> int:
+    """Phase 14 (c) and (d); returns bag_sum's launches in the sharded
+    cells' calls."""
+    import torch.distributed as dist
+    from repro_torch import shardlib as sl
+    from repro_torch.kernels.embedding_bag import bag_sum
+    from repro_torch.launch.mesh import distributed, make_smoke_mesh
+    from repro_torch.launch.steps import build_cell, rules_for
+
+    launches = 0
+    with distributed("cuda"):
+        if dist.get_backend() != "nccl":
+            raise AssertionError("phase 14 wants an NCCL group")
+        mesh = make_smoke_mesh("cuda")
+        for shape in ("serve_bulk", "retrieval_cand"):
+            with sl.axis_rules(mesh, rules_for("dlrm-rm2", shape, mesh)):
+                cell = build_cell("dlrm-rm2", shape, device="cuda")
+                bag_sum.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = cell.run()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                n = bag_sum.launches
+            want = dlrm_out[shape]
+            got = ((out.cpu(),) if cell.kind == "serve"
+                   else tuple(o.cpu() for o in out))
+            want = (want,) if cell.kind == "serve" else want
+            same = [torch.equal(a, b) for a, b in zip(got, want)]
+            if n != 1 or not all(same):
+                raise AssertionError(f"{shape} under rules_recsys: bag_sum "
+                                     f"launches {n}, outputs equal {same}")
+            launches += n
+            spec = cell.in_shardings[0]["tables"].spec
+            say(f"dlrm-rm2 {shape} under rules_recsys (tables {tuple(spec)} "
+                f"over the (1, 1) mesh, NCCL): bit-equal to phase 7's "
+                f"unsharded cell, bag_sum launched {n}, one call "
+                f"{ms:.3f} ms (host clock, first call, on {card})")
+            del cell, out
+            free(torch)
+        dp_decode_moe(torch, mesh)
+    return launches
+
+
+def dp_decode_moe(torch, mesh) -> None:
+    """Phase 14 (d) on ``mesh`` (one NCCL rank): a glm4 decode layer's
+    split-KV branch against ``flash_decode``, and a qwen3 MoE layer
+    expert-parallel against unmapped, whole and as 4 ranks' expert
+    blocks."""
+    from repro_torch import shardlib as sl
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import rules_serve_lm
+    from repro_torch.models.layers import (_moe_experts, attention_decode,
+                                           moe_block)
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    bf16 = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(bf16)
+    q = rnd(FD_B, FD_H, FD_DH)
+    kc, vc = rnd(FD_B, FD_S, FD_KH, FD_DH), rnd(FD_B, FD_S, FD_KH, FD_DH)
+    kn, vn = rnd(FD_B, FD_KH, FD_DH), rnd(FD_B, FD_KH, FD_DH)
+    k1, v1 = kc.clone(), vc.clone()
+    want, k1, v1 = attention_decode(q, k1, v1, kn, vn, DECODE_CUR)
+    with sl.axis_rules(mesh, rules_serve_lm(mesh, FD_B)):
+        got, kc, vc = attention_decode(q, kc, vc, kn, vn, DECODE_CUR)
+    err = (got.float() - want.float()).abs()
+    tol = 1e-4 + want.float().abs() * 2.0 ** -7
+    if not (bool((err <= tol).all()) and torch.equal(kc, k1)
+            and torch.equal(vc, v1)):
+        raise AssertionError(f"split-KV decode: max error "
+                             f"{err.max().item()} past atol 1e-4 + one "
+                             f"bf16 step, or the cache writes differ")
+    say(f"glm4-9b decode_32k layer q {list(q.shape)} caches "
+        f"{list(kc.shape)} bf16 at position {DECODE_CUR}: split-KV "
+        f"attention_decode (1 rank) against flash_decode, max |diff| "
+        f"{err.max().item():.3e} (atol 1e-4 + one bf16 step), cache "
+        f"writes equal")
+    del q, kc, vc, k1, v1, kn, vn, got, want
+    free(torch)
+
+    cfg = get_arch("qwen3-moe-30b-a3b").CONFIG
+    e, f, d = cfg.moe.n_experts, cfg.moe.d_ff, cfg.d_model
+    x = rnd(8, 1, d)
+    router = rnd(d, e, scale=d ** -0.5)
+    wg, wu = rnd(e, d, f, scale=d ** -0.5), rnd(e, d, f, scale=d ** -0.5)
+    wd = rnd(e, f, d, scale=f ** -0.5)
+    y0, aux0 = moe_block(x, router, wg, wu, wd, cfg.moe)
+    with sl.axis_rules(mesh, rules_serve_lm(mesh, 8)):
+        y1, aux1 = moe_block(x, router, wg, wu, wd, cfg.moe)
+    if not (torch.equal(y0, y1) and torch.equal(aux0, aux1)):
+        raise AssertionError("expert-parallel moe_block (1 rank) "
+                             "differs from the unmapped block")
+    # the expert blocks of 4 ranks, one after another: each rank's
+    # partial output from its E/4 experts at its e_lo, summed in
+    # bf16 as the psum over tp would.  The sum reorders each token's
+    # k bf16 adds, so it is held to 2 k u sum_j |c_j| (u = 2**-8),
+    # sum_j |c_j| from one-expert blocks (a token picks an expert
+    # once); a wrong range or slot offset moves whole contributions
+    el = e // 4
+    parts, auxes = [], []
+    for r in range(4):
+        blk = slice(r * el, (r + 1) * el)
+        yr, ar = _moe_experts(x, router, wg[blk], wu[blk], wd[blk],
+                              cfg.moe, r * el)
+        parts.append(yr)
+        auxes.append(ar)
+    y4 = parts[0]
+    for yr in parts[1:]:
+        y4 = y4 + yr
+    absum = torch.zeros(y0.shape, dtype=torch.float32, device="cuda")
+    for j in range(e):
+        blk = slice(j, j + 1)
+        absum += _moe_experts(x, router, wg[blk], wu[blk], wd[blk],
+                              cfg.moe, j)[0].float().abs()
+    err = (y4.float() - y0.float()).abs()
+    bound = 2 * cfg.moe.top_k * 2.0 ** -8 * absum
+    if not (bool((err <= bound).all())
+            and all(torch.equal(a, aux0) for a in auxes)):
+        raise AssertionError(
+            f"expert-parallel moe_block over 4 expert blocks: max "
+            f"|diff| {err.max().item():.3e}, worst share of the "
+            f"bound {(err / bound.clamp_min(1e-30)).max().item():.3f}, "
+            f"aux equal {[torch.equal(a, aux0) for a in auxes]}")
+    say(f"qwen3-moe moe_block layer (E {e}, k {cfg.moe.top_k}, D {d}, "
+        f"F {f}, 8 tokens, bf16): expert-parallel on 1 NCCL rank "
+        f"bit-equal to unmapped; the 4 ranks' blocks of {el} experts "
+        f"(e_lo 0, {el}, {2 * el}, {3 * el}) summed: max |diff| "
+        f"{err.max().item():.3e}, at most "
+        f"{(err / bound.clamp_min(1e-30)).max().item():.3f} of the "
+        f"bound 2 k 2**-8 sum_j |c_j|; aux equal")
+    del x, router, wg, wu, wd, y0, y1, y4, parts, absum
+    free(torch)
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -3569,6 +3821,10 @@ def main() -> int:
                 paths[name][path] = n
         say(f"fleet and baselines phase took "
             f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        for name, n in drive_dp_hod(np, torch, card, mem).items():
+            paths[name]["hod_dp"] = n
+        dp_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(root, ignore_errors=True)
     del g, ix, mem
@@ -3578,9 +3834,17 @@ def main() -> int:
     free(torch)
     say(f"LM phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    paths["embedding_bag"] = drive_dlrm(torch, card)
+    dlrm_out = {}
+    paths["embedding_bag"] = drive_dlrm(torch, card, dlrm_out)
     free(torch)
     say(f"DLRM phase took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paths["embedding_bag"]["dlrm_serve_dp"] = drive_dp_models(
+        np, torch, card, dlrm_out)
+    del dlrm_out
+    free(torch)
+    say(f"distributed phase (world size 1, NCCL) took "
+        f"{dp_s + time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     base_train = {}
     rows["bag_sum_backward"], train_paths = drive_train(torch, card,

@@ -34,6 +34,16 @@ plain torch, as they are plain jnp in the JAX package.
 Queries are batched over sources.  The label state on the device is
 node-major, ``[n_pad, S]`` (one node's S labels contiguous, the layout
 the kernel reads); answers leave in the JAX package's ``[S, n]``.
+
+Under axis rules that bind ``"batch"`` (``shardlib.axis_rules``; the
+reference shards its state over ``"batch"``), every rank calls the same
+query with the same batch and takes a contiguous share of its sources
+(:meth:`QueryEngine._share`, padded to a multiple of the ranks with the
+last source repeated), runs the sweeps and the core search on its
+``[n_pad, S_r]`` columns, and joins the others in one ``all_gather`` of
+the answers a batch (:meth:`QueryEngine._gather`): every rank returns
+the whole answer.  Sources are independent, so the answers are the
+unsharded engine's bit for bit.
 """
 from __future__ import annotations
 
@@ -43,6 +53,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from .. import shardlib as sl
 from ..device import resolve_device
 from ..kernels.edge_relax import Sweep, pack_sweep, relax_sweep_
 from ..kernels.edge_relax.sweep import PinnedStager
@@ -50,7 +61,7 @@ from ..kernels.tropical_matmul.ops import minplus
 from ..obs.trace import span_if
 from .index import HoDIndex, SweepPlan, plan_level_ids
 
-__all__ = ["QueryEngine", "dijkstra_reference"]
+__all__ = ["QueryEngine", "dijkstra_reference", "share"]
 
 INF = float("inf")
 
@@ -139,6 +150,16 @@ def _dense_core_adjacency(ix: HoDIndex) -> np.ndarray:
             np.minimum.at(adj, (cu, ix.core_dst),
                           ix.core_w.astype(np.float32))
     return adj
+
+
+def share(nodes, n: int, i: int) -> np.ndarray:
+    """Share ``i`` of ``n`` of a batch (``[S]`` or ``[S, ...]``): the
+    batch padded to a multiple of ``n`` by repeating its last entry, then
+    cut into ``n`` contiguous shares."""
+    nodes = np.asarray(nodes)
+    per = -(-nodes.shape[0] // n)
+    pad = np.repeat(nodes[-1:], per * n - nodes.shape[0], axis=0)
+    return np.concatenate([nodes, pad])[i * per:(i + 1) * per]
 
 
 class QueryEngine:
@@ -363,8 +384,41 @@ class QueryEngine:
     def _to_host(self, state: torch.Tensor) -> np.ndarray:
         """``[n_pad, S]`` device state -> ``[S, n]`` host array in
         original node order (gathered and transposed on the device, in
-        one launch: ``index_select`` writes a contiguous result)."""
-        return state.t().index_select(1, self._perm).cpu().numpy()
+        one launch: ``index_select`` writes a contiguous result); under
+        a batch split, every rank's rows (:meth:`_gather`)."""
+        return self._gather(state.t().index_select(1, self._perm))
+
+    # ------------------------------------------------------- batch split
+    @staticmethod
+    def _share(nodes) -> np.ndarray:
+        """This rank's :func:`share` of a batch (``[S]`` or ``[S, ...]``)
+        under rules that bind ``"batch"``, in
+        :func:`~repro_torch.shardlib.axis_index` order.  The whole batch
+        without a split."""
+        nodes = np.asarray(nodes)
+        axes = sl._live_axes("batch")
+        if not axes:
+            return nodes
+        return share(nodes, sl.axis_size(axes), sl.axis_index(axes))
+
+    @staticmethod
+    def _gather(rows: torch.Tensor) -> np.ndarray:
+        """Every rank's ``rows`` (a share's ``[S_r, ...]`` answer) on
+        the host, in rank order: the padded batch's ``[S_pad, ...]``
+        (callers cut it to the batch).  ``rows`` itself without a
+        split."""
+        return sl.all_gather(rows, sl._live_axes("batch"), axis=0) \
+            .cpu().numpy()
+
+    def _agree(self, flag: bool, every: bool) -> bool:
+        """A sweep's decision over the whole batch: ``flag`` AND-ed
+        (``every``) or OR-ed over the ranks of the split, so that each
+        rank reads the levels the unsharded engine reads."""
+        axes = sl._live_axes("batch")
+        if not axes:
+            return flag
+        t = torch.tensor([int(flag)], dtype=torch.int32, device=self.device)
+        return bool((sl.pmin if every else sl.pmax)(t, axes).item())
 
     def _perm_ids(self, nodes) -> np.ndarray:
         return self.index.perm[np.asarray(nodes, dtype=np.int32)]
@@ -372,13 +426,16 @@ class QueryEngine:
     # ---------------------------------------------------------------- public
     def ssd(self, sources: np.ndarray) -> np.ndarray:
         """Distances from each source to every node, original node order."""
-        return self._to_host(self._ssd_dev(self._perm_ids(sources)))
+        s = len(sources)
+        return self._to_host(self._ssd_dev(
+            self._perm_ids(self._share(sources))))[:s]
 
     def sssp(self, sources: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """(dist, pred): pred[v] = node preceding v on a shortest path, -1
         for sources/unreachable. Node ids in original order."""
-        dist, pred = self._sssp_dev(self._perm_ids(sources))
-        return self._to_host(dist), self._to_host(pred)
+        s = len(sources)
+        dist, pred = self._sssp_dev(self._perm_ids(self._share(sources)))
+        return self._to_host(dist)[:s], self._to_host(pred)[:s]
 
     def p2p(self, sources: np.ndarray, targets: np.ndarray) -> np.ndarray:
         """Point-to-point distances ``dist(sources[i], targets[i])``
@@ -386,11 +443,12 @@ class QueryEngine:
         forward labels of ``s`` (forward sweep + core search) meet
         backward labels of ``t`` (``plan_b`` in ascending rank with the
         reversed level body), ``dist(s, t) = min_m fwd[m] + bwd[m]``."""
-        fwd = self._forward_core(self._perm_ids(sources))
-        bwd = self._run_plan(self._init_state(self._perm_ids(targets)),
-                             self._levels_b, self._relax_level_rev,
-                             reverse=True)
-        return (fwd + bwd).amin(dim=0).cpu().numpy()
+        s = len(sources)
+        fwd = self._forward_core(self._perm_ids(self._share(sources)))
+        bwd = self._run_plan(
+            self._init_state(self._perm_ids(self._share(targets))),
+            self._levels_b, self._relax_level_rev, reverse=True)
+        return self._gather((fwd + bwd).amin(dim=0))[:s]
 
     def ssd_within(self, sources: np.ndarray, d: float) -> np.ndarray:
         """Distance-threshold query (DESIGN.md §7): distances from each
@@ -398,9 +456,10 @@ class QueryEngine:
         masked to ``+inf`` — nodes within the threshold carry exactly
         their SSD distance."""
         d = float(np.float32(d))
-        dist = self._forward_core(self._perm_ids(sources), d)
+        s = len(sources)
+        dist = self._forward_core(self._perm_ids(self._share(sources)), d)
         dist.masked_fill_(~(dist <= d), INF)            # mask core output
-        return self._to_host(self._relax_sweep(dist, self._sweep_b, d))
+        return self._to_host(self._relax_sweep(dist, self._sweep_b, d))[:s]
 
     def knn(self, sources: np.ndarray, k: int
             ) -> Tuple[np.ndarray, np.ndarray]:

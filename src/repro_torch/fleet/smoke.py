@@ -16,14 +16,15 @@ streamed level, ``tropical_matmul`` for the core) unless it is given
 * **real sharding**: at N=2 every shard that owns blocks served
   traffic with a strictly positive hit rate, per-shard bytes sum to
   the fleet aggregate, and the answers stayed bit-identical;
+* **data-parallel plumbing**: the N=2 leg runs under a live ``("data",)``
+  mesh of this process's group with the rules ``{"batch": "data"}``
+  (the batch split the serve CLI's ``--data-parallel`` uses; one rank
+  here, over gloo on the CPU or NCCL on the card);
 * **tracing**: the N=2 leg runs under a ``Tracer`` whose Chrome trace
   validates;
 * **artifacts**: set ``FLEET_TRACE_OUT=<path>`` to keep the N=2 leg's
   Chrome trace and ``FLEET_BENCH_OUT=<path>`` for a schema-stamped
   JSON of the per-leg fleet stats.
-
-The JAX smoke's leg under a 1-device mesh (data-parallel serving) is
-left out: the port has no batch split yet.
 
     PYTHONPATH=src python -m repro_torch.fleet.smoke
     PYTHONPATH=src python -m repro_torch.fleet.smoke --device cpu
@@ -38,11 +39,14 @@ import tempfile
 from typing import List, Optional
 
 import numpy as np
+import torch.distributed as dist
 
+from .. import shardlib as sl
 from ..config import SERVE_DEFAULTS, Config
 from ..core import (BuildConfig, QueryEngine, build_hod,
                     gnm_random_digraph, pack_index)
 from ..device import resolve_device
+from ..launch.mesh import distributed
 from ..launch.serve import mixed_request_stream, server_from_config
 from ..storage.blockfile import segment_logical_bytes
 
@@ -140,11 +144,16 @@ def main(argv: Optional[List[str]] = None) -> None:
                 f"N=1 fleet {field}={got} != unsharded {want} — the " \
                 f"routing façade changed cache behavior"
 
-        # Leg 2 — N=2, with a tracer.
+        # Leg 2 — N=2 under a live mesh (the shardlib axis plumbing
+        # the serve CLI's --data-parallel uses), with a tracer.
         from ..obs import Tracer, validate_chrome_trace
         tracer = Tracer()
-        two, srv2 = _serve_leg(cfg, store_dir, budget, stream, 2, dev,
-                               tracer=tracer)
+        with distributed(dev) as rank_dev:
+            world = dist.get_world_size()
+            mesh = sl.make_mesh((world,), ("data",), rank_dev.type)
+            with sl.axis_rules(mesh, {"batch": "data"}):
+                two, srv2 = _serve_leg(cfg, store_dir, budget, stream, 2,
+                                       dev, tracer=tracer)
         for a, b in zip(ref, two):
             np.testing.assert_array_equal(a.dist, b.dist)
         f2 = srv2.fleet_report()
@@ -189,7 +198,7 @@ def main(argv: Optional[List[str]] = None) -> None:
               f"per-shard hit rates "
               f"{[round(r['hit_rate'], 3) for r in f2.rows]}, "
               f"{f2.cache.bytes_read/1e6:.2f} MB read across "
-              f"{len(f2.rows)} shards")
+              f"{len(f2.rows)} shards under a {world}-rank mesh")
 
 
 if __name__ == "__main__":

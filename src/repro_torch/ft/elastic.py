@@ -1,5 +1,5 @@
-"""Crash-restart training loop (the JAX package's ``ft/elastic.py`` on
-one card).
+"""Crash-restart training loop and the survivors' mesh (the JAX
+package's ``ft/elastic.py``).
 
 The recovery contract: checkpoints are plain host arrays plus a manifest
 (``checkpoint/manager.py``), so after a failure the trainer rebuilds its
@@ -8,18 +8,39 @@ state, and resumes at the step after it.  Data streams are pure
 functions of (seed, step), so the resumed run sees the batches the
 uninterrupted one would have.
 
-``surviving_mesh`` (the largest data x model mesh of the surviving
-devices) comes with the distributed slice, beside ``launch/mesh.py`` and
-``shardlib.py`` (``ROADMAP.md`` queue 1): here ``n_devices`` is passed
-through to ``build``.
+``surviving_mesh`` re-forms the largest data x model mesh from the
+surviving ranks (the first ``n_devices`` of the live group); the
+trainer passes ``n_devices`` through to ``build``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import torch.distributed as dist
 
 from ..checkpoint import CheckpointManager
+from ..shardlib import make_mesh
 from .watchdog import StepMonitor, StragglerPolicy
+
+
+def surviving_mesh(n_devices: int, axis_names: Sequence[str] = ("data",
+                                                                "model"),
+                   model_parallelism: int = 1, device_type: str = "cuda"):
+    """Largest (data, model) ``DeviceMesh`` over the first ``n_devices``
+    ranks of the live group.
+
+    Model parallelism is fixed by memory (a shard must fit), so
+    survivors re-form ``(n // model_parallelism, model_parallelism)``;
+    leftover ranks idle (standard practice: better than a ragged mesh)
+    and get ``None``.  Every rank of the live group calls it (the mesh's
+    groups are made collectively).
+    """
+    dp = min(n_devices, dist.get_world_size()) // model_parallelism
+    if dp < 1:
+        raise RuntimeError("not enough devices for one model shard")
+    return make_mesh((dp, model_parallelism), axis_names, device_type,
+                     ranks=range(dp * model_parallelism))
 
 
 @dataclasses.dataclass

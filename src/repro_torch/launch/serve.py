@@ -46,8 +46,6 @@ I/O bytes and per-class request counts, in the closed-loop
 :meth:`~QueryServer.serve_stream` and the async
 :meth:`~QueryServer.submit` path under both schedulers.  The engine's
 device decides where the sweeps run (the card unless ``--device cpu``).
-Not ported: ``--data-parallel`` (a batch split over the visible
-devices) raises an error that names the missing piece.
 ``serve.use_pallas`` is
 accepted, since the checked-in configs carry it, and has no effect: the
 card always runs the hand-written kernels and the CPU their plain
@@ -69,21 +67,39 @@ flag wins over it (built-in defaults < include chain < file < CLI).
         --device cpu --side 12
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --config configs/serve_fleet.yaml --side 12
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \\
+        -m repro_torch.launch.serve --data-parallel --device cpu --side 12
+
+``--data-parallel`` splits every batch's sources over the ranks of a
+``("data",)`` mesh under the rules ``{"batch": "data"}`` (the engines'
+batch split, ``core/query.py``).  The world comes from ``torchrun``'s
+environment, else it is this one process; a rank runs on
+``cuda:LOCAL_RANK`` over NCCL, or on the CPU over gloo with ``--device
+cpu``.  Rank 0 runs the whole front end (coalescer, scheduler, row
+cache, tracer, open loop) and announces each engine call it makes to the
+other ranks (:func:`_lead`), which make the same call on their own
+engines (:func:`_follow`) until rank 0's stop: the SLO scheduler's
+batches depend on wall time, so ranks forming their own batches would
+issue mismatched collectives.
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
 import collections
+import contextlib
 import dataclasses
+import io
 import json
 import shutil
 import tempfile
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch.distributed as dist
 
+from .. import shardlib as sl
 from ..config import (SERVE_DEFAULTS, Config, ConfigError,
                       overrides_from_args, validate_serve)
 from ..core.build import BuildConfig
@@ -98,6 +114,7 @@ from ..obs.metrics import Histogram, MetricsRegistry
 from ..obs.trace import Tracer, span_if
 from ..storage import (IndexStore, PageCache, StreamingQueryEngine,
                        segment_bytes, segment_logical_bytes)
+from .mesh import distributed
 
 __all__ = ["QueryResult", "ServerStats", "BatchIO", "ClassSLO",
            "QueryServer", "server_from_config", "mixed_request_stream",
@@ -1210,8 +1227,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                          "(DESIGN.md §12): one shared fifo queue, or "
                          "per-class deadline-aware queues")
     ap.add_argument("--data-parallel", action="store_true",
-                    help="not ported: fails (batch split over the "
-                         "visible devices)")
+                    help="split every batch's sources over the ranks "
+                         "(torchrun's world, else one process; "
+                         "shardlib)")
     ap.add_argument("--store", action="store_true", default=S,
                     help="serve disk-resident: save_store the index into a "
                          "temporary directory (removed on exit) and stream "
@@ -1287,9 +1305,6 @@ def main(argv: Optional[List[str]] = None) -> ServerStats:
         cfg = load_serve_config(args)
     except ConfigError as exc:
         ap.error(str(exc))
-    if args.data_parallel:
-        ap.error("--data-parallel (a batch split over the visible "
-                 "devices) is not ported to repro_torch")
     sssp = getattr(args, "sssp", False)
     cli_mode = cfg.get("serve.mode", "ssd")
     if sssp and cli_mode != "ssd":
@@ -1306,6 +1321,71 @@ def main(argv: Optional[List[str]] = None) -> ServerStats:
     cfg.data.setdefault("serve", {})["mode"] = server_mode
     if cli_mode != "topk" and not cfg.get("serve.mix"):
         cfg.data["serve"]["mix"] = {server_mode: 1.0}
+    if not args.data_parallel:
+        return _serve_cli(ap, args, cfg, cli_mode, server_mode, args.device)
+    with distributed(args.device) as dev:
+        mesh = sl.make_mesh((dist.get_world_size(),), ("data",), dev.type)
+        with sl.axis_rules(mesh, {"batch": "data"}):
+            if dist.get_rank() == 0:
+                return _serve_cli(ap, args, cfg, cli_mode, server_mode,
+                                  str(dev), rank=0)
+            with contextlib.redirect_stdout(io.StringIO()):
+                return _serve_cli(ap, args, cfg, cli_mode, server_mode,
+                                  str(dev), rank=dist.get_rank())
+
+
+#: The engine calls a served batch (or top-k closeness) makes.
+_ENGINE_CALLS = ("ssd", "sssp", "p2p", "ssd_within", "knn", "ssd_bounded")
+
+
+def _lead(engine, device: str) -> Callable[[], None]:
+    """Rank 0 under ``--data-parallel``: each call of ``_ENGINE_CALLS``
+    it makes on ``engine`` first broadcasts ``(name, args)`` to the
+    other ranks (a call made inside another, as ``knn`` makes ``ssd``,
+    is theirs to make too, and is not announced).  Returns the stop,
+    which the caller must send (in a ``finally``)."""
+    depth = [0]
+    bdev = device if device.startswith("cuda") else None
+
+    def announced(name, fn):
+        def call(*args):
+            if not depth[0]:
+                dist.broadcast_object_list([(name, args)], src=0,
+                                           device=bdev)
+            depth[0] += 1
+            try:
+                return fn(*args)
+            finally:
+                depth[0] -= 1
+        return call
+
+    for name in _ENGINE_CALLS:
+        fn = getattr(engine, name, None)
+        if fn is not None:
+            setattr(engine, name, announced(name, fn))
+    return lambda: dist.broadcast_object_list([None], src=0, device=bdev)
+
+
+def _follow(engine, device: str) -> int:
+    """A rank other than 0 under ``--data-parallel``: make each call
+    rank 0 announces on ``engine`` (its share and the gathers), until
+    the stop.  Returns the calls made."""
+    bdev = device if device.startswith("cuda") else None
+    calls = 0
+    while True:
+        msg = [None]
+        dist.broadcast_object_list(msg, src=0, device=bdev)
+        if msg[0] is None:
+            return calls
+        name, args = msg[0]
+        getattr(engine, name)(*args)
+        calls += 1
+
+
+def _serve_cli(ap, args, cfg: Config, cli_mode: str, server_mode: str,
+               device: str, rank: Optional[int] = None) -> ServerStats:
+    """Build the graph, index and server, and serve (``rank`` None), or
+    lead (0) or follow (> 0) a data-parallel run."""
     tracer = Tracer() if cfg.get("obs.trace_out") else None
 
     side = int(cfg.get("graph.side"))
@@ -1316,7 +1396,7 @@ def main(argv: Optional[List[str]] = None) -> ServerStats:
     res = build_hod_fast(g, BuildConfig(max_core_nodes=512,
                                         max_core_edges=1 << 15))
     ix = pack_index(g, res, chunk=2048, closure_limit=args.closure_limit,
-                    device=args.device)
+                    device=device)
     print(f"index built in {time.perf_counter()-t0:.1f}s "
           f"({ix.n_levels} levels, core {ix.n_core}, "
           f"{res.stats.shortcuts_added} shortcuts)")
@@ -1337,11 +1417,10 @@ def main(argv: Optional[List[str]] = None) -> ServerStats:
                   "decompressed segments")
             server = server_from_config(
                 cfg, store_path=store_dir, cache_bytes=budget,
-                tracer=tracer, engine_opts={"device": args.device})
+                tracer=tracer, engine_opts={"device": device})
         else:
             server = server_from_config(
-                cfg, engine=QueryEngine(ix, device=args.device),
-                tracer=tracer)
+                cfg, engine=QueryEngine(ix, device=device), tracer=tracer)
     except BaseException as exc:
         # a late config error (an slo class outside the mix) must not
         # leak the just-saved temporary store
@@ -1351,13 +1430,23 @@ def main(argv: Optional[List[str]] = None) -> ServerStats:
             ap.error(str(exc))
         raise
     try:
-        if cfg.path:
-            print(f"config: {cfg.path} "
-                  f"(+{len(cfg.includes)} include(s)), scheduler "
-                  f"{server.scheduler}, classes {', '.join(server.modes)}")
-        _serve_and_report(server, cfg, cli_mode, server_mode, g.n)
+        if rank:
+            _follow(server.engine, device)
+        else:
+            stop = _lead(server.engine, device) if rank == 0 else None
+            try:
+                if cfg.path:
+                    print(f"config: {cfg.path} "
+                          f"(+{len(cfg.includes)} include(s)), scheduler "
+                          f"{server.scheduler}, classes "
+                          f"{', '.join(server.modes)}")
+                _serve_and_report(server, cfg, cli_mode, server_mode, g.n)
+            finally:
+                if stop is not None:
+                    stop()
     finally:
-        _write_outputs(server, cfg, tracer)
+        if not rank:
+            _write_outputs(server, cfg, tracer)
         server.close()
         if store_dir is not None:
             shutil.rmtree(store_dir, ignore_errors=True)
@@ -1383,6 +1472,7 @@ def _serve_and_report(server: QueryServer, cfg: Config, cli_mode: str,
         print(f"top-{tk.k} closeness: {tk.batches} batches, "
               f"{tk.pruned} candidates pruned mid-sweep, "
               f"{tk.query_seconds:.2f}s")
+        _print_data_parallel()
         for v, c, f in zip(tk.nodes.tolist(), tk.closeness, tk.farness):
             print(f"  node {v:>7}  closeness {c:.5f}  farness {f:.1f}")
         if server.store is not None:
@@ -1399,6 +1489,7 @@ def _serve_and_report(server: QueryServer, cfg: Config, cli_mode: str,
         asyncio.run(_open_loop(server, requests, rate))
     else:
         server.serve_stream(requests)
+    _print_data_parallel()
 
     st = server.stats
     io = server.modeled_io()
@@ -1435,6 +1526,13 @@ def _serve_and_report(server: QueryServer, cfg: Config, cli_mode: str,
               f"stall {st.stall_seconds*1e3:.1f} ms, measured wait "
               f"{st.stall_wall_seconds*1e3:.1f} ms, time-to-first-level "
               f"{st.ttfl_seconds*1e3:.2f} ms")
+
+
+def _print_data_parallel() -> None:
+    """The JAX CLI's line after a data-parallel run."""
+    axes = sl._live_axes("batch")
+    if axes:
+        print(f"data-parallel over {sl.axis_size(axes)} rank(s)")
 
 
 def _write_outputs(server: QueryServer, cfg: Config, tracer) -> None:

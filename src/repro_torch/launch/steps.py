@@ -20,6 +20,16 @@ too large for a second copy) and returns the same dict, so
 batch from the arch's data stream (``TokenStream`` / ``RecsysStream``;
 a GNN cell's one graph, or a ``NeighborSampler`` block), a pure function
 of (seed, step).  A GNN step's batch is one ``GraphBatch``.
+
+Built under ``shardlib.axis_rules(mesh, rules_for(arch, shape, mesh))``
+a cell carries ``in_shardings``: one ``NamedSharding`` a leaf of its
+arguments, resolved from the logical axis rules (the JAX cells' trees).
+The recsys serving cells (serve_p99, serve_bulk, retrieval_cand) then
+hold this rank's blocks, cut by ``local_block`` from the same seeded
+weights and inputs, and run sharded.  A train cell, and an LM or GNN
+cell on a mesh of more than one rank, refuses to run: whole-model
+sharded steps and sharded training wait for later slices
+(``ROADMAP.md`` queue 1).
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import shardlib as sl
 from ..configs import get_arch
 from ..configs.shapes import SHAPE_PARAMS
 from ..data import (NeighborSampler, RecsysStream, TokenStream,
@@ -39,9 +50,11 @@ from ..device import resolve_device
 from ..models import dlrm as dlrm_mod
 from ..models import gnn
 from ..models import transformer as tf
+from ..models.convert import local_blocks
 from ..models.gnn.common import GraphBatch, n_edge_chunks
 from ..optim import adamw_init, adamw_update, cosine_schedule
 from ..tree import leaves, map_tree, unflatten
+from . import mesh as mesh_mod
 
 SEED = 0          # weights (torch generator on the device) and inputs (numpy)
 
@@ -57,9 +70,63 @@ class Cell:
     model_flops: float
     meta: Dict[str, Any]
     batch_at: Optional[Callable[[int], Tuple]] = None   # train cells
+    in_shardings: Optional[Tuple] = None   # under axis rules
 
     def run(self):
         return self.fn(*self.args)
+
+
+# ---------------------------------------------------------------------------
+# sharding resolution helpers
+# ---------------------------------------------------------------------------
+
+def _resolve(logical_tree):
+    """A tree of logical-axis tuples (or None) -> the same tree of
+    ``NamedSharding``s under the current rules (dicts and lists are
+    inner nodes, a tuple or None a leaf)."""
+    if isinstance(logical_tree, dict):
+        return {k: _resolve(v) for k, v in logical_tree.items()}
+    if isinstance(logical_tree, list):
+        return [_resolve(v) for v in logical_tree]
+    return sl.sharding_for(*(logical_tree or ()))
+
+
+def _pad_to(n: int, mult: int) -> int:
+    return -(-n // mult) * mult
+
+
+def rules_for(arch_id: str, shape_name: str, mesh):
+    """The logical axis rules of a cell's workload kind."""
+    mod = get_arch(arch_id)
+    params = SHAPE_PARAMS[mod.FAMILY][shape_name]
+    kind = params["kind"]
+    if mod.FAMILY == "lm":
+        if kind == "train":
+            return mesh_mod.rules_train_lm(mesh)
+        return mesh_mod.rules_serve_lm(mesh, params["global_batch"])
+    if mod.FAMILY == "gnn":
+        return mesh_mod.rules_gnn(mesh)
+    return mesh_mod.rules_recsys(mesh, params.get("batch", 0))
+
+
+def _on_mesh(cell: Cell) -> Cell:
+    """``cell`` as built under the current rules: its step refuses to
+    run where this slice has no sharded form (training, and a whole
+    LM or GNN model on more than one rank)."""
+    mesh = sl.current_mesh()
+    if mesh is None:
+        return cell
+    if cell.kind == "train" or (cell.family in ("lm", "gnn")
+                                and mesh.size() > 1):
+        what = ("sharded training" if cell.kind == "train"
+                else f"a whole-model sharded {cell.family} step")
+
+        def refuse(*args, **kwargs):
+            raise NotImplementedError(
+                f"{cell.arch} {cell.shape}: {what} waits for a later "
+                "slice of the port (ROADMAP.md queue 1)")
+        cell.fn = refuse
+    return cell
 
 
 # ---------------------------------------------------------------------------
@@ -170,9 +237,18 @@ def _build_lm_train_cell(arch_id, shape_name, cfg, smoke, device, meta):
     else:
         batch_args = _on(stream.batch_at(0), device)
     meta["data"] = "TokenStream"
+    in_sh = None
+    if sl.current_rules() is not None:
+        psh = _resolve(tf.param_shardings(cfg))
+        in_sh = ({"params": psh,
+                  "opt": type(state["opt"])(m=psh, v=psh,
+                                            count=sl.sharding_for())},
+                 sl.sharding_for("batch", None),
+                 sl.sharding_for("batch", None))
     return Cell(arch_id, shape_name, "train", "lm", _lm_train_step(cfg),
                 (state,) + batch_args, _lm_flops(cfg, "train", b, s), meta,
-                batch_at=lambda step: _on(stream.batch_at(step), device))
+                batch_at=lambda step: _on(stream.batch_at(step), device),
+                in_shardings=in_sh)
 
 
 def lm_cell_config(arch_id: str, smoke: bool = False,
@@ -220,17 +296,24 @@ def _build_lm_cell(arch_id, shape_name, smoke, device, batch, layers=None,
     # serving: bf16 parameters, as the JAX serving cells cast them
     params = tf.init_params(cfg, gen, device, dtype=torch.bfloat16)
     flops = _lm_flops(cfg, kind, b, s)
+    ruled = sl.current_rules() is not None
     if kind == "prefill":
         toks = torch.from_numpy(np.random.default_rng(SEED).integers(
             0, cfg.vocab, (b, s)).astype(np.int32)).to(device)
+        in_sh = ((_resolve(tf.param_shardings(cfg)),
+                  sl.sharding_for("batch", None)) if ruled else None)
         return Cell(arch_id, shape_name, kind, "lm",
                     functools.partial(tf.prefill, cfg=cfg), (params, toks),
-                    flops, meta)
+                    flops, meta, in_shardings=in_sh)
     caches = tf.make_cache(cfg, b, s, dtype=torch.bfloat16, device=device)
     toks = torch.zeros(b, dtype=torch.int32, device=device)
+    in_sh = ((_resolve(tf.param_shardings(cfg)),
+              _resolve(tf.cache_shardings(cfg)), sl.sharding_for("batch"),
+              sl.sharding_for()) if ruled else None)
     return Cell(arch_id, shape_name, kind, "lm",
                 functools.partial(tf.decode_step, cfg=cfg),
-                (params, caches, toks, s - 1), flops, meta)
+                (params, caches, toks, s - 1), flops, meta,
+                in_shardings=in_sh)
 
 
 # ---------------------------------------------------------------------------
@@ -427,10 +510,35 @@ def _build_gnn_cell(arch_id, shape_name, mod, smoke, device,
     state = {"params": params, "opt": adamw_init(params)}
     meta.update(cfg=cfg, n_nodes=batch.n_nodes,
                 n_edges=int(batch.src.shape[0]))
+    in_sh = None
+    if sl.current_rules() is not None:
+        repl = map_tree(lambda _: sl.sharding_for(), params)
+        in_sh = ({"params": repl,
+                  "opt": type(state["opt"])(m=repl, v=repl,
+                                            count=sl.sharding_for())},
+                 _gnn_batch_shardings(batch))
     return Cell(arch_id, shape_name, "train", "gnn",
                 _gnn_train_step(model, cfg), (state, batch),
                 _gnn_flops(arch_id, cfg, batch.n_nodes, batch.src.shape[0]),
-                meta, batch_at=batch_at)
+                meta, batch_at=batch_at, in_shardings=in_sh)
+
+
+def _gnn_batch_shardings(g: GraphBatch) -> GraphBatch:
+    """The JAX cell's sharding of a graph batch: edges over "edges",
+    node tensors over "nodes", a graph-level label replicated."""
+    node_level = g.graph_ids is None
+
+    def on(t, *names):
+        return None if t is None else sl.sharding_for(*names)
+    return dataclasses.replace(
+        g, src=on(g.src, "edges"), dst=on(g.dst, "edges"),
+        node_feat=on(g.node_feat, "nodes",
+                     *([None] * (g.node_feat.dim() - 1))),
+        edge_feat=on(g.edge_feat, "edges", None),
+        graph_ids=on(g.graph_ids, "nodes"),
+        labels=(on(g.labels, "nodes") if node_level
+                else on(g.labels)),
+        train_mask=on(g.train_mask, "nodes"))
 
 
 # ---------------------------------------------------------------------------
@@ -499,6 +607,8 @@ def _build_recsys_cell(arch_id, shape_name, mod, smoke, device, batch):
         meta["reduced"] = {"batch": [full_b, b]}
     gen = torch.Generator(device=device).manual_seed(SEED)
     params = dlrm_mod.init_params(cfg, gen, device)
+    psh = (_resolve(dlrm_mod.param_shardings(cfg))
+           if sl.current_rules() is not None else None)
     rng = np.random.default_rng(SEED)
     dense = torch.from_numpy(
         rng.normal(size=(b, cfg.n_dense)).astype(np.float32)).to(device)
@@ -516,21 +626,43 @@ def _build_recsys_cell(arch_id, shape_name, mod, smoke, device, batch):
             batch_args = _on(stream.batch_at(0), device)
         meta["data"] = "RecsysStream"
         state = {"params": params, "opt": adamw_init(params)}
+        in_sh = None
+        if psh is not None:
+            in_sh = ({"params": psh,
+                      "opt": type(state["opt"])(m=psh, v=psh,
+                                                count=sl.sharding_for())},
+                     sl.sharding_for("batch", None),
+                     sl.sharding_for("batch", None), sl.sharding_for("batch"))
         return Cell(arch_id, shape_name, kind, "recsys",
                     _dlrm_train_step(cfg), (state,) + batch_args,
                     _dlrm_flops(cfg, kind, b), meta,
-                    batch_at=lambda step: _on(stream.batch_at(step), device))
+                    batch_at=lambda step: _on(stream.batch_at(step), device),
+                    in_shardings=in_sh)
     if kind == "serve":
+        args = (params, dense, sparse)
+        in_sh = None
+        if psh is not None:
+            in_sh = (psh, sl.sharding_for("batch", None),
+                     sl.sharding_for("batch", None))
+            args = local_blocks(args, in_sh)
         return Cell(arch_id, shape_name, kind, "recsys",
-                    functools.partial(dlrm_mod.forward, cfg=cfg),
-                    (params, dense, sparse), _dlrm_flops(cfg, kind, b), meta)
+                    functools.partial(dlrm_mod.forward, cfg=cfg), args,
+                    _dlrm_flops(cfg, kind, b), meta, in_shardings=in_sh)
+    # the candidates split evenly over the data axes
+    n_cand = _pad_to(n_cand, sl.axis_size(sl._live_axes("cand")))
     cand = torch.from_numpy(rng.integers(
         0, cfg.vocab_per_table, n_cand).astype(np.int32)).to(device)
     meta["n_candidates"] = n_cand
+    args = (params, dense[:1], sparse[:1], cand)
+    in_sh = None
+    if psh is not None:
+        in_sh = (psh, sl.sharding_for(None, None),
+                 sl.sharding_for(None, None), sl.sharding_for("cand"))
+        args = local_blocks(args, in_sh)
     return Cell(arch_id, shape_name, kind, "recsys",
                 functools.partial(dlrm_mod.retrieval_scores, cfg=cfg),
-                (params, dense[:1], sparse[:1], cand),
-                _dlrm_flops(cfg, kind, 1, n_cand), meta)
+                args, _dlrm_flops(cfg, kind, 1, n_cand), meta,
+                in_shardings=in_sh)
 
 
 # ---------------------------------------------------------------------------
@@ -559,14 +691,15 @@ def build_cell(arch_id: str, shape_name: str, smoke: bool = False,
         raise NotImplementedError(f"{arch_id}: only the LM and GNN cells "
                                   "have an 'opt' variant")
     if mod.FAMILY == "lm":
-        return _build_lm_cell(arch_id, shape_name, smoke, device, batch,
-                              layers, variant)
+        return _on_mesh(_build_lm_cell(arch_id, shape_name, smoke, device,
+                                       batch, layers, variant))
     if layers is not None:
         raise ValueError(f"{arch_id}: layers= cuts an LM's depth only")
     if mod.FAMILY == "gnn":
         if batch is not None:
             raise ValueError(f"{arch_id}: batch= cuts an LM or DLRM batch "
                              "only")
-        return _build_gnn_cell(arch_id, shape_name, mod, smoke, device,
-                               variant)
-    return _build_recsys_cell(arch_id, shape_name, mod, smoke, device, batch)
+        return _on_mesh(_build_gnn_cell(arch_id, shape_name, mod, smoke,
+                                        device, variant))
+    return _on_mesh(_build_recsys_cell(arch_id, shape_name, mod, smoke,
+                                       device, batch))

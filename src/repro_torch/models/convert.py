@@ -5,6 +5,10 @@ The functions take the JAX pytree with every leaf as a numpy array
 (``jax.tree.map(np.asarray, params)``), so this module needs no JAX: an
 ``.npz`` or any other numpy source works the same.  bf16 leaves
 (numpy's ``ml_dtypes`` bfloat16) are taken bit for bit.
+
+Under an active mesh (``shardlib.axis_rules``), :func:`local_blocks`
+hands back this rank's blocks of the converted parameters under a
+cell's ``in_shardings``.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from .. import shardlib as sl
 from ..device import resolve_device
 from ..optim import OptState
 from ..tree import flatten_with_paths, map_tree
@@ -27,6 +32,14 @@ def _tensor(a, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     else:
         t = torch.from_numpy(a)
     return t.to(device=device, dtype=dtype)
+
+
+def local_blocks(tree, shardings):
+    """This rank's blocks of a tree of global tensors, leaf by leaf under
+    a tree of ``NamedSharding`` (a cell's ``in_shardings``); a leaf that
+    is not a tensor is kept as it is."""
+    return map_tree(lambda a, s: sl.local_block(a, s.spec, s.mesh)
+                    if isinstance(a, torch.Tensor) else a, tree, shardings)
 
 
 def transformer_params_from_numpy(tree: Dict[str, Any],

@@ -1,18 +1,25 @@
-"""DLRM (Naumov et al., arXiv:1906.00091), RM2 configuration, on one device.
+"""DLRM (Naumov et al., arXiv:1906.00091), RM2 configuration.
 
 13 dense features -> bottom MLP (13-512-256-64); 26 categorical features
 -> per-table embedding lookup (the hot path); dot-product feature
 interaction over the 27 resulting vectors; top MLP (512-512-256-1) -> CTR
-logit.  The JAX package's ``models/dlrm.py`` without its shard_map: every
-lookup goes through the hand-written ``bag_sum`` kernel, which gathers
-the rows itself, and the tables' gradient through its hand-written
-backward (``kernels/embedding_bag``, a ``torch.autograd.Function``).
-The 26 tables are one ``[26, V, D]`` tensor; a forward pass is one
-``bag_sum`` launch over its ``[26*V, D]`` view, a backward one
-``bag_sum_backward`` launch.
+logit.  The JAX package's ``models/dlrm.py``: every lookup goes through
+the hand-written ``bag_sum`` kernel, which gathers the rows itself, and
+the tables' gradient through its hand-written backward
+(``kernels/embedding_bag``, a ``torch.autograd.Function``).  The 26
+tables are one ``[26, V, D]`` tensor; a forward pass is one ``bag_sum``
+launch over its ``[26*V, D]`` view, a backward one ``bag_sum_backward``
+launch.
 
-``retrieval_cand`` scores one query against 10^6 candidates as a plain
-matvec and ``topk``.
+Under an active mesh (``shardlib.axis_rules``) the tables are
+**row-sharded over the model axis** and each rank holds its ``[26, V_l,
+D]`` block: a lookup runs ``bag_sum`` on the rank's rows (ids shifted by
+``axis_index * V_l``; an id outside them gives a zero row) and one
+``psum`` joins the ranks, never an all-gather of the table.
+
+``retrieval_cand`` scores one query against 10^6 candidates as a
+(sharded) matvec, a local ``topk``, an all-gather of the winners over
+the data axes and a final ``topk``.
 """
 from __future__ import annotations
 
@@ -21,9 +28,14 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from .. import shardlib as sl
 from ..device import resolve_device
 from ..kernels.embedding_bag import bag_sum
+from ..shardlib import P
 from .common import mlp, mlp_init
+
+TP = "model_dim"
+DP = "batch"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,19 +92,46 @@ def init_params(cfg: DLRMConfig, generator: Optional[torch.Generator] = None,
     }
 
 
+def param_shardings(cfg: DLRMConfig):
+    """Logical axes of the parameters (lists group each layer's (W, b))."""
+    return {"tables": (None, "rows", None),
+            "bot": [[(None, None), (None,)]
+                    for _ in range(len(cfg.bot_mlp) - 1)],
+            "top": [[(None, None), (None,)]
+                    for _ in range(len(cfg.top_mlp))]}
+
+
 # ---------------------------------------------------------------------------
-# EmbeddingBag (single- and multi-hot)
+# EmbeddingBag (single- and multi-hot), row-sharded
 # ---------------------------------------------------------------------------
 
 def embedding_lookup(tables: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """tables [T, V, D]; ids [B, T] -> [B, T, D] (row ``ids[b, t]`` of
-    table t).  One ``bag_sum`` launch over the ``[T*V, D]`` view, with
-    ids offset by ``t*V``; an id outside ``[0, V)`` gives a zero row, as
-    the JAX lookup's range mask does."""
+    """tables [T, V, D] (under a mesh, this rank's [T, V_l, D] row
+    block); ids [B, T] -> [B, T, D] (row ``ids[b, t]`` of table t).
+    Each rank resolves the ids in its row range; one ``psum`` joins."""
+    if sl.current_mesh() is None:
+        return _lookup(tables, ids, 0)
+    tp, dp = sl._live_axes(TP), sl._live_axes(DP)
+    dpa, tpa = (dp if dp else None), (tp[0] if tp else None)
+    fn = sl.maybe_shard_map(
+        lambda tab, i: sl.psum(
+            _lookup(tab, i, sl.axis_index(tp) * tab.shape[1]), tp),
+        in_specs=(P(None, tpa, None), P(dpa, None)),
+        out_specs=P(dpa, None, None))
+    return fn(tables, ids)
+
+
+def _lookup(tables: torch.Tensor, ids: torch.Tensor, lo: int
+            ) -> torch.Tensor:
+    """Rows ``ids - lo`` of the [T, V_l, D] block: one ``bag_sum``
+    launch over its ``[T*V_l, D]`` view, with ids offset by ``t*V_l``;
+    an id outside ``[lo, lo + V_l)`` gives a zero row, as the JAX
+    lookup's range mask does."""
     t, v, d = tables.shape
     b = ids.shape[0]
+    ids = ids.long() - lo
     ok = (ids >= 0) & (ids < v)
-    flat = ids.long() + torch.arange(t, device=ids.device) * v
+    flat = ids + torch.arange(t, device=ids.device) * v
     flat = torch.where(ok, flat, t * v)          # past the end: a zero row
     ones = torch.ones((b * t, 1), dtype=tables.dtype, device=tables.device)
     out = bag_sum(tables.view(t * v, d), flat.to(torch.int32).view(b * t, 1),
@@ -173,13 +212,32 @@ def retrieval_scores(params, dense: torch.Tensor, sparse_ids: torch.Tensor,
                      top_k: int = 128):
     """Score 1 query against N candidates (table-0 rows); return the
     top-k (scores, candidate ids), best first.  Candidates outside the
-    table score 0, as the JAX version's range mask gives."""
+    table score 0, as the JAX version's range mask gives.
+
+    Under a mesh, candidates are split over the data axes and table rows
+    over the model axis: each rank scores its candidates on its rows
+    (zeros elsewhere), a ``psum`` of the partial scores over the model
+    axis completes them, and a local top-k, an ``all_gather`` over the
+    data axes and a final top-k merge the winners."""
     u = user_vector(params, dense, sparse_ids, cfg)[0]        # [D]
-    table0 = params["tables"][0]
-    v = table0.shape[0]
-    ok = (cand_ids >= 0) & (cand_ids < v)
-    rows = table0[cand_ids.long().clamp(0, v - 1)]
-    rows = rows * ok[:, None].to(rows.dtype)
-    scores = rows @ u
-    vals, idx = torch.topk(scores, min(top_k, scores.shape[0]))
-    return vals, cand_ids[idx]
+    tp, dp = sl._live_axes(TP), sl._live_axes(DP)
+
+    def inner(u, cand_l, table0_l):
+        v_l = table0_l.shape[0]
+        local = cand_l.long() - sl.axis_index(tp) * v_l
+        ok = (local >= 0) & (local < v_l)
+        rows = table0_l[local.clamp(0, v_l - 1)]
+        rows = rows * ok[:, None].to(rows.dtype)
+        scores = sl.psum(rows @ u, tp)                        # [N_l]
+        vals, idx = torch.topk(scores, min(top_k, scores.shape[0]))
+        vals = sl.all_gather(vals, dp, axis=0)
+        ids = sl.all_gather(cand_l[idx], dp, axis=0)
+        best, at = torch.topk(vals, min(top_k, vals.shape[0]))
+        return best, ids[at]
+
+    if sl.current_mesh() is None:
+        return inner(u, cand_ids, params["tables"][0])
+    dpa, tpa = (dp if dp else None), (tp[0] if tp else None)
+    fn = sl.maybe_shard_map(inner, in_specs=(P(), P(dpa), P(tpa, None)),
+                            out_specs=(P(), P()))
+    return fn(u, cand_ids, params["tables"][0])

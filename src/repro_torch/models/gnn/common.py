@@ -16,6 +16,8 @@ from typing import Callable, Optional, Sequence
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ... import shardlib as sl
+from ...shardlib import P
 from ..common import mlp, mlp_init  # noqa: F401  (the JAX module's helpers)
 
 
@@ -149,33 +151,57 @@ def partitioned_aggregate(x: torch.Tensor, arrays, edge_fn: Callable,
                           n: int, out_shape: Sequence[int],
                           dtype: torch.dtype, n_chunks: int = 1
                           ) -> torch.Tensor:
-    """Owner-partitioned message passing, on one device.
+    """Owner-partitioned message passing.
 
-    The JAX function runs ``inner`` inside a shard_map when a mesh has a
-    "nodes" axis, and ``inner(x, *arrays)`` with offset 0 otherwise; this
-    is the second branch.  ``edge_fn(x_full, *chunk_arrays) -> (values,
-    global_dst)``; a destination outside ``[0, n_local)`` goes to the
-    scrap row with its values zeroed; each chunk (or the whole edge list
-    when ``n_chunks <= 1``) is rematerialised in backward.  The sharded
-    branch comes with the port's ``torch.distributed`` slice.
+    Precondition (data layout): the ``arrays`` edge arrays are ordered
+    so shard k holds exactly the edges whose *destination* lives in node
+    shard k (``bucket_edges_by_dst``).  Under a mesh with a live
+    "nodes" axis, ``x`` and ``arrays`` are this rank's blocks (nodes and
+    edges split evenly over that axis): one ``all_gather`` of the node
+    features, then a local gather, ``edge_fn`` and an add into the local
+    node slice, whose scrap row takes every destination outside it.
+    Without one, the same body on the whole graph at offset 0.
+    ``edge_fn(x_full, *chunk_arrays) -> (values, global_dst)``; each
+    chunk (or the whole edge list when ``n_chunks <= 1``) is
+    rematerialised in backward.
     """
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            "partitioned_aggregate runs on one device; its sharded branch "
-            "waits for the torch.distributed slice (ROADMAP.md queue 1)")
+    axes = sl._live_axes("nodes")
+    if sl.current_mesh() is None or not axes:
+        return _owner_aggregate(x, x.shape[0], 0, arrays, edge_fn, n,
+                                out_shape, dtype, n_chunks)
+
+    def inner(x_l, *arr_l):
+        return _owner_aggregate(sl.all_gather(x_l, axes, axis=0),
+                                x_l.shape[0],
+                                sl.axis_index(axes) * x_l.shape[0], arr_l,
+                                edge_fn, n, out_shape, dtype, n_chunks)
+
+    ax = axes if len(axes) > 1 else axes[0]
+    fn = sl.maybe_shard_map(
+        inner,
+        in_specs=tuple(P(ax, *([None] * (a.dim() - 1)))
+                       for a in (x,) + tuple(arrays)),
+        out_specs=P(ax, *([None] * len(out_shape))))
+    return fn(x, *arrays)
+
+
+def _owner_aggregate(x_full, n_local: int, offset: int, arrays, edge_fn,
+                     n: int, out_shape, dtype, n_chunks: int):
+    """Messages of ``arrays``' edges into nodes ``[offset, offset +
+    n_local)``: ``edge_fn`` on ``x_full``, a destination outside the
+    slice to the scrap row with its values zeroed, chunk by chunk."""
     out_shape = tuple(out_shape)
-    n_local = x.shape[0]
 
     def chunk_body(*chunk):
-        vals, dst = edge_fn(x, *chunk)
-        ok = (dst >= 0) & (dst < n_local)
-        local = torch.where(ok, dst, n_local)
+        vals, dst = edge_fn(x_full, *chunk)
+        local = dst - offset
+        ok = (local >= 0) & (local < n_local)
+        local = torch.where(ok, local, n_local)
         keep = ok.reshape((-1,) + (1,) * (vals.dim() - 1)).to(vals.dtype)
         return vals * keep, local
 
     acc = torch.zeros((n_local + 1,) + out_shape, dtype=dtype,
-                      device=x.device)
+                      device=x_full.device)
     chunks = ([[a] for a in arrays] if n_chunks <= 1
               else edge_chunks(n_chunks, *arrays, sentinel=n))
     for i in range(max(n_chunks, 1)):

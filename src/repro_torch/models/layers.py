@@ -13,6 +13,13 @@ heads, bf16 probabilities), gives its products operands in the
 compute dtype and f32 results (:func:`matmul_f32`: the tensor cores on
 the card).  The MoE block's expert products are batched matmuls, as the
 JAX module leaves them to XLA.
+
+Under an active mesh (``shardlib.axis_rules``) the decode attention and
+the MoE block take the JAX module's shard_map branches on local blocks:
+split-KV decode over a sequence-sharded cache, in plain torch as JAX's
+mapped body is plain array math, and expert-parallel MoE over the
+rank's experts.  Each joins the ranks with ``psum``/``pmax`` over the
+tensor-parallel axis.
 """
 from __future__ import annotations
 
@@ -22,7 +29,12 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from .. import shardlib as sl
 from ..kernels.flash_decode import flash_decode, q_scale
+from ..shardlib import P
+
+DP = "batch"        # logical data-parallel axis (('pod','data') on the mesh)
+TP = "model_dim"    # logical tensor-parallel axis ('model' on the mesh)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -303,8 +315,22 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
     kernel reads slots ``[0, min(cur_len, window - 1)]``.  Slot order
     does not matter to the softmax; RoPE was applied before caching.
     Returns (out [B, H, dh] in the cache dtype, k_cache, v_cache).
+
+    Under an active mesh the caches are this rank's blocks of a cache
+    sequence-sharded over the tensor-parallel axis (split-KV,
+    :func:`_attention_decode_split`).
     """
     cur_len = int(cur_len)
+    if sl.current_mesh() is not None:
+        tp, dp = sl._live_axes(TP), sl._live_axes(DP)
+        dpa, tpa = (dp if dp else None), (tp[0] if tp else None)
+        kv = P(dpa, tpa, None, None)
+        fn = sl.maybe_shard_map(
+            lambda *a: _attention_decode_split(*a, cur_len, window, tp),
+            in_specs=(P(dpa, None, None), kv, kv, P(dpa, None, None),
+                      P(dpa, None, None)),
+            out_specs=(P(dpa, None, None), kv, kv))
+        return fn(q, k_cache, v_cache, k_new, v_new)
     slot = cur_len if window is None else cur_len % window
     if cur_len < 0 or slot >= k_cache.shape[1]:
         raise ValueError(f"attention_decode: slot {slot} is outside the "
@@ -314,6 +340,38 @@ def attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
     v_cache[:, slot] = v_new
     out = flash_decode(q, k_cache, v_cache, kv_len)
     return out.to(v_cache.dtype), k_cache, v_cache
+
+
+def _attention_decode_split(q, kc, vc, kn, vn, cur: int,
+                            window: Optional[int], tp):
+    """The JAX module's mapped decode body on this rank's cache block
+    ``[B, S_l, Kh, dh]`` (global slots ``axis_index * S_l + j``): the
+    new K/V goes, in place, to the rank that owns the slot; each rank
+    scores its valid slots, the ranks agree on the max (``pmax``) and
+    sum the exponentiated numerators and denominators (``psum``, the
+    denominator clamped at 1e-30)."""
+    b, s_l, kh, dh = kc.shape
+    g = q.shape[1] // kh
+    slot = cur if window is None else cur % window
+    if cur < 0 or slot >= s_l * sl.axis_size(tp):
+        raise ValueError(f"attention_decode: slot {slot} is outside the "
+                         f"cache of {s_l * sl.axis_size(tp)} positions")
+    offset = sl.axis_index(tp) * s_l
+    if offset <= slot < offset + s_l:
+        kc[:, slot - offset] = kn
+        vc[:, slot - offset] = vn
+    gpos = offset + torch.arange(s_l, device=kc.device)
+    valid = gpos <= (cur if window is None else min(cur, window - 1))
+    qg = q.reshape(b, 1, kh, g, dh) * q_scale(dh, q.dtype)
+    sc = _gqa_scores(qg, kc)[..., 0, :]                      # [B,Kh,G,S_l]
+    sc = sc.masked_fill(~valid, float("-inf"))
+    m = sl.pmax(sc.amax(dim=-1), tp)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.exp(sc - m[..., None])
+    num = sl.psum(torch.einsum("bkgs,bskd->bkgd", p, vc.float()), tp)
+    den = torch.clamp(sl.psum(p.sum(dim=-1), tp), min=1e-30)
+    out = (num / den[..., None]).reshape(b, kh * g, dh)
+    return out.to(vc.dtype), kc, vc
 
 
 def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
@@ -398,9 +456,17 @@ def moe_route(xt: torch.Tensor, router_w: torch.Tensor,
 
 def moe_block(x: torch.Tensor, router_w: torch.Tensor, wg: torch.Tensor,
               wu: torch.Tensor, wd: torch.Tensor, cfg: MoEConfig):
-    """Sort-based top-k MoE on one device (the JAX block without its
-    expert sharding).  x: [B, S, D]; router_w: [D, E]; wg/wu: [E, D, F];
-    wd: [E, F, D].  Returns (y [B, S, D] in x's dtype, aux 0-d f32).
+    """Sort-based top-k MoE.  x: [B, S, D]; router_w: [D, E]; wg/wu:
+    [E, D, F]; wd: [E, F, D].  Returns (y [B, S, D] in x's dtype, aux
+    0-d f32).
+
+    Under an active mesh the experts are sharded over the
+    tensor-parallel axis (the JAX block's expert-parallel branch): the
+    arguments are this rank's blocks (x over the data axes, ``E / |tp|``
+    experts), every rank routes its tokens over all E experts, keeps
+    the choices that fall in its expert range within capacity, and the
+    ranks' partial outputs are summed (``psum`` over tp); ``aux`` is
+    averaged over the data axes.
 
     Each expert runs its SwiGLU over a ``[cap, D]`` buffer of its
     tokens (zero rows where it has fewer).  The combine is
@@ -408,28 +474,64 @@ def moe_block(x: torch.Tensor, router_w: torch.Tensor, wg: torch.Tensor,
     its gate rounded to x's dtype, are added left to right in ascending
     expert order onto zeros, rounding after each add, as XLA's
     scatter-add does; no atomics, so bf16 bits repeat run to run."""
+    if sl.current_mesh() is None:
+        return _moe_experts(x, router_w, wg, wu, wd, cfg, 0)
+    tp, dp = sl._live_axes(TP), sl._live_axes(DP)
+    dpa, tpa = (dp if dp else None), (tp[0] if tp else None)
+
+    def inner(x, router_w, wg, wu, wd):
+        if wg.shape[0] * sl.axis_size(tp) != cfg.n_experts:
+            raise ValueError(f"moe_block: {wg.shape[0]} local experts on "
+                             f"{sl.axis_size(tp)} ranks for "
+                             f"{cfg.n_experts}")
+        e_lo = sl.axis_index(tp) * wg.shape[0]
+        y, aux = _moe_experts(x, router_w, wg, wu, wd, cfg, e_lo)
+        return sl.psum(y, tp), sl.psum(aux, dp) / sl.axis_size(dp)
+
+    ew = P(tpa, None, None)
+    return sl.maybe_shard_map(
+        inner, in_specs=(P(dpa, None, None), P(None, None), ew, ew, ew),
+        out_specs=(P(dpa, None, None), P()))(x, router_w, wg, wu, wd)
+
+
+def _moe_experts(x, router_w, wg, wu, wd, cfg: MoEConfig, e_lo: int):
+    """The MoE body over experts ``[e_lo, e_lo + e_l)`` (``e_l`` the
+    stacks' leading dim; all E at ``e_lo`` 0): every token is routed over
+    all E experts, and only its choices in that range and within
+    capacity are dispatched and combined."""
     b, s, d = x.shape
     t = b * s
-    e, k = cfg.n_experts, cfg.top_k
+    k = cfg.top_k
+    e_l = wg.shape[0]
     xt = x.reshape(t, d)
     r = moe_route(xt, router_w, cfg)
+    local = r.keep & (r.expert >= e_lo) & (r.expert < e_lo + e_l)
+    slot = torch.where(local, r.slot - e_lo * r.cap, e_l * r.cap)
     # each choice's token row into its slot of a zero buffer; the drops
-    # all land on the scrap row e * cap, cut off below.  (Put, not a
+    # all land on the scrap row e_l * cap, cut off below.  (Put, not a
     # gather from a zero row: the gather's backward would add every
     # empty slot's gradient into that one row, serially.)
     rows = xt[:, None, :].expand(t, k, d).reshape(t * k, d)
-    buf = xt.new_zeros(e * r.cap + 1, d).index_put(
-        (r.slot.reshape(-1),), rows)
-    hb = buf[:e * r.cap].reshape(e, r.cap, d)
+    buf = xt.new_zeros(e_l * r.cap + 1, d).index_put(
+        (slot.reshape(-1),), rows)
+    hb = buf[:e_l * r.cap].reshape(e_l, r.cap, d)
     h = _silu(torch.bmm(hb, wg)) * torch.bmm(hb, wu)
-    ob = torch.bmm(h, wd).reshape(e * r.cap, d)
+    ob = torch.bmm(h, wd).reshape(e_l * r.cap, d)
     ob = torch.cat([ob, ob.new_zeros(1, d)])
-    w = torch.where(r.keep, r.gate, 0.0).to(ob.dtype)
+    w = torch.where(local, r.gate, 0.0).to(ob.dtype)
     # a gather whose backward is an index_add_ (the drops' gradients
     # all meet on the scrap row; atomics take them at once)
-    contrib = torch.index_select(ob, 0, r.slot.reshape(-1)).reshape(
+    contrib = torch.index_select(ob, 0, slot.reshape(-1)).reshape(
         t, k, d) * w[..., None]                              # [T, k, D]
     y = torch.zeros((t, d), dtype=x.dtype, device=x.device)
-    for j in range(cfg.top_k):
+    for j in range(k):
         y = y + contrib[:, j]
     return y.reshape(b, s, d), r.aux
+
+
+def moe_block_paramspec(cfg: MoEConfig, d_model: int):
+    """Logical axes of the MoE block's parameters."""
+    return dict(router=("embed", "expert"),
+                wg=("expert", "embed", "expert_mlp"),
+                wu=("expert", "embed", "expert_mlp"),
+                wd=("expert", "expert_mlp", "embed"))

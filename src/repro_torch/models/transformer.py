@@ -174,6 +174,35 @@ def init_params(cfg: TransformerConfig,
     return params
 
 
+def param_shardings(cfg: TransformerConfig):
+    """Logical axes per parameter (FSDP on input dims, TP on output
+    dims), in the parameters' tree: the layout ``Cell.in_shardings``
+    records for a whole-model sharded step."""
+    attn = dict(ln1=(None,), ln2=(None,),
+                wq=("fsdp", "heads"), wk=("fsdp", "kv_heads"),
+                wv=("fsdp", "kv_heads"), wo=("heads", "fsdp"))
+    if cfg.moe is None:
+        attn.update(wg=("fsdp", "mlp"), wu=("fsdp", "mlp"),
+                    wd=("mlp", "fsdp"))
+    else:
+        attn.update(router=(None, None),
+                    wg=("expert", "fsdp", None), wu=("expert", "fsdp", None),
+                    wd=("expert", None, "fsdp"))
+    layer = {k: ("layer_stack",) + v for k, v in attn.items()}
+    tree = {"embed": ("vocab", "fsdp"), "ln_f": (None,),
+            "layers": [dict(layer) for _ in range(cfg.local_global_period)]}
+    if not cfg.tie_embeddings:
+        tree["head"] = ("fsdp", "vocab")
+    return tree
+
+
+def cache_shardings(cfg: TransformerConfig):
+    """Logical axes of :func:`make_cache`'s caches (sequence-sharded:
+    split-KV decode)."""
+    ax = ("layer_stack", "batch", "kv_seq", None, None)
+    return [{"k": ax, "v": ax} for _ in range(cfg.local_global_period)]
+
+
 def lm_head_weight(params, cfg: TransformerConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return params["embed"].T

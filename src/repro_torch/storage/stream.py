@@ -47,6 +47,15 @@ upload and body), ``core.search``, and the cache and device instants on
 the synthetic ``submit`` and ``device`` tracks.  The bounded sweeps
 relax their levels without a ``level.relax`` span, as the reference's
 do.
+
+Under a batch split (rules that bind ``"batch"``, as the in-memory
+engine's) each rank streams every level through its own pipeline and
+page cache for its share of the sources.  A bounded sweep's decisions
+(which levels are live, when the P2P meet is final, when a top-k prune
+fires) are the whole batch's: each rank's flag is AND-ed or OR-ed over
+the ranks (:meth:`QueryEngine._agree`), so every rank reads the levels
+the unsharded engine reads, and its cache and I/O counters equal the
+unsharded run's.
 """
 from __future__ import annotations
 
@@ -287,13 +296,16 @@ class StreamingQueryEngine(QueryEngine):
 
     # ---------------------------------------------------------------- public
     def ssd(self, sources: np.ndarray) -> np.ndarray:
-        return self._to_host(self._ssd_stream(self._perm_ids(sources)))
+        return self._to_host(self._ssd_stream(
+            self._perm_ids(self._share(sources))))[:len(sources)]
 
     def sssp(self, sources: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        s = len(sources)
         try:
             # The distance pass pins the levels it streams:
             # reconstruction re-reads all of them right after.
-            dist = self._ssd_stream(self._perm_ids(sources), pin=True)
+            dist = self._ssd_stream(self._perm_ids(self._share(sources)),
+                                    pin=True)
             pred = torch.full(dist.shape, -1, dtype=torch.int32,
                               device=self.device)
             recon = self._recon_level_body(dist)
@@ -307,13 +319,14 @@ class StreamingQueryEngine(QueryEngine):
         finally:
             for name in ("plan_f", "plan_b"):
                 self._unpin_plan(name)
-        return self._to_host(dist), self._to_host(pred)
+        return self._to_host(dist)[:s], self._to_host(pred)[:s]
 
     # -------------------------------------------- bounded sweeps (§7)
-    @staticmethod
-    def _range_live(dist: torch.Tensor, lo: int, hi: int) -> bool:
-        """Whether any label of nodes ``[lo, hi)`` is finite."""
-        return bool(torch.isfinite(dist[lo:hi]).any())
+    def _range_live(self, dist: torch.Tensor, lo: int, hi: int) -> bool:
+        """Whether any label of nodes ``[lo, hi)`` is finite, in any
+        column of the batch."""
+        return self._agree(bool(torch.isfinite(dist[lo:hi]).any()),
+                           every=False)
 
     @staticmethod
     def _suffix_min(fwd: torch.Tensor, cut: int) -> torch.Tensor:
@@ -341,9 +354,12 @@ class StreamingQueryEngine(QueryEngine):
           kept level; the answers are the same either way.
         """
         ix = self.index
-        src_perm, tgt_perm = self._perm_ids(sources), self._perm_ids(targets)
-        lvl_s = int(node_levels(ix, src_perm).min())
-        lvl_t = int(node_levels(ix, tgt_perm).min())
+        s = len(sources)
+        # the skips start at the whole batch's lowest levels
+        lvl_s = int(node_levels(ix, self._perm_ids(sources)).min())
+        lvl_t = int(node_levels(ix, self._perm_ids(targets)).min())
+        src_perm = self._perm_ids(self._share(sources))
+        tgt_perm = self._perm_ids(self._share(targets))
 
         fwd = self._init_state(src_perm)
         start_f = int(np.searchsorted(self._level_ids_f, lvl_s,
@@ -362,9 +378,10 @@ class StreamingQueryEngine(QueryEngine):
             best = (fwd + bwd).amin(dim=0)
             if early_term and j > 0:
                 cut = int(ix.level_ptr[int(self._level_ids_b[j - 1])])
-                if bool((best <= self._suffix_min(fwd, cut)).all()):
+                if self._agree(bool((best <= self._suffix_min(fwd, cut))
+                                    .all()), every=True):
                     break
-        return best.cpu().numpy()
+        return self._gather(best)[:s]
 
     def ssd_within(self, sources: np.ndarray, d: float) -> np.ndarray:
         """All distances ``<= d`` (the rest ``+inf``), original node
@@ -378,7 +395,7 @@ class StreamingQueryEngine(QueryEngine):
         """
         lp = self.index.level_ptr
         d = float(np.float32(d))
-        dist = self._init_state(self._perm_ids(sources))
+        dist = self._init_state(self._perm_ids(self._share(sources)))
         dist.masked_fill_(~(dist <= d), INF)   # d < 0: nothing survives
         for lvl in range(self.store.n_real("plan_f")):
             g = int(self._level_ids_f[lvl])
@@ -390,7 +407,7 @@ class StreamingQueryEngine(QueryEngine):
             g = int(self._level_ids_b[lvl])
             if self._range_live(dist, int(lp[g + 1]), dist.shape[0]):
                 dist = self._relax_slab(dist, self._read("plan_b", lvl), d)
-        return self._to_host(dist)
+        return self._to_host(dist)[:len(sources)]
 
     def knn(self, sources: np.ndarray, k: int
             ) -> Tuple[np.ndarray, np.ndarray]:
@@ -411,7 +428,7 @@ class StreamingQueryEngine(QueryEngine):
         if not 1 <= k <= ix.n:
             raise ValueError(f"k must be in [1, {ix.n}], got {k}")
         lp = ix.level_ptr
-        dist = self._init_state(self._perm_ids(sources))
+        dist = self._init_state(self._perm_ids(self._share(sources)))
 
         def clamp(d):
             r = d.kthvalue(k, dim=0, keepdim=True).values      # [1, S]
@@ -428,7 +445,7 @@ class StreamingQueryEngine(QueryEngine):
             dist, r = clamp(dist)
             if self._range_live(dist, int(lp[g + 1]), dist.shape[0]):
                 dist = self._relax_slab(dist, self._read("plan_b", lvl), r)
-        return _knn_select(self._to_host(dist), k)
+        return _knn_select(self._to_host(dist)[:len(sources)], k)
 
     @staticmethod
     def _far_slice(dist: torch.Tensor, lo: int, hi: int) -> np.ndarray:
@@ -454,11 +471,13 @@ class StreamingQueryEngine(QueryEngine):
         when it exceeds ``threshold`` for every source the remaining
         levels go unread.  Returns ``(dist_in_original_order, True)``
         for a completed sweep — equal to :meth:`ssd` — or
-        ``(None, False)``.
+        ``(None, False)``.  Under a batch split each rank sums its own
+        sources' farness, and a prune needs every rank's sources past
+        ``threshold``.
         """
         ix = self.index
         lp = ix.level_ptr
-        dist = self._init_state(self._perm_ids(sources))
+        dist = self._init_state(self._perm_ids(self._share(sources)))
         for lvl in range(self.store.n_real("plan_f")):
             dist = self._relax_slab(dist, self._read("plan_f", lvl))
         dist = self._core_search(dist)
@@ -466,16 +485,17 @@ class StreamingQueryEngine(QueryEngine):
         if nb:
             cut = int(lp[int(self._level_ids_b[0]) + 1])
             far = self._far_slice(dist, cut, dist.shape[0])
-            if np.all(far > threshold):
+            if self._agree(bool(np.all(far > threshold)), every=True):
                 return None, False
             for lvl in range(nb):
                 dist = self._relax_slab(dist, self._read("plan_b", lvl))
                 new_cut = int(lp[int(self._level_ids_b[lvl])])
                 far += self._far_slice(dist, new_cut, cut)
                 cut = new_cut
-                if lvl + 1 < nb and np.all(far > threshold):
+                if lvl + 1 < nb and self._agree(
+                        bool(np.all(far > threshold)), every=True):
                     return None, False
-        return self._to_host(dist), True
+        return self._to_host(dist)[:len(sources)], True
 
     def close(self) -> None:
         """Stop the pipeline's threads and close the segment files."""
