@@ -45,7 +45,9 @@ never JAX or the JAX package.  Phases, each of which asserts:
    (device time by kernel, the device's idle share; no assertion);
 5. the same index served from its block store: ``save_store`` with the
    raw, delta and f16 codecs into a temporary directory (removed at the
-   end), then phase 4's request stream through
+   end; the saves run in the background from the index's build through
+   phase 3, and phase 4 starts once they end), then phase 4's request
+   stream through
    ``QueryServer(store_path=...)`` on the card at page-cache budgets of
    5% and 25% of the decompressed segments (raw), 25% (delta, f16), at
    queue depth 4, and the raw 25% run again at depth 1.  Each run's
@@ -218,6 +220,31 @@ never JAX or the JAX package.  Phases, each of which asserts:
    added in another order).  Its paths in the kernels line: ``hod_dp``
    (``edge_relax``, ``tropical_matmul``) and ``dlrm_serve_dp``
    (``embedding_bag``).
+15. whole-model sharded LM steps at world size 1 over NCCL, after phase
+   13 (a one-rank NCCL group, the ``(1, 1)`` smoke mesh over ``("data",
+   "model")``; budget 60 s).  Each cell is built by ``build_cell`` under
+   its rules (``rules_train_lm``, ``rules_serve_lm``) and holds its
+   one-rank blocks; every collective of the sharded layers runs over
+   NCCL groups of one.  (a) glm4-9b train_4k at full width, 2 layers,
+   batch 1 x 4,096, and (b) granite-moe train_4k at full width and
+   depth: one step of the sharded cell and one of the unsharded cell
+   from the same seed, the loss within rtol 1e-5, gnorm within rtol
+   1e-4, every gradient leaf within a relative L2 of 1e-5 (gradients
+   from ``lm_value_and_grad`` before the step; deterministic
+   algorithms on for both runs, so that the embedding's bf16 gradient
+   sums in one order); step times and peaks side by side.  (c) glm4-9b
+   in bf16 at full depth: the prefill_32k cell, batch cut to 1 and the
+   prompt to 4,096 tokens, run sharded and unsharded on the cell's
+   weights, the logits within glm4's bf16 serve bound (relative L2
+   2.5e-2); the decode_32k cell at batch 8: 4 steps after an unsharded
+   prefill of 8 prompts of 512 tokens, sharded and unsharded, each held
+   to a prefill of the extended sequences and to the other within that
+   bound, then 4 steps timed each way at the cell's context (caches from
+   the generator; the sharded decode runs the plain split-KV body, the
+   unsharded one ``flash_decode``).  Its paths in the kernels line, each
+   counted over the sharded run alone: ``lm_train_sharded``,
+   ``lm_prefill_sharded``, ``lm_decode_sharded`` (no kernel of the port
+   runs there).
 
 Each path frees its memory before the next.  Every launch counter is
 zeroed just before a served run and read just after it.  It prints one
@@ -228,13 +255,15 @@ own count, phase 8's paths ``hod_mixed_slo``,
 ``hod_fleet_raw`` and ``hod_fleet_delta`` (each the sum over its runs
 at 1, 2 and 4 shards) and ``hod_fleet_mixed_slo``, phase 10's
 ``dlrm_train`` and ``lm_train``, phase 11's ``gnn_train``, phase
-12's and phase 13's paths included;
+12's, phase 13's and phase 15's paths included;
 ``bag_sum_backward`` has no TPU kernel and names the JAX lookup's
 ``jnp.take``), the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``.  Any failure
 exits non-zero before those lines; without a card, or outside a
 checkout, it exits non-zero at once.
 """
+import contextlib
+import functools
 import json
 import os
 import shutil
@@ -242,6 +271,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -407,6 +437,20 @@ OPT_PROFILED = ("glm4-9b", "gemma3-12b")
 OPT_DEEPER = "gemma3-12b"
 OPT_LOGIC_RTOL, OPT_LOSS_ATOL, OPT_RESERVE_SLACK = 1e-5, 2e-2, 1.25
 OPT_COMPRESS_BYTES, SEED_COMPRESS = 256 * 2 ** 20, 4
+
+# Phase 15: whole-model sharded LM steps at world size 1 over NCCL.  The
+# train cells (arch, depth: None is the published one) at batch 1, the
+# sharded step held to the unsharded one: loss, gnorm, each gradient
+# leaf's relative L2; glm4-9b's serving cells in bf16 at full depth,
+# prefill cut to batch 1 and SHARDED_PREFILL_SEQ tokens, decode_32k to
+# SHARDED_DECODE_BATCH: SHARDED_DECODE_STEPS steps after a prefill of
+# SHARDED_DECODE_PROMPT tokens, the logits held to LM_REL_L2, then as
+# many timed at the cell's context.
+SHARDED_TRAIN = (("glm4-9b", 2), ("granite-moe-1b-a400m", None))
+SHARDED_LOSS_RTOL, SHARDED_GNORM_RTOL, SHARDED_GRAD_REL_L2 = 1e-5, 1e-4, 1e-5
+SHARDED_PREFILL_SEQ, SHARDED_DECODE_BATCH, SHARDED_DECODE_STEPS = \
+    4096, 8, 4
+SHARDED_DECODE_PROMPT = 512
 
 # The served run whose launch count the kernels line reports: the one at
 # the shape each kernel is timed at.
@@ -922,7 +966,6 @@ def save_stores(ix, root: str) -> dict:
     side by side (numpy's zlib releases the interpreter lock); prints
     each store's bytes on disk and decompressed.  codec -> path."""
     import os
-    from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.storage import segment_bytes, segment_logical_bytes
 
@@ -1062,15 +1105,15 @@ def check_store_modes(np, torch, card: str, eng, mem_eng, batch) -> None:
         f"{len(batch)} sources, on {card}")
 
 
-def drive_store(np, torch, card: str, ix, mem: dict, root: str,
+def drive_store(np, torch, card: str, ix, mem: dict, paths: dict,
                 dev: str = "cuda") -> tuple:
-    """Phase 5: phase 4's index served from its block store, saved under
-    ``root`` (left for phases 8 and 9; the caller removes it).  Returns
+    """Phase 5: phase 4's index served from its block stores, saved by
+    ``save_stores`` (``paths``: codec -> store; left for phases 8 and 9,
+    the caller removes them).  Returns
     the launches of the raw store's run at 25%, the stores' paths, and
     the cache counters and I/O of the runs at 25% and depth 4 by codec
     (phase 9 holds its 1-shard fleets to them)."""
     from repro_torch.storage import segment_logical_bytes
-    paths = save_stores(ix, root)
     logical = segment_logical_bytes(paths["raw"])
     runs = {}
     for codec, frac, depth in STORE_RUNS:
@@ -1622,13 +1665,14 @@ def profile_device(torch, step, reps: int, what: str, card: str,
     share of the wall time the device sits idle (torch.profiler).
     Returns them a call: ``wall_us``, ``busy_us``, ``idle_share`` and
     ``device_us`` by event name (empty if the profiler saw no device
-    time)."""
+    time).  It records device activity only: nothing here reads the
+    host's operator events, and a host-bound step (granite-moe's train
+    step) gives the profiler tens of thousands of them to process."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             step()
@@ -3728,6 +3772,253 @@ def dp_decode_moe(torch, mesh) -> None:
     free(torch)
 
 
+# ------------------------------------------------------------ phase 15
+def rel_l2(torch, got, want) -> float:
+    want = want.float()
+    return ((got.float() - want).norm() / want.norm().clamp_min(1e-30)
+            ).item()
+
+
+def sharded_train(torch, mesh, arch: str, layers, card: str) -> dict:
+    """Phase 15 (a), (b): ``arch``'s train_4k cell at batch 1 (``layers``
+    deep, or its published depth), unsharded and then built and run
+    under ``rules_train_lm`` on ``mesh``, from the same seed: gradients
+    from ``lm_value_and_grad`` (a warm-up), then one step timed by CUDA
+    events.  The sharded run's loss, gnorm and every gradient leaf held
+    to the unsharded run's.  Returns the sharded step's launch
+    counts."""
+    from repro_torch import shardlib as sl
+    from repro_torch.launch.steps import (build_cell, lm_value_and_grad,
+                                          rules_for)
+    from repro_torch.tree import flatten_with_paths, leaves
+    runs = {}
+    for ruled in (False, True):
+        rules = (sl.axis_rules(mesh, rules_for(arch, "train_4k", mesh))
+                 if ruled else contextlib.nullcontext())
+        with rules:
+            kept = torch.cuda.memory_allocated()    # the other run's grads
+            t0 = time.perf_counter()
+            cell = build_cell(arch, "train_4k", device="cuda",
+                              batch=LM_TRAIN_BATCH, layers=layers)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            state, batch, cfg = cell.args[0], cell.args[1:], cell.meta["cfg"]
+            loss, grads = lm_value_and_grad(state["params"], *batch, cfg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = cell.fn(state, *batch)[1]
+            stop.record()
+            torch.cuda.synchronize()
+            counts = paths_now()
+            run = {"seq": cell.meta["seq_len"],
+                   "loss": loss.item(), "step_loss": m["loss"].item(),
+                   "gnorm": m["gnorm"].item(), "ms": start.elapsed_time(stop),
+                   "peak": torch.cuda.max_memory_allocated() - kept,
+                   "build_s": build_s, "counts": counts}
+        if not ruled:
+            want = grads
+        else:
+            worst, where = 0.0, None
+            for (k, g), w in zip(flatten_with_paths(grads), leaves(want)):
+                r = rel_l2(torch, g, w)
+                if r > worst:
+                    worst, where = r, k
+            run["worst"], run["where"] = worst, where
+            run["in_sh"] = cell.in_shardings[0]["params"]["layers"][0]["wq"]
+        runs[ruled] = run
+        del cell, state, batch, grads, m
+        free(torch)
+    del want
+    free(torch)
+    u, s_ = runs[False], runs[True]
+    ok = (abs(s_["loss"] - u["loss"]) <= SHARDED_LOSS_RTOL * abs(u["loss"])
+          and abs(s_["step_loss"] - s_["loss"]) <= SHARDED_LOSS_RTOL
+          * abs(s_["loss"])
+          and abs(s_["gnorm"] - u["gnorm"]) <= SHARDED_GNORM_RTOL
+          * abs(u["gnorm"])
+          and s_["worst"] <= SHARDED_GRAD_REL_L2)
+    say(f"{arch} train_4k ({cfg.n_layers} layers, batch "
+        f"{LM_TRAIN_BATCH} x {s_['seq']}, {cfg.compute_dtype}) "
+        f"sharded under rules_train_lm (wq {tuple(s_['in_sh'].spec)}) over "
+        f"the (1, 1) NCCL mesh against unsharded: loss {s_['loss']:.6f} vs "
+        f"{u['loss']:.6f} (rtol {SHARDED_LOSS_RTOL}), gnorm "
+        f"{s_['gnorm']:.6f} vs {u['gnorm']:.6f} (rtol {SHARDED_GNORM_RTOL}), "
+        f"worst gradient relative L2 {s_['worst']:.3e} ({s_['where']}; "
+        f"bound {SHARDED_GRAD_REL_L2}); step {s_['ms']:.1f} vs "
+        f"{u['ms']:.1f} ms (CUDA events, one step after a value-and-grad "
+        f"warm-up, deterministic algorithms on), peak "
+        f"{s_['peak'] / 1e9:.2f} vs {u['peak'] / 1e9:.2f} GB (each above "
+        f"what was held before its build), built in {s_['build_s']:.1f} vs "
+        f"{u['build_s']:.1f} s, on {card}")
+    if not ok:
+        raise AssertionError(f"{arch} sharded train step differs from the "
+                             f"unsharded one: {s_} against {u}")
+    return s_["counts"]
+
+
+def sharded_serve(torch, mesh, card: str) -> dict:
+    """Phase 15 (c): glm4-9b's prefill_32k (batch 1, a prompt of
+    SHARDED_PREFILL_SEQ tokens) and decode_32k (batch
+    SHARDED_DECODE_BATCH, caches from the generator) cells built under
+    ``rules_serve_lm`` on ``mesh``, each run sharded and unsharded on
+    the cell's weights (one rank's blocks are the whole tensors): the
+    logits within LM_REL_L2.  Returns each sharded path's launch
+    counts."""
+    from repro_torch import shardlib as sl
+    from repro_torch.launch.steps import build_cell, rules_for
+    from repro_torch.models import transformer as tf
+    counts = {}
+    rules = rules_for("glm4-9b", "prefill_32k", mesh)
+    t0 = time.perf_counter()
+    with sl.axis_rules(mesh, rules):
+        cell = build_cell("glm4-9b", "prefill_32k", device="cuda", batch=1)
+    params, toks = cell.args
+    cfg = cell.meta["cfg"]
+    full = toks.shape[1]
+    toks = toks[:, :SHARDED_PREFILL_SEQ].contiguous()
+    cell.meta.setdefault("reduced", {})["seq_len"] = [full,
+                                                      SHARDED_PREFILL_SEQ]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    out, ms = {}, {}
+    for ruled in (False, True, False, True):       # warm, then timed
+        with (sl.axis_rules(mesh, rules) if ruled
+              else contextlib.nullcontext()):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = (cell.fn if ruled else functools.partial(
+                tf.prefill, cfg=cfg))(params, toks)
+            torch.cuda.synchronize()
+            ms[ruled] = (time.perf_counter() - t0) * 1e3
+            if ruled:
+                counts["lm_prefill_sharded"] = paths_now()
+        out[ruled] = logits
+        del caches
+    r = rel_l2(torch, out[True], out[False])
+    say(f"glm4-9b prefill_32k sharded under rules_serve_lm ((1, 1) NCCL "
+        f"mesh; cuts {cell.meta['reduced']}, {cfg.n_layers} layers, bf16; "
+        f"built in {build_s:.1f} s): logits relative L2 {r:.3e} against "
+        f"the unsharded prefill (bound {LM_REL_L2}), "
+        f"{ms[True]:.1f} vs {ms[False]:.1f} ms (host clock, second call)")
+    if not (r <= LM_REL_L2 and out[True].shape == (1, cfg.vocab)):
+        raise AssertionError(f"sharded prefill logits {r} from unsharded")
+    del cell, params, toks, out, logits
+    free(torch)
+
+    rules = rules_for("glm4-9b", "decode_32k", mesh)
+    t0 = time.perf_counter()
+    with sl.axis_rules(mesh, rules):
+        cell = build_cell("glm4-9b", "decode_32k", device="cuda",
+                          batch=SHARDED_DECODE_BATCH)
+    params, caches, _, cur = cell.args
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    b = SHARDED_DECODE_BATCH
+    steps = torch.randint(0, cfg.vocab, (SHARDED_DECODE_STEPS, b),
+                          generator=gen, device="cuda", dtype=torch.int32)
+
+    def decode(ruled, first):
+        """The steps from ``first`` (each its own input, teacher-forced),
+        sharded or not; (their logits, host ms a step, launches)."""
+        fn = (cell.fn if ruled
+              else functools.partial(tf.decode_step, cfg=cfg))
+        with (sl.axis_rules(mesh, rules) if ruled
+              else contextlib.nullcontext()):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = torch.stack([fn(params, caches, t, first + i)[0]
+                               for i, t in enumerate(steps)])
+            torch.cuda.synchronize()
+            return (got, (time.perf_counter() - t0) * 1e3 / len(steps),
+                    paths_now())
+
+    # the check: caches from an unsharded prefill of b prompts, the steps
+    # after them both ways, each held to a prefill of the extended
+    # sequences (lm_reference) and to the other
+    prompts = torch.randint(0, cfg.vocab, (b, SHARDED_DECODE_PROMPT),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    fill_cache(cfg, caches, tf.prefill(params, prompts, cfg)[1])
+    plain, _, _ = decode(False, SHARDED_DECODE_PROMPT)
+    split, _, counts["lm_decode_sharded"] = decode(True,
+                                                   SHARDED_DECODE_PROMPT)
+    want = lm_reference(torch, params, cfg, prompts, steps)
+    read = {"sharded vs prefill": distance(split, want)[0],
+            "unsharded vs prefill": distance(plain, want)[0],
+            "sharded vs unsharded": distance(split, plain)[0]}
+    say(f"glm4-9b decode_32k sharded under rules_serve_lm ((1, 1) NCCL "
+        f"mesh; cuts {cell.meta['reduced']}; built in {build_s:.1f} s): "
+        f"{SHARDED_DECODE_STEPS} steps after an unsharded prefill of "
+        f"{b} x {SHARDED_DECODE_PROMPT} tokens, logits relative L2 "
+        + ", ".join(f"{k} {v:.3e}" for k, v in read.items())
+        + f" (bound {LM_REL_L2})")
+    if not all(v <= LM_REL_L2 for v in read.values()):
+        raise AssertionError(f"sharded decode logits: {read}")
+    # the times at the cell's context: caches from the generator
+    for pos in caches:
+        for c in range(cfg.n_cycles):
+            pos["k"][c].normal_(generator=gen)
+            pos["v"][c].normal_(generator=gen)
+    first = cur - SHARDED_DECODE_STEPS
+    decode(False, first - 1)
+    plain, plain_ms, fd = decode(False, first)
+    decode(True, first - 1)
+    split, split_ms, timed = decode(True, first)
+    for name, n in timed.items():
+        counts["lm_decode_sharded"][name] += n
+    say(f"glm4-9b decode_32k at cur_len {first} (caches "
+        f"{tree_bytes(caches) / 1e9:.2f} GB from the generator): "
+        f"{split_ms:.2f} ms/step sharded (split-KV, plain torch) vs "
+        f"{plain_ms:.2f} ms/step unsharded (flash_decode, "
+        f"{fd['flash_decode']} launches) (host clock, after a warm-up "
+        f"step each); logits relative L2 {distance(split, plain)[0]:.3e} "
+        f"(read, not held: random keys spread each softmax over 32k "
+        f"slots, where flash_decode's bf16 p and the split body's f32 p "
+        f"part most), on {card}")
+    del cell, params, caches, plain, split, want
+    free(torch)
+    return counts
+
+
+def drive_sharded_lm(torch, card: str) -> dict:
+    """Phase 15 on a one-rank NCCL group.  Returns each sharded path's
+    launch counts, every one of which must be zero."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import distributed, make_smoke_mesh
+    t_phase = time.perf_counter()
+    paths = {}
+    with distributed("cuda"):
+        if dist.get_backend() != "nccl":
+            raise AssertionError("phase 15 wants an NCCL group")
+        mesh = make_smoke_mesh("cuda")
+        train = {}
+        # both runs of a train cell with deterministic algorithms: the
+        # embedding's bf16 gradient is an index_put with accumulate,
+        # whose atomic adds round in another order each run
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for arch, layers in SHARDED_TRAIN:
+                for name, n in sharded_train(torch, mesh, arch, layers,
+                                             card).items():
+                    train[name] = train.get(name, 0) + n
+        finally:
+            torch.use_deterministic_algorithms(False)
+        paths["lm_train_sharded"] = train
+        paths.update(sharded_serve(torch, mesh, card))
+    ran = {p: {k: n for k, n in c.items() if n} for p, c in paths.items()}
+    if any(ran.values()):
+        raise AssertionError(f"phase 15 paths launched a kernel: {ran}")
+    say(f"phase 15 (whole-model sharded LM steps, world size 1, NCCL) took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -3788,23 +4079,41 @@ def main() -> int:
     rows = {"tropical_matmul": check_minplus(torch, card, BATCH, CORE, CORE)}
     check_minplus_edges(torch, card)
     g, ix = served_index(torch, card, SIDE, CLOSURE_LIMIT)
-    rows["edge_relax"] = check_relax_sweeps(np, torch, card, ix)
-    check_relax_synthetic(np, torch, BATCH, 2 * 20000, PLAN_F_ROWS, K_SLOTS)
-    check_relax_synthetic(np, torch, 45, 998, 301, 5)
-    rows["flash_decode"] = check_flash_decode(torch, card)
-    free(torch)
-    rows["flash_decode"]["shapes"] = check_flash_decode_family(torch, card)
-    rows["embedding_bag"] = check_bag_sum(torch, card)
-    free(torch)
+    root = tempfile.mkdtemp(prefix="hod_store_")
+    # phase 5's stores are saved while phase 3's kernel checks run (the
+    # saves read the index's host arrays; zlib and the writes leave the
+    # interpreter lock), and waited for before phase 4's host-clock runs
+    saver = ThreadPoolExecutor(1)
+    t_save = time.perf_counter()
+    saving = saver.submit(save_stores, ix, root)
+    try:
+        rows["edge_relax"] = check_relax_sweeps(np, torch, card, ix)
+        check_relax_synthetic(np, torch, BATCH, 2 * 20000, PLAN_F_ROWS,
+                              K_SLOTS)
+        check_relax_synthetic(np, torch, 45, 998, 301, 5)
+        rows["flash_decode"] = check_flash_decode(torch, card)
+        free(torch)
+        rows["flash_decode"]["shapes"] = check_flash_decode_family(torch,
+                                                                   card)
+        rows["embedding_bag"] = check_bag_sum(torch, card)
+        free(torch)
+        t_wait = time.perf_counter()
+        store_paths = saving.result()
+        say(f"the stores' saves took {time.perf_counter() - t_save:.1f} s "
+            f"beside phase 3, {time.perf_counter() - t_wait:.1f} s of it "
+            f"waited for after phase 3")
+    finally:
+        saver.shutdown(wait=True)
+        if not saving.done() or saving.exception() is not None:
+            shutil.rmtree(root, ignore_errors=True)
 
     mem = drive_slice(np, torch, card, g, ix)
     paths = {name: {"hod_serve_stream": n}
              for name, n in mem["launches"].items()}
-    root = tempfile.mkdtemp(prefix="hod_store_")
     try:
         t0 = time.perf_counter()
         launches, stores, unsharded = drive_store(np, torch, card, ix, mem,
-                                                  root)
+                                                  store_paths)
         for name, n in launches.items():
             paths[name]["hod_store_stream"] = n
         say(f"store phase took {time.perf_counter() - t0:.1f} s")
@@ -3863,6 +4172,10 @@ def main() -> int:
             paths[name][path] = n
     free(torch)
     for path, counts in drive_opt(torch, card, base_train).items():
+        for name, n in counts.items():
+            paths[name][path] = n
+    free(torch)
+    for path, counts in drive_sharded_lm(torch, card).items():
         for name, n in counts.items():
             paths[name][path] = n
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")

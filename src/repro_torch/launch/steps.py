@@ -24,12 +24,14 @@ of (seed, step).  A GNN step's batch is one ``GraphBatch``.
 Built under ``shardlib.axis_rules(mesh, rules_for(arch, shape, mesh))``
 a cell carries ``in_shardings``: one ``NamedSharding`` a leaf of its
 arguments, resolved from the logical axis rules (the JAX cells' trees).
-The recsys serving cells (serve_p99, serve_bulk, retrieval_cand) then
-hold this rank's blocks, cut by ``local_block`` from the same seeded
-weights and inputs, and run sharded.  A train cell, and an LM or GNN
-cell on a mesh of more than one rank, refuses to run: whole-model
-sharded steps and sharded training wait for later slices
-(``ROADMAP.md`` queue 1).
+The LM cells (train, prefill, decode) and the recsys serving cells
+(serve_p99, serve_bulk, retrieval_cand) then hold this rank's blocks,
+cut by ``local_block`` from the same seeded weights and inputs, and run
+sharded under the same rules (``cell.run()`` inside the ``with``): an
+LM train step sums each gradient block over the ranks its uses are
+partial on and clips to the whole model's norm.  The GNN cells and the
+recsys train cell refuse to run on a mesh: their sharded steps wait for
+later slices (``ROADMAP.md`` queue 1).
 """
 from __future__ import annotations
 
@@ -52,7 +54,7 @@ from ..models import gnn
 from ..models import transformer as tf
 from ..models.convert import local_blocks
 from ..models.gnn.common import GraphBatch, n_edge_chunks
-from ..optim import adamw_init, adamw_update, cosine_schedule
+from ..optim import OptState, adamw_init, adamw_update, cosine_schedule
 from ..tree import leaves, map_tree, unflatten
 from . import mesh as mesh_mod
 
@@ -109,22 +111,32 @@ def rules_for(arch_id: str, shape_name: str, mesh):
     return mesh_mod.rules_recsys(mesh, params.get("batch", 0))
 
 
+#: What each refused family waits for (``ROADMAP.md`` queue 1).
+_NEXT_SLICE = {
+    "gnn": "the GNN family under rules_gnn (nodes and edges over every "
+           "axis)",
+    "recsys": "dlrm-rm2's train cell under rules_recsys (bag_sum_backward "
+              "on each rank's rows)",
+}
+
+
 def _on_mesh(cell: Cell) -> Cell:
     """``cell`` as built under the current rules: its step refuses to
-    run where this slice has no sharded form (training, and a whole
-    LM or GNN model on more than one rank)."""
+    run where the port has no sharded form yet (a GNN cell, every one a
+    train cell, and the recsys train cell)."""
     mesh = sl.current_mesh()
-    if mesh is None:
+    if mesh is None or cell.family == "lm":
         return cell
-    if cell.kind == "train" or (cell.family in ("lm", "gnn")
-                                and mesh.size() > 1):
-        what = ("sharded training" if cell.kind == "train"
+    if cell.kind == "train":
+        what = (f"sharded training of {cell.family} cells"
+                if cell.family == "recsys" or mesh.size() == 1
                 else f"a whole-model sharded {cell.family} step")
 
         def refuse(*args, **kwargs):
             raise NotImplementedError(
-                f"{cell.arch} {cell.shape}: {what} waits for a later "
-                "slice of the port (ROADMAP.md queue 1)")
+                f"{cell.arch} {cell.shape}: {what} waits for the next "
+                f"slices of the port: {_NEXT_SLICE[cell.family]} "
+                "(ROADMAP.md queue 1)")
         cell.fn = refuse
     return cell
 
@@ -167,6 +179,16 @@ def _on(arrays, device) -> Tuple[torch.Tensor, ...]:
                  for a in arrays)
 
 
+def _partial_axes() -> Tuple[str, ...]:
+    """The mesh axes an LM gradient block is partial on unless its leaf
+    is split over them: the batch's (each data shard sees its own
+    tokens) and the sequence's (a leaf held whole over the
+    tensor-parallel ranks, a norm scale or the MoE router, sees the
+    rank's block of the sequence)."""
+    return tuple(dict.fromkeys(sl._live_axes("batch")
+                               + sl._live_axes("seq")))
+
+
 def lm_value_and_grad(params, tokens: torch.Tensor, labels: torch.Tensor,
                       cfg: tf.TransformerConfig):
     """(loss, grads) of ``tf.loss_fn`` at ``params``: dense f32 grads
@@ -174,7 +196,13 @@ def lm_value_and_grad(params, tokens: torch.Tensor, labels: torch.Tensor,
     cycle's slice of a ``[n_cycles, ...]`` stack is its own autograd leaf
     whose ``.grad`` is preset to its slot of a zero-filled stacked
     buffer, so backward accumulates into the buffer in place (a leaf of
-    the whole stack would get one stack-sized gradient a cycle)."""
+    the whole stack would get one stack-sized gradient a cycle).
+
+    Under a mesh ``params`` are this rank's blocks, the loss is the
+    whole batch's, and each gradient block is summed after the backward
+    over the axes its leaf's uses are partial on and does not split
+    (``shardlib.reduce_grads``): each block then equals the unsharded
+    gradient's block."""
     grads = map_tree(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                            device=p.device), params)
 
@@ -191,18 +219,25 @@ def lm_value_and_grad(params, tokens: torch.Tensor, labels: torch.Tensor,
     with torch.enable_grad():
         loss = tf.loss_fn(tree, tokens, labels, cfg)
         loss.backward()
+    if sl.current_mesh() is not None:
+        sl.reduce_grads(grads, _resolve(tf.param_shardings(cfg)),
+                        _partial_axes())
     return loss.detach(), grads
 
 
 def _lm_train_step(cfg: tf.TransformerConfig):
     """The JAX LM train step: loss and grads, the cosine schedule on the
     optimizer's count (3e-4 peak, 2,000 warm-up of 200,000 steps), AdamW
-    with its defaults (clip 1.0, decay 0.1); in place."""
+    with its defaults (clip 1.0, decay 0.1); in place.  Under a mesh, on
+    this rank's blocks, clipped to the whole model's norm."""
     def step(state, tokens, labels):
         loss, grads = lm_value_and_grad(state["params"], tokens, labels, cfg)
         lr = cosine_schedule(state["opt"].count, 3e-4, 2000, 200_000)
+        shardings = (_resolve(tf.param_shardings(cfg))
+                     if sl.current_mesh() is not None else None)
         _, state["opt"], gnorm = adamw_update(state["params"], grads,
-                                              state["opt"], lr)
+                                              state["opt"], lr,
+                                              shardings=shardings)
         return state, {"loss": loss, "gnorm": gnorm}
     return step
 
@@ -228,7 +263,6 @@ def _build_lm_train_cell(arch_id, shape_name, cfg, smoke, device, meta):
     b, s = meta["batch"], meta["seq_len"]
     gen = torch.Generator(device=device).manual_seed(SEED)
     params = tf.init_params(cfg, gen, device)          # f32, as JAX trains
-    state = {"params": params, "opt": adamw_init(params)}
     stream = TokenStream(vocab=cfg.vocab, batch=b, seq_len=s, seed=SEED)
     if smoke:   # the JAX smoke cell's tokens
         toks = np.random.default_rng(SEED).integers(
@@ -238,17 +272,22 @@ def _build_lm_train_cell(arch_id, shape_name, cfg, smoke, device, meta):
         batch_args = _on(stream.batch_at(0), device)
     meta["data"] = "TokenStream"
     in_sh = None
+    batch_at = lambda step: _on(stream.batch_at(step), device)  # noqa: E731
     if sl.current_rules() is not None:
         psh = _resolve(tf.param_shardings(cfg))
+        tok = sl.sharding_for("batch", None)
         in_sh = ({"params": psh,
-                  "opt": type(state["opt"])(m=psh, v=psh,
-                                            count=sl.sharding_for())},
-                 sl.sharding_for("batch", None),
-                 sl.sharding_for("batch", None))
+                  "opt": OptState(m=psh, v=psh, count=sl.sharding_for())},
+                 tok, tok)
+        params = local_blocks(params, psh)
+        batch_args = local_blocks(batch_args, in_sh[1:])
+        whole_at = batch_at
+        batch_at = lambda step: local_blocks(  # noqa: E731
+            whole_at(step), in_sh[1:])
+    state = {"params": params, "opt": adamw_init(params)}
     return Cell(arch_id, shape_name, "train", "lm", _lm_train_step(cfg),
                 (state,) + batch_args, _lm_flops(cfg, "train", b, s), meta,
-                batch_at=lambda step: _on(stream.batch_at(step), device),
-                in_shardings=in_sh)
+                batch_at=batch_at, in_shardings=in_sh)
 
 
 def lm_cell_config(arch_id: str, smoke: bool = False,
@@ -298,21 +337,22 @@ def _build_lm_cell(arch_id, shape_name, smoke, device, batch, layers=None,
     flops = _lm_flops(cfg, kind, b, s)
     ruled = sl.current_rules() is not None
     if kind == "prefill":
-        toks = torch.from_numpy(np.random.default_rng(SEED).integers(
-            0, cfg.vocab, (b, s)).astype(np.int32)).to(device)
+        args = (params, torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, cfg.vocab, (b, s)).astype(np.int32)).to(device))
         in_sh = ((_resolve(tf.param_shardings(cfg)),
                   sl.sharding_for("batch", None)) if ruled else None)
-        return Cell(arch_id, shape_name, kind, "lm",
-                    functools.partial(tf.prefill, cfg=cfg), (params, toks),
-                    flops, meta, in_shardings=in_sh)
-    caches = tf.make_cache(cfg, b, s, dtype=torch.bfloat16, device=device)
-    toks = torch.zeros(b, dtype=torch.int32, device=device)
-    in_sh = ((_resolve(tf.param_shardings(cfg)),
-              _resolve(tf.cache_shardings(cfg)), sl.sharding_for("batch"),
-              sl.sharding_for()) if ruled else None)
-    return Cell(arch_id, shape_name, kind, "lm",
-                functools.partial(tf.decode_step, cfg=cfg),
-                (params, caches, toks, s - 1), flops, meta,
+        fn = functools.partial(tf.prefill, cfg=cfg)
+    else:
+        args = (params,
+                tf.make_cache(cfg, b, s, dtype=torch.bfloat16, device=device),
+                torch.zeros(b, dtype=torch.int32, device=device), s - 1)
+        in_sh = ((_resolve(tf.param_shardings(cfg)),
+                  _resolve(tf.cache_shardings(cfg)), sl.sharding_for("batch"),
+                  sl.sharding_for()) if ruled else None)
+        fn = functools.partial(tf.decode_step, cfg=cfg)
+    if ruled:
+        args = local_blocks(args, in_sh)
+    return Cell(arch_id, shape_name, kind, "lm", fn, args, flops, meta,
                 in_shardings=in_sh)
 
 

@@ -7,8 +7,11 @@ The functions take the JAX pytree with every leaf as a numpy array
 (numpy's ``ml_dtypes`` bfloat16) are taken bit for bit.
 
 Under an active mesh (``shardlib.axis_rules``), :func:`local_blocks`
-hands back this rank's blocks of the converted parameters under a
-cell's ``in_shardings``.
+hands back this rank's blocks of a tree under a cell's
+``in_shardings``: converted parameters, an LM's AdamW state (m and v
+as the parameters, the count whole) and its caches, each stacked
+``layer_stack`` dim whole (``shardlib.gather_blocks`` joins a leaf's
+blocks back).
 """
 from __future__ import annotations
 

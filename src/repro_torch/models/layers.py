@@ -378,8 +378,34 @@ def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
            wd: torch.Tensor) -> torch.Tensor:
     """x: [..., D]; wg/wu: [D, F]; wd: [F, D].  ``silu`` is spelled
     ``h * (1 / (1 + exp(-h)))``, one rounding per operation: XLA's
-    expansion of ``jax.nn.silu``, so bf16 results keep its bits."""
+    expansion of ``jax.nn.silu``, so bf16 results keep its bits.
+
+    Tensor-parallel, wg/wu are this rank's column blocks and wd its row
+    block: x comes in through :func:`column_in` and the rank's partial
+    output goes out through :func:`row_out` (the JAX module's
+    ``sl.shard(h, DP, "seq", "mlp")`` is that layout)."""
     return (_silu(x @ wg) * (x @ wu)) @ wd
+
+
+def column_in(x: torch.Tensor, tp, sp) -> torch.Tensor:
+    """The residual stream's ``x`` [B, S, D] made whole for a product
+    sharded over the tensor-parallel axes ``tp``: gathered along the
+    sequence from its blocks over ``sp`` (sequence parallelism), else
+    entering the sharded work (:func:`shardlib.enter`).  Either way the
+    ranks' partial cotangents are summed in the backward."""
+    if sp:
+        return sl.all_gather(x, sp, axis=1)
+    return sl.enter(x, tp)
+
+
+def row_out(y: torch.Tensor, tp, sp) -> torch.Tensor:
+    """A row-parallel product's partial ``y`` [B, S, D] (this rank's
+    heads or columns) summed over ``tp``: back to the rank's sequence
+    block under sequence parallelism (``psum_scatter``), else whole on
+    every rank (``psum``)."""
+    if sp:
+        return sl.psum_scatter(y, tp, 1)
+    return sl.psum(y, tp)
 
 
 def _silu(h: torch.Tensor) -> torch.Tensor:
@@ -429,9 +455,17 @@ def moe_route(xt: torch.Tensor, router_w: torch.Tensor,
     each choice its place in its expert's queue (token order), and
     places at or past the capacity drop.  Device ops only (no host
     sync): counts by ``scatter_add_``, places by ``cumsum``."""
-    t = xt.shape[0]
-    e, k = cfg.n_experts, cfg.top_k
     probs = torch.softmax(xt.float() @ router_w.float(), dim=-1)   # [T, E]
+    return _route(probs, cfg)
+
+
+def _route(probs: torch.Tensor, cfg: MoEConfig,
+           p_mean: Optional[torch.Tensor] = None) -> MoERoute:
+    """:func:`moe_route` from the router's probabilities [T, E];
+    ``p_mean``, their mean over the T tokens, when the caller sums it
+    across ranks (the sequence-parallel block)."""
+    t = probs.shape[0]
+    e, k = cfg.n_experts, cfg.top_k
     gate, eid = torch.topk(probs, k, dim=-1)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     # a token's choices in expert order: the order JAX's scatter-add of
@@ -441,8 +475,10 @@ def moe_route(xt: torch.Tensor, router_w: torch.Tensor,
     fe = eid.reshape(-1)
     counts = torch.zeros(e, dtype=fe.dtype, device=fe.device).scatter_add_(
         0, fe, torch.ones_like(fe))
+    if p_mean is None:
+        p_mean = probs.mean(dim=0)
     aux = (cfg.router_aux_coef * e) * torch.sum(
-        probs.mean(dim=0) * (counts.float() / (t * k)))
+        p_mean * (counts.float() / (t * k)))
     cap = moe_capacity(t, cfg)
     order = torch.argsort(fe, stable=True)
     starts = torch.cumsum(counts, 0) - counts
@@ -455,7 +491,8 @@ def moe_route(xt: torch.Tensor, router_w: torch.Tensor,
 
 
 def moe_block(x: torch.Tensor, router_w: torch.Tensor, wg: torch.Tensor,
-              wu: torch.Tensor, wd: torch.Tensor, cfg: MoEConfig):
+              wu: torch.Tensor, wd: torch.Tensor, cfg: MoEConfig, *,
+              seq_sharded: bool = False):
     """Sort-based top-k MoE.  x: [B, S, D]; router_w: [D, E]; wg/wu:
     [E, D, F]; wd: [E, F, D].  Returns (y [B, S, D] in x's dtype, aux
     0-d f32).
@@ -466,7 +503,20 @@ def moe_block(x: torch.Tensor, router_w: torch.Tensor, wg: torch.Tensor,
     experts), every rank routes its tokens over all E experts, keeps
     the choices that fall in its expert range within capacity, and the
     ranks' partial outputs are summed (``psum`` over tp); ``aux`` is
-    averaged over the data axes.
+    averaged over the data axes.  Each data shard routes its own
+    tokens, its capacity counted from them, as JAX's mapped block does.
+
+    ``seq_sharded``: x is this rank's block of the sequence, split over
+    the tensor-parallel axis (sequence parallelism, the LM's training
+    and prefill): the router runs on the rank's tokens, the
+    probabilities and the tokens are gathered for the routing and the
+    dispatch, and the output comes back as the rank's sequence block
+    (``psum_scatter``).  Every gradient then crosses a collective whose
+    backward sums the ranks' parts; the router's, partial over the
+    rank's tokens, is summed by the train step.  Without it (x whole on
+    every rank, as a decode step gives it) the block serves only:
+    training it over more than one tensor-parallel rank is refused, as
+    no rule set of the JAX package trains it so.
 
     Each expert runs its SwiGLU over a ``[cap, D]`` buffer of its
     tokens (zero rows where it has fewer).  The combine is
@@ -485,13 +535,44 @@ def moe_block(x: torch.Tensor, router_w: torch.Tensor, wg: torch.Tensor,
                              f"{sl.axis_size(tp)} ranks for "
                              f"{cfg.n_experts}")
         e_lo = sl.axis_index(tp) * wg.shape[0]
-        y, aux = _moe_experts(x, router_w, wg, wu, wd, cfg, e_lo)
-        return sl.psum(y, tp), sl.psum(aux, dp) / sl.axis_size(dp)
+        if seq_sharded:
+            y, aux = _moe_seq_sharded(x, router_w, wg, wu, wd, cfg, e_lo,
+                                      tp)
+        else:
+            if (torch.is_grad_enabled() and sl.axis_size(tp) > 1
+                    and any(a.requires_grad for a in (x, router_w, wg))):
+                raise NotImplementedError(
+                    "moe_block: training the expert-parallel block needs "
+                    "seq_sharded=True (sequence parallelism)")
+            y, aux = _moe_experts(x, router_w, wg, wu, wd, cfg, e_lo)
+            y = sl.psum(y, tp)
+        return y, sl.psum(aux, dp) / sl.axis_size(dp)
 
     ew = P(tpa, None, None)
+    xs = P(dpa, tpa if seq_sharded else None, None)
     return sl.maybe_shard_map(
-        inner, in_specs=(P(dpa, None, None), P(None, None), ew, ew, ew),
-        out_specs=(P(dpa, None, None), P()))(x, router_w, wg, wu, wd)
+        inner, in_specs=(xs, P(None, None), ew, ew, ew),
+        out_specs=(xs, P()))(x, router_w, wg, wu, wd)
+
+
+def _moe_seq_sharded(x, router_w, wg, wu, wd, cfg: MoEConfig, e_lo: int,
+                     tp):
+    """The expert-parallel body on this rank's sequence block ``x``
+    [B, S_l, D]: (its output block [B, S_l, D], the data shard's aux)."""
+    b, s_l, d = x.shape
+    e = cfg.n_experts
+    probs_l = torch.softmax(x.reshape(b * s_l, d).float()
+                            @ router_w.float(), dim=-1)        # [T_l, E]
+    probs = sl.all_gather(probs_l.reshape(b, s_l, e), tp, axis=1)
+    xt = sl.all_gather(x, tp, axis=1)
+    s = xt.shape[1]
+    # the mean over the data shard's tokens: summed over the ranks (on
+    # one rank, the unsharded block's mean)
+    p_mean = (sl.psum(probs_l.sum(dim=0), tp) / (b * s)
+              if sl.axis_size(tp) > 1 else None)
+    r = _route(probs.reshape(b * s, e), cfg, p_mean)
+    y = _experts(xt.reshape(b * s, d), r, wg, wu, wd, e_lo)
+    return sl.psum_scatter(y.reshape(b, s, d), tp, 1), r.aux
 
 
 def _moe_experts(x, router_w, wg, wu, wd, cfg: MoEConfig, e_lo: int):
@@ -500,11 +581,17 @@ def _moe_experts(x, router_w, wg, wu, wd, cfg: MoEConfig, e_lo: int):
     all E experts, and only its choices in that range and within
     capacity are dispatched and combined."""
     b, s, d = x.shape
-    t = b * s
-    k = cfg.top_k
-    e_l = wg.shape[0]
-    xt = x.reshape(t, d)
+    xt = x.reshape(b * s, d)
     r = moe_route(xt, router_w, cfg)
+    return _experts(xt, r, wg, wu, wd, e_lo).reshape(b, s, d), r.aux
+
+
+def _experts(xt, r: MoERoute, wg, wu, wd, e_lo: int) -> torch.Tensor:
+    """Dispatch, the experts ``[e_lo, e_lo + e_l)`` and the combine of
+    the tokens ``xt`` [T, D] routed by ``r``: [T, D] in xt's dtype."""
+    t, d = xt.shape
+    k = r.expert.shape[1]
+    e_l = wg.shape[0]
     local = r.keep & (r.expert >= e_lo) & (r.expert < e_lo + e_l)
     slot = torch.where(local, r.slot - e_lo * r.cap, e_l * r.cap)
     # each choice's token row into its slot of a zero buffer; the drops
@@ -523,10 +610,10 @@ def _moe_experts(x, router_w, wg, wu, wd, cfg: MoEConfig, e_lo: int):
     # all meet on the scrap row; atomics take them at once)
     contrib = torch.index_select(ob, 0, slot.reshape(-1)).reshape(
         t, k, d) * w[..., None]                              # [T, k, D]
-    y = torch.zeros((t, d), dtype=x.dtype, device=x.device)
+    y = torch.zeros((t, d), dtype=xt.dtype, device=xt.device)
     for j in range(k):
         y = y + contrib[:, j]
-    return y.reshape(b, s, d), r.aux
+    return y
 
 
 def moe_block_paramspec(cfg: MoEConfig, d_model: int):

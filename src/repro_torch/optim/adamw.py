@@ -16,6 +16,11 @@ temporary.  So every pass runs over slices of at most ``_CHUNK``
 elements of a leaf, and no temporary is larger than one slice.  Inside a
 slice, the operations, their order and their roundings are the JAX
 formula's.
+
+Over a mesh the trees hold each rank's blocks: the update is
+elementwise, and the global norm (given the leaves' ``NamedSharding``s)
+sums each leaf's squares over the ranks that split it, so clipping
+sees the whole model's norm.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from typing import Any, NamedTuple, Union
 
 import torch
 
+from .. import shardlib as sl
 from ..tree import leaves, map_tree
 
 #: Elements of one slice of a leaf in the in-place passes (256 MB of f32).
@@ -54,22 +60,35 @@ def _slices(t: torch.Tensor):
         yield flat[lo:lo + _CHUNK]
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, shardings=None) -> torch.Tensor:
     """sqrt of the sum over leaves of sum(square(g)), in f32, as a 0-d
-    tensor on the leaves' device (sliced, so no leaf-sized square)."""
+    tensor on the leaves' device (sliced, so no leaf-sized square).
+    ``shardings``: a tree of ``NamedSharding``s, one a leaf, when the
+    leaves are this rank's blocks: the squares of the leaves split over
+    the same axes are summed in leaf order, then over those ranks (a
+    replicated leaf counted once); without a split axis, the order of
+    the unsharded sum."""
+    specs = (leaves(shardings) if shardings is not None
+             else [None] * len(leaves(grads)))
+    totals = {}
+    for g, s in zip(leaves(grads), specs):
+        axes = sl.spec_axes(s.spec) if s is not None else ()
+        for sc in _slices(g):
+            part = torch.sum(torch.square(sc.float()))
+            totals[axes] = (part if axes not in totals
+                            else totals[axes] + part)
     total = None
-    for g in leaves(grads):
-        for s in _slices(g):
-            part = torch.sum(torch.square(s.float()))
-            total = part if total is None else total + part
+    for axes, part in totals.items():
+        part = sl.psum(part, axes)
+        total = part if total is None else total + part
     return torch.sqrt(total)
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, shardings=None):
     """Scale ``grads`` in place by ``min(1, max_norm / max(norm, 1e-9))``;
-    returns (grads, norm)."""
-    gn = global_norm(grads)
+    returns (grads, norm).  ``shardings``: as :func:`global_norm`."""
+    gn = global_norm(grads, shardings)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     for g in leaves(grads):
         for s in _slices(g):
@@ -81,12 +100,15 @@ def clip_by_global_norm(grads, max_norm: float):
 def adamw_update(params, grads, state: OptState,
                  lr: Union[float, torch.Tensor],
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, max_grad_norm: float = 1.0):
+                 weight_decay: float = 0.1, max_grad_norm: float = 1.0,
+                 shardings=None):
     """One AdamW step, in place.  ``lr`` may be a float or a 0-d tensor
     (a schedule's value).  ``grads`` are clipped in place too, and weight
-    decay reaches the leaves with ``ndim >= 2``.  Returns (params,
-    OptState(m, v, count + 1), the gradients' global norm)."""
-    grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+    decay reaches the leaves with ``ndim >= 2``.  ``shardings``: the
+    parameters' ``NamedSharding``s when the trees hold this rank's
+    blocks (:func:`global_norm`).  Returns (params, OptState(m, v, count
+    + 1), the gradients' global norm)."""
+    grads, gnorm = clip_by_global_norm(grads, max_grad_norm, shardings)
     count = state.count + 1
     cf = count.float()
     bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,

@@ -18,6 +18,17 @@ input when no axis is live, as in JAX.  :func:`local_block` cuts a
 rank's block from a global tensor and :func:`gather_blocks` joins the
 blocks back.  A mesh lives on ``"cuda"`` over NCCL or on ``"cpu"`` over
 gloo (:func:`make_mesh`); nothing falls back from one to the other.
+
+Gradients cross the collectives (Megatron's convention: a tensor held
+whole on every rank of a group carries the whole cotangent on each).
+:func:`all_gather` and :func:`psum_scatter` are each other's backward;
+:func:`psum` passes its cotangent through unchanged (the sum is held
+whole, and each rank's part gets the whole cotangent); :func:`enter`
+is the identity forward and a :func:`psum` backward, for a tensor held
+whole that meets a product sharded over the group.  :func:`pmax` and
+:func:`pmin` carry no gradient.  :func:`reduce_grads` sums the blocks
+of a gradient tree over the axes on which each leaf's uses are partial,
+and :func:`spec_axes` names the mesh axes a leaf is sharded over.
 """
 from __future__ import annotations
 
@@ -31,12 +42,16 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from .tree import leaves
+
 __all__ = [
     "PartitionSpec", "P", "NamedSharding", "AxisRules", "axis_rules",
-    "current_rules", "current_mesh", "logical_to_spec", "shard",
+    "current_rules", "under_current_rules", "current_mesh",
+    "logical_to_spec", "shard",
     "sharding_for", "make_mesh", "maybe_shard_map", "psum", "pmax", "pmin",
-    "psum_scatter", "all_gather", "axis_size", "axis_index", "local_block",
-    "gather_blocks", "GROUP_TIMEOUT",
+    "psum_scatter", "all_gather", "enter", "axis_size", "axis_index",
+    "local_block", "gather_blocks", "reduce_grads", "spec_axes",
+    "GROUP_TIMEOUT",
 ]
 
 #: Timeout of every group :func:`make_mesh` creates: a rank that raises
@@ -101,6 +116,25 @@ def current_rules() -> Optional[AxisRules]:
     return getattr(_state, "rules", None)
 
 
+def under_current_rules(fn: Callable) -> Callable:
+    """``fn``, run under the rules current now wherever it is called
+    (``fn`` itself without rules).  A checkpointed function's recompute
+    runs inside the backward pass, on the card in autograd's device
+    thread, which sees no rules of its own."""
+    r = current_rules()
+    if r is None:
+        return fn
+
+    def ruled(*args, **kwargs):
+        prev = getattr(_state, "rules", None)
+        _state.rules = r
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _state.rules = prev
+    return ruled
+
+
 def current_mesh():
     r = current_rules()
     return r.mesh if r is not None else None
@@ -150,7 +184,11 @@ def shard(x: torch.Tensor, *names: Optional[str]) -> torch.Tensor:
     """GSPMD's layout constraint has no eager counterpart: a rank holds
     its local block already, laid out by the cell's ``in_shardings``
     (:func:`local_block`), and nothing re-partitions it between
-    operations.  So this is ``x``, with or without a mesh."""
+    operations.  So this is ``x``, with or without a mesh.  The model
+    code places the collectives itself where GSPMD would (the LM's
+    ``models/transformer.py``): the heads' layout over ranks comes from
+    ``wq``'s column block, so the annotations inside the attention
+    functions (``attention_causal_opt``'s among them) become nothing."""
     return x
 
 
@@ -231,9 +269,9 @@ def _mesh_or_raise():
     return mesh
 
 
-def _group(axes: Tuple[str, ...]):
+def _group(axes: Tuple[str, ...], mesh=None):
     """The process group over mesh dims ``axes`` (in mesh order)."""
-    mesh = _mesh_or_raise()
+    mesh = mesh or _mesh_or_raise()
     names = _names(mesh)
     axes = tuple(sorted(axes, key=names.index))
     if len(axes) == 1:
@@ -247,48 +285,125 @@ def _group(axes: Tuple[str, ...]):
 
 def psum(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
     """Sum over the ranks of ``axes`` (a new tensor; ``x`` without
-    axes)."""
-    return _reduce(x, tuple(axes), dist.ReduceOp.SUM)
+    axes).  Its backward passes the cotangent through: the sum is held
+    whole on every rank, so each rank's part gets the whole cotangent
+    (Megatron's row-parallel reduction)."""
+    axes = tuple(axes)
+    if not axes:
+        return x
+    return _Psum.apply(x, axes)
 
 
 def pmax(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
-    return _reduce(x, tuple(axes), dist.ReduceOp.MAX)
+    """Cross-shard max (no gradient; ``x`` without axes)."""
+    axes = tuple(axes)
+    return _reduce(x.detach(), axes, dist.ReduceOp.MAX) if axes else x
 
 
 def pmin(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
-    """Cross-shard min: the (min, +) semiring's reduction."""
-    return _reduce(x, tuple(axes), dist.ReduceOp.MIN)
+    """Cross-shard min: the (min, +) semiring's reduction (no gradient;
+    ``x`` without axes)."""
+    axes = tuple(axes)
+    return _reduce(x.detach(), axes, dist.ReduceOp.MIN) if axes else x
 
 
-def _reduce(x: torch.Tensor, axes: Tuple[str, ...], op) -> torch.Tensor:
+def enter(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """``x``, held whole on every rank of ``axes``, entering work that
+    is sharded over them (a column-parallel product): the identity
+    forward, a :func:`psum` of the ranks' partial cotangents backward
+    (Megatron's "f").  ``x`` itself without axes."""
+    axes = tuple(axes)
+    if not axes:
+        return x
+    return _Enter.apply(x, axes)
+
+
+def _reduce(x: torch.Tensor, axes: Tuple[str, ...], op,
+            mesh=None) -> torch.Tensor:
     if not axes:
         return x
     y = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(y, op=op, group=_group(axes))
+    dist.all_reduce(y, op=op, group=_group(axes, mesh))
     return y
+
+
+def _psum_scatter(x: torch.Tensor, axes: Tuple[str, ...], dim: int,
+                  mesh=None) -> torch.Tensor:
+    mesh = mesh or _mesh_or_raise()
+    n = axis_size(axes, mesh)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} "
+                         f"does not split over {n} ranks")
+    return _reduce(x, axes, dist.ReduceOp.SUM, mesh).chunk(n, dim)[
+        axis_index(axes, mesh)].contiguous()
+
+
+# The backward of each collective runs where autograd runs it (on the
+# card, its device thread, which sees no axis rules): each keeps the
+# mesh of its forward.
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes):
+        return _reduce(x, axes, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes):
+        ctx.axes, ctx.mesh = axes, _mesh_or_raise()
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.axes, dist.ReduceOp.SUM, ctx.mesh), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, axis):
+        ctx.axes, ctx.axis, ctx.mesh = axes, axis, _mesh_or_raise()
+        return _all_gather(x, axes, axis, ctx.mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_psum_scatter(g, ctx.axes, ctx.axis, ctx.mesh), None,
+                None)
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, dim):
+        ctx.axes, ctx.dim, ctx.mesh = axes, dim, _mesh_or_raise()
+        return _psum_scatter(x, axes, dim, ctx.mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.axes, ctx.dim, ctx.mesh), None, None
 
 
 def psum_scatter(x: torch.Tensor, axes: Sequence[str],
                  scatter_dimension: int = 0) -> torch.Tensor:
     """:func:`psum`, then this rank's tile along ``scatter_dimension``
-    (tiled, as JAX's ``psum_scatter(..., tiled=True)``)."""
+    (tiled, as JAX's ``psum_scatter(..., tiled=True)``).  Its backward
+    is :func:`all_gather` of the tiles' cotangents."""
     axes = tuple(axes)
     if not axes:
         return x
-    n = axis_size(axes)
-    if x.shape[scatter_dimension] % n:
-        raise ValueError(f"dim {scatter_dimension} of {tuple(x.shape)} "
-                         f"does not split over {n} ranks")
-    return psum(x, axes).chunk(n, scatter_dimension)[axis_index(axes)] \
-        .contiguous()
+    return _PsumScatter.apply(x, axes, scatter_dimension)
 
 
-def _gather_order(group, axes: Tuple[str, ...]) -> Optional[torch.Tensor]:
+def _gather_order(group, axes: Tuple[str, ...],
+                  mesh=None) -> Optional[torch.Tensor]:
     """The blocks' order that puts a gather over ``group`` (group rank
     order) in :func:`axis_index` order over ``axes``; ``None`` where the
     two agree, as they do for :func:`make_mesh`'s groups over dims in
     mesh order.  Worked out once a mesh and axes."""
-    mesh = _mesh_or_raise()
+    mesh = mesh or _mesh_or_raise()
     cache = getattr(mesh, "_repro_gather_order", None)
     if cache is None:
         cache = mesh._repro_gather_order = {}
@@ -308,18 +423,28 @@ _gather_into = getattr(dist, "all_gather_single", None) \
 def all_gather(x: torch.Tensor, axes: Sequence[str],
                axis: int = 0) -> torch.Tensor:
     """Every rank's ``x`` along ``axes``, concatenated along ``axis`` in
-    :func:`axis_index` order (tiled): one gather into one tensor."""
+    :func:`axis_index` order (tiled): one gather into one tensor.  Its
+    backward is :func:`psum_scatter` of the cotangent: the gathered
+    tensor feeds work sharded over ``axes`` (an FSDP weight, a
+    sequence-parallel activation), so each rank's cotangent is a part
+    of the whole."""
     axes = tuple(axes)
     if not axes:
         return x
-    group = _group(axes)
+    return _AllGather.apply(x, axes, axis)
+
+
+def _all_gather(x: torch.Tensor, axes: Tuple[str, ...], axis: int,
+                mesh=None) -> torch.Tensor:
+    mesh = mesh or _mesh_or_raise()
+    group = _group(axes, mesh)
     n = dist.get_world_size(group)
     x = x.contiguous()
     out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
     _gather_into(out, x, group=group)
     out = out.view((n,) + tuple(x.shape))
-    order = _gather_order(group, axes)
+    order = _gather_order(group, axes, mesh)
     if order is not None:
         out = out.index_select(0, order.to(out.device))
     return out.movedim(0, axis).flatten(axis, axis + 1)
@@ -430,3 +555,50 @@ def gather_blocks(x: torch.Tensor, spec) -> torch.Tensor:
     for d, part in enumerate(tuple(spec)):
         x = all_gather(x, _axes_tuple(part), axis=d)
     return x
+
+
+def spec_axes(spec, mesh=None) -> Tuple[str, ...]:
+    """The mesh axes of ``spec`` that split a tensor over more than one
+    rank, in mesh order (() without a mesh)."""
+    mesh = mesh or current_mesh()
+    if mesh is None:
+        return ()
+    named = {a for part in tuple(spec) for a in _axes_tuple(part)}
+    return tuple(a for a in _names(mesh)
+                 if a in named and axis_size((a,), mesh) > 1)
+
+
+#: Leaves of fewer elements are summed together in one buffer.
+_COALESCE = 1 << 22
+
+
+@torch.no_grad()
+def reduce_grads(grads, specs, partial: Sequence[str]) -> None:
+    """Sum, in place and over ranks, the gradient blocks of the tree
+    ``grads`` whose uses are partial: leaf by leaf over the mesh axes of
+    ``partial`` (of more than one rank) that its ``NamedSharding`` in
+    the tree ``specs`` does not shard.  A leaf split over an axis needs
+    no sum there: its FSDP gather's backward summed the axis, or its
+    block is the rank's own (tensor parallelism).  Small leaves with
+    the same axes share one all-reduce."""
+    mesh = current_mesh()
+    if mesh is None:
+        return
+    live = spec_axes(P(tuple(partial)), mesh)
+    groups: Dict[Tuple[str, ...], list] = {}
+    for g, s in zip(leaves(grads), leaves(specs)):
+        have = spec_axes(s.spec, mesh)
+        axes = tuple(a for a in live if a not in have)
+        if not axes:
+            continue
+        if g.numel() >= _COALESCE:
+            dist.all_reduce(g, group=_group(axes, mesh))
+        else:
+            groups.setdefault(axes, []).append(g)
+    for axes, gs in groups.items():
+        flat = torch.cat([g.reshape(-1) for g in gs])
+        dist.all_reduce(flat, group=_group(axes, mesh))
+        lo = 0
+        for g in gs:
+            g.copy_(flat[lo:lo + g.numel()].view_as(g))
+            lo += g.numel()

@@ -8,7 +8,8 @@ names and sizes, which is all resolution reads) against JAX's under
 (``torchdist.run_ranks``, module fixture) runs every case, and the cases
 below assert its results: ``axis_index`` order, ``psum``/``pmax``/
 ``pmin``/``psum_scatter``/``all_gather`` over each axis tuple of each
-mesh, blocks and their gather, ``surviving_mesh``, and
+mesh, the backward of each autograd collective (and ``enter``'s),
+blocks and their gather, ``surviving_mesh``, and
 ``compressed_mean`` over the data group.
 """
 import numpy as np
@@ -163,6 +164,41 @@ def test_collectives_match_numpy(world, axes):
             assert r["identity"] and r["bad_spec"]
             # "nodes" would reuse both dims: dropped, then trimmed
             assert r["spec"] == ("data", "model")
+
+
+@pytest.mark.parametrize("axes", bodies.AXES, ids="+".join)
+def test_collective_backward_matches_numpy(world, axes):
+    """The gradient through each autograd collective: ``all_gather``'s
+    is the ``psum_scatter`` of the ranks' cotangents, ``psum_scatter``'s
+    their ``all_gather``, ``psum``'s the rank's own cotangent, and
+    ``enter``'s their sum; each backward in a thread that sees no axis
+    rules, one of them recomputing a checkpointed gather."""
+    w, outs = world
+    k = "+".join(axes)
+    for shape in bodies.SHARDLIB_MESHES[w]:
+        for rank, out in enumerate(outs):
+            r = out[shape]
+            members = list(_groups(shape, axes, rank))
+            n, i = len(members), members.index(rank)
+            x = bodies.shardlib_x(rank)
+            for name, axis in (("gather0", 0), ("gather1", 1)):
+                y = list(x.shape)
+                y[axis] *= n
+                total = sum(bodies.shardlib_cot(m, tuple(y))
+                            for m in members)
+                want = np.split(total, n, axis=axis)[i]
+                np.testing.assert_array_equal(r["bwd", name, k], want)
+                if axis == 0:       # recomputed, then differentiated
+                    np.testing.assert_array_equal(r["bwd", "ckpt", k],
+                                                  2 * want)
+            want = sum((j + 1) * bodies.shardlib_cot(m, (x.size,))
+                       for j, m in enumerate(members)).reshape(x.shape)
+            np.testing.assert_array_equal(r["bwd", "scatter", k], want)
+            np.testing.assert_array_equal(
+                r["bwd", "psum", k], bodies.shardlib_cot(rank, x.shape))
+            np.testing.assert_array_equal(
+                r["bwd", "enter", k],
+                sum(bodies.shardlib_cot(m, x.shape) for m in members))
 
 
 def test_blocks_and_their_gather(world):

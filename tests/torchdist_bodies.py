@@ -93,6 +93,7 @@ def _collectives(mesh, rank):
             y = torch.arange(4 * n, dtype=torch.float32) * (rank + 1)
             r["scatter", k] = sl.psum_scatter(y, axes).numpy()
         r["identity"] = sl.psum(x, ()) is x and sl.all_gather(x, ()) is x
+        r.update(_backward(rank, x))
         g = torch.arange(4 * 12, dtype=torch.float32).reshape(4, 12)
         for spec in (sl.P("data", "model"), sl.P(None, ("data", "model")),
                      sl.P(None, ("model", "data"))):
@@ -105,6 +106,51 @@ def _collectives(mesh, rank):
             r["bad_spec"] = False
         except ValueError:
             r["bad_spec"] = True
+    return r
+
+
+def shardlib_cot(rank, shape):
+    """The rank's cotangent of a collective's output of ``shape``."""
+    n = int(np.prod(shape))
+    return (np.arange(n, dtype=np.float32).reshape(shape) * 0.5
+            - 3.0 * rank)
+
+
+def _backward(rank, x):
+    """The gradient each autograd collective gives ``x`` under the
+    rank's cotangent (:func:`shardlib_cot`), over each axis tuple.  Each
+    backward runs in a thread of its own, which sees no axis rules (as
+    autograd's device thread on a card does); ``ckpt`` recomputes a
+    gather there (``torch.utils.checkpoint`` of a function that keeps
+    the rules, ``shardlib.under_current_rules``)."""
+    import threading
+
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch import shardlib as sl
+    r = {}
+    for axes in AXES:
+        k = "+".join(axes)
+        twice = sl.under_current_rules(
+            lambda a: sl.all_gather(a * 2.0, axes, axis=0))
+        ops = {"ckpt": lambda a: checkpoint(twice, a, use_reentrant=False),
+               "gather0": lambda a: sl.all_gather(a, axes, axis=0),
+               "gather1": lambda a: sl.all_gather(a, axes, axis=1),
+               # tile j of the scattered operand is (j + 1) a: its
+               # cotangent must come from the member of axis_index j
+               "scatter": lambda a: sl.psum_scatter(torch.cat(
+                   [a.reshape(-1) * (j + 1)
+                    for j in range(sl.axis_size(axes))]), axes),
+               "psum": lambda a: sl.psum(a, axes),
+               "enter": lambda a: sl.enter(a, axes)}
+        for name, op in ops.items():
+            a = x.clone().requires_grad_(True)
+            y = op(a)
+            cot = torch.from_numpy(shardlib_cot(rank, tuple(y.shape)))
+            t = threading.Thread(target=y.backward, args=(cot,))
+            t.start()
+            t.join()
+            r["bwd", name, k] = None if a.grad is None else a.grad.numpy()
     return r
 
 
@@ -353,8 +399,10 @@ def models_battery(rank, world, p):
                 cell = steps.build_cell("dlrm-rm2", "serve_p99",
                                         smoke=True, device="cpu")
                 r["rm2_serve"] = cell.run().numpy()
-        if rank == 0 and w == 2:
-            r["trees"] = _sharding_trees(mesh)
+        if w == 2:              # both ranks run the cells
+            trees = _sharding_trees(mesh)
+            if rank == 0:
+                r["trees"] = trees
         r["convert"] = _converted_blocks(mesh, pw)
     return out
 
@@ -383,7 +431,8 @@ def _converted_blocks(mesh, p):
 def _sharding_trees(mesh):
     """The JAX ``test_cells_have_consistent_sharding_trees`` on smoke
     cells: leaves of args and of in_shardings align, each spec fits its
-    tensor; and which cells refuse to run on this mesh."""
+    tensor; and which cells run on this mesh (under its rules) and which
+    refuse."""
     from repro_torch import shardlib as sl
     from repro_torch.launch import steps
     from repro_torch.models.gnn.common import GraphBatch
@@ -393,7 +442,8 @@ def _sharding_trees(mesh):
                         ("qwen3-moe-30b-a3b", "decode_32k"),
                         ("gcn-cora", "ogb_products"),
                         ("dlrm-rm2", "retrieval_cand")]:
-        with sl.axis_rules(mesh, steps.rules_for(arch, shape, mesh)):
+        rules = steps.rules_for(arch, shape, mesh)
+        with sl.axis_rules(mesh, rules):
             cell = steps.build_cell(arch, shape, smoke=True, device="cpu")
         a_leaves = leaves(cell.args)
         s_leaves = leaves(cell.in_shardings)
@@ -409,7 +459,8 @@ def _sharding_trees(mesh):
                 fits &= isinstance(s, sl.NamedSharding) \
                     and len(s.spec) <= a.dim()
         try:
-            cell.run()
+            with sl.axis_rules(mesh, rules):
+                cell.run()
             runs = True
         except NotImplementedError:
             runs = False
