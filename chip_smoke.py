@@ -46,7 +46,8 @@ never JAX or the JAX package.  Phases, each of which asserts:
 5. the same index served from its block store: ``save_store`` with the
    raw, delta and f16 codecs into a temporary directory (removed at the
    end; the saves run in the background from the index's build through
-   phase 3, and phase 4 starts once they end), then phase 4's request
+   phases 3, 6 and 7, which run in that order before phase 4, and phase
+   4 starts once they end), then phase 4's request
    stream through
    ``QueryServer(store_path=...)`` on the card at page-cache budgets of
    5% and 25% of the decompressed segments (raw), 25% (delta, f16), at
@@ -245,6 +246,32 @@ never JAX or the JAX package.  Phases, each of which asserts:
    counted over the sharded run alone: ``lm_train_sharded``,
    ``lm_prefill_sharded``, ``lm_decode_sharded`` (no kernel of the port
    runs there).
+16. sharded GNN and recsys training at world size 1 over NCCL, inside
+   phases 10 and 11 on their built cells (each state cloned, each graph
+   shared: nothing is built twice; a one-rank NCCL group and the ``(1,
+   1)`` smoke mesh, destroyed after each phase's part).  Each cell is
+   laid out under its rules by ``steps.shard_train_cell``
+   (``rules_recsys``: the tables' rows over ``model``, the batch over
+   ``data``; ``rules_gnn``: nodes and edges over both axes): (a) after
+   phase 10's counted steps, dlrm-rm2 train_batch (B 65,536, 26 x 10^6-row
+   f32 tables; both states resident, ~40 GB), then ``bag_sum`` and
+   ``bag_sum_backward`` on each of two row blocks of the tables (ids
+   outside a block sent past the end): the lookup bit for bit the whole
+   table's rows, the gradient held to the plain version as phase 10
+   holds it (bit-equal at one slot a row), the rows equal to the whole
+   table's gradient counted; (b) after each of phase
+   11's cells in GNN_SHARDED: gcn-cora ogb_products in its arbitrary
+   layout (15 chunks) and in the opt "partitioned" one, gin-tu
+   minibatch_lg, schnet and equiformer-v2 molecule.  With deterministic
+   algorithms on for both runs: the loss and every gradient leaf at the
+   cell's state, then one step each (loss, gnorm, the whole state after
+   it) bit-equal to the unsharded cell's (or within
+   SHARDED_TRAIN_NONDET where torch reports an op without a
+   deterministic path, the reading printed); then SHARDED_TRAIN_STEPS
+   more steps each way, timed side by side.  Its paths in the kernels
+   line, each counted over the sharded steps alone:
+   ``dlrm_train_sharded`` (``bag_sum`` and ``bag_sum_backward`` once a
+   step) and ``gnn_train_sharded`` (none).
 
 Each path frees its memory before the next.  Every launch counter is
 zeroed just before a served run and read just after it.  It prints one
@@ -255,7 +282,7 @@ own count, phase 8's paths ``hod_mixed_slo``,
 ``hod_fleet_raw`` and ``hod_fleet_delta`` (each the sum over its runs
 at 1, 2 and 4 shards) and ``hod_fleet_mixed_slo``, phase 10's
 ``dlrm_train`` and ``lm_train``, phase 11's ``gnn_train``, phase
-12's, phase 13's and phase 15's paths included;
+12's, phase 13's, phase 15's and phase 16's paths included;
 ``bag_sum_backward`` has no TPU kernel and names the JAX lookup's
 ``jnp.take``), the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``.  Any failure
@@ -451,6 +478,22 @@ SHARDED_LOSS_RTOL, SHARDED_GNORM_RTOL, SHARDED_GRAD_REL_L2 = 1e-5, 1e-4, 1e-5
 SHARDED_PREFILL_SEQ, SHARDED_DECODE_BATCH, SHARDED_DECODE_STEPS = \
     4096, 8, 4
 SHARDED_DECODE_PROMPT = 512
+
+# Phase 16: sharded GNN and recsys training at world size 1 over NCCL,
+# on phase 10's rm2 cell and phase 11's GNN cells (their states cloned,
+# their graphs shared): GNN_SHARDED's cells (gcn-cora ogb_products also
+# with the opt "partitioned" layout) and rm2 train_batch, each under its
+# rules (rules_gnn, rules_recsys) on the (1, 1) mesh.  Deterministic
+# algorithms on for both runs; loss, gnorm, every gradient leaf and the
+# state after one step must be bit-equal to the unsharded cell's, unless
+# torch reports an op without a deterministic path: then within
+# SHARDED_TRAIN_NONDET (loss and gnorm rtol, each gradient and state leaf
+# relative L2), and the reading is printed.  SHARDED_TRAIN_STEPS steps
+# each way are timed after the compared one; the sharded steps' launch
+# counts are the dlrm_train_sharded and gnn_train_sharded paths.
+GNN_SHARDED = (("gcn-cora", "ogb_products"), ("gin-tu", "minibatch_lg"),
+               ("schnet", "molecule"), ("equiformer-v2", "molecule"))
+SHARDED_TRAIN_STEPS, SHARDED_TRAIN_NONDET = 3, 1e-6
 
 # The served run whose launch count the kernels line reports: the one at
 # the shape each kernel is timed at.
@@ -2697,10 +2740,11 @@ def check_bag_sum_backward(torch, card: str, cell) -> dict:
     return row
 
 
-def drive_dlrm_train(torch, card: str) -> "tuple[dict, dict]":
+def drive_dlrm_train(torch, card: str) -> "tuple[dict, dict, dict]":
     """Phase 10a: dlrm-rm2 train_batch at full size through the train
-    cell, DLRM_TRAIN_STEPS steps on RecsysStream's batches.  Returns
-    (bag_sum_backward's row, the counts of the counted steps)."""
+    cell, DLRM_TRAIN_STEPS steps on RecsysStream's batches, then phase
+    16 on the cell.  Returns (bag_sum_backward's row, the counts of the
+    counted steps, the sharded steps' counts)."""
     from repro_torch.launch.steps import build_cell
     t0 = time.perf_counter()
     cell = build_cell("dlrm-rm2", "train_batch", device="cuda")
@@ -2743,10 +2787,19 @@ def drive_dlrm_train(torch, card: str) -> "tuple[dict, dict]":
                    "dlrm-rm2 train steps", card, top=15)
     del batches, nxt
     free(torch)
+    with one_rank_mesh(torch) as mesh:
+        sharded = sharded_train_check(torch, card, cell, mesh,
+                                      "dlrm-rm2 train_batch")
+    rm2_row_blocks(torch, card, cell)
+    n = 1 + SHARDED_TRAIN_STEPS
+    if (sharded["embedding_bag"], sharded["bag_sum_backward"]) != (n, n) \
+            or sum(sharded.values()) != 2 * n:
+        raise AssertionError(f"dlrm train sharded: {sharded} in {n} steps "
+                             "(want 1 forward and 1 backward launch a step)")
     row = check_bag_sum_backward(torch, card, cell)
     del cell, state
     free(torch)
-    return row, counts
+    return row, counts, sharded
 
 
 def check_grads(torch, got, want, what: str) -> float:
@@ -2924,9 +2977,9 @@ def resume_check(torch, arch: str, shape: str, root: str) -> None:
 
 def drive_train(torch, card: str, base: dict) -> "tuple[dict, dict]":
     """Phase 10: returns (bag_sum_backward's row, launch counts of the
-    dlrm_train and lm_train paths); glm4-9b's train numbers go in
-    ``base``."""
-    row, dlrm_counts = drive_dlrm_train(torch, card)
+    dlrm_train, lm_train and dlrm_train_sharded paths); glm4-9b's train
+    numbers go in ``base``."""
+    row, dlrm_counts, sharded = drive_dlrm_train(torch, card)
     lm_counts = drive_lm_train(torch, card, base)
     root = tempfile.mkdtemp(prefix="train_ckpt_")
     try:
@@ -2936,7 +2989,8 @@ def drive_train(torch, card: str, base: dict) -> "tuple[dict, dict]":
     finally:
         shutil.rmtree(root, ignore_errors=True)
     free(torch)
-    return row, {"dlrm_train": dlrm_counts, "lm_train": lm_counts}
+    return row, {"dlrm_train": dlrm_counts, "lm_train": lm_counts,
+                 "dlrm_train_sharded": sharded}
 
 # ------------------------------------------------------------- phase 11
 def gnn_logic_cases(np):
@@ -3031,10 +3085,13 @@ def check_chunked(torch, cell, card: str) -> None:
     del a, b
 
 
-def gnn_cell_run(torch, card: str, arch: str, shape: str) -> None:
+def gnn_cell_run(torch, card: str, arch: str, shape: str,
+                 mesh) -> dict:
     """Phase 11b: one full-width cell, a warm-up step and GNN_STEPS counted
     ones on its batches; losses finite, every parameter that gets a
-    gradient moved; median step, model TFLOP/s, peak memory."""
+    gradient moved; median step, model TFLOP/s, peak memory.  Then phase
+    16 on the cell if it is one of GNN_SHARDED; returns the sharded
+    steps' counts ({} for another)."""
     from repro_torch.launch.steps import build_cell
     from repro_torch.tree import flatten_with_paths, leaves
     t0 = time.perf_counter()
@@ -3089,22 +3146,36 @@ def gnn_cell_run(torch, card: str, arch: str, shape: str) -> None:
                        f"{arch} {shape} steps", card, top=12)
     if (arch, shape) == ("gcn-cora", "ogb_products"):
         check_chunked(torch, cell, card)
-    del cell, state, batches, p0
+    del batches, p0
     free(torch)
+    sharded = ({} if (arch, shape) not in GNN_SHARDED
+               else gnn_sharded(torch, card, cell, mesh))
+    del cell, state
+    free(torch)
+    return sharded
 
 
 def drive_gnn(np, torch, card: str) -> dict:
     """Phase 11: the logic check, the five full-width cells (launch counts
     zeroed before the first and read after the last: the gnn_train
-    path), chunked against unchunked.  Returns the counts."""
+    path), chunked against unchunked, and phase 16 on GNN_SHARDED (the
+    gnn_train_sharded path: its sharded steps' counts, summed).  Returns
+    both paths' counts."""
     gnn_logic(np, torch)
     reset_counts()
-    for arch, shape in GNN_CELLS:
-        gnn_cell_run(torch, card, arch, shape)
+    sharded = {name: 0 for name in _counters()}
+    with one_rank_mesh(torch) as mesh:
+        for arch, shape in GNN_CELLS:
+            for name, n in gnn_cell_run(torch, card, arch, shape,
+                                        mesh).items():
+                sharded[name] += n
     counts = paths_now()
-    say(f"gnn_train launches of the port's kernels: {counts} (the GNN "
-        "family reaches no TPU kernel)")
-    return counts
+    say(f"gnn_train launches of the port's kernels: {counts}, "
+        f"gnn_train_sharded: {sharded} (the GNN family reaches no TPU "
+        "kernel)")
+    if any(sharded.values()):
+        raise AssertionError(f"gnn_train_sharded launched {sharded}")
+    return {"gnn_train": counts, "gnn_train_sharded": sharded}
 
 
 # ------------------------------------------------------------- phase 12
@@ -3635,20 +3706,28 @@ def drive_dp_hod(np, torch, card: str, mem: dict) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def one_rank_mesh(torch):
+    """A one-rank NCCL group for the block (``launch.mesh.distributed``)
+    and its ``(1, 1)`` smoke mesh over ``("data", "model")`` (phases
+    14-16)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import distributed, make_smoke_mesh
+    with distributed("cuda"):
+        if dist.get_backend() != "nccl":
+            raise AssertionError("a one-rank NCCL group was wanted")
+        yield make_smoke_mesh("cuda")
+
+
 def drive_dp_models(np, torch, card: str, dlrm_out: dict) -> int:
     """Phase 14 (c) and (d); returns bag_sum's launches in the sharded
     cells' calls."""
-    import torch.distributed as dist
     from repro_torch import shardlib as sl
     from repro_torch.kernels.embedding_bag import bag_sum
-    from repro_torch.launch.mesh import distributed, make_smoke_mesh
     from repro_torch.launch.steps import build_cell, rules_for
 
     launches = 0
-    with distributed("cuda"):
-        if dist.get_backend() != "nccl":
-            raise AssertionError("phase 14 wants an NCCL group")
-        mesh = make_smoke_mesh("cuda")
+    with one_rank_mesh(torch) as mesh:
         for shape in ("serve_bulk", "retrieval_cand"):
             with sl.axis_rules(mesh, rules_for("dlrm-rm2", shape, mesh)):
                 cell = build_cell("dlrm-rm2", shape, device="cuda")
@@ -3989,14 +4068,9 @@ def sharded_serve(torch, mesh, card: str) -> dict:
 def drive_sharded_lm(torch, card: str) -> dict:
     """Phase 15 on a one-rank NCCL group.  Returns each sharded path's
     launch counts, every one of which must be zero."""
-    import torch.distributed as dist
-    from repro_torch.launch.mesh import distributed, make_smoke_mesh
     t_phase = time.perf_counter()
     paths = {}
-    with distributed("cuda"):
-        if dist.get_backend() != "nccl":
-            raise AssertionError("phase 15 wants an NCCL group")
-        mesh = make_smoke_mesh("cuda")
+    with one_rank_mesh(torch) as mesh:
         train = {}
         # both runs of a train cell with deterministic algorithms: the
         # embedding's bf16 gradient is an index_put with accumulate,
@@ -4017,6 +4091,221 @@ def drive_sharded_lm(torch, card: str) -> dict:
     say(f"phase 15 (whole-model sharded LM steps, world size 1, NCCL) took "
         f"{time.perf_counter() - t_phase:.1f} s")
     return paths
+
+
+# ------------------------------------------------------------- phase 16
+def tree_reading(torch, got, want) -> "tuple[int, float]":
+    """(leaves that differ, the largest relative L2 of a leaf) of two
+    trees of tensors."""
+    from repro_torch.tree import leaves
+    differ, worst = 0, 0.0
+    for g, w in zip(leaves(got), leaves(want), strict=True):
+        if not torch.equal(g, w):
+            differ += 1
+            worst = max(worst, rel_l2(torch, g.float(), w.float()))
+    return differ, worst
+
+
+def sharded_train_check(torch, card: str, cell, mesh, what: str) -> dict:
+    """Phase 16 on one built train cell (GNN or rm2): the cell under its
+    rules (``steps.shard_train_cell`` of the cell on a clone of its
+    state) against the cell itself, deterministic algorithms on: loss
+    and every gradient leaf at the cell's state, then one step each
+    (loss, gnorm, the state after it), bit-equal (or within
+    SHARDED_TRAIN_NONDET where torch reports an op without a
+    deterministic path); then SHARDED_TRAIN_STEPS more steps each way,
+    timed by CUDA events, side by side.  The counts are zeroed before
+    each sharded step and read after it; the sum over the sharded steps
+    is returned, and the counts as they were before restored."""
+    import dataclasses
+    import warnings
+
+    from repro_torch import shardlib as sl
+    from repro_torch.launch import steps
+    from repro_torch.tree import map_tree
+    t0 = time.perf_counter()
+    saved = paths_now()
+    state, batch = cell.args[0], cell.args[1:]
+    cfg = cell.meta["cfg"]
+    if cell.family == "gnn":
+        model = steps.GNN_MODULES[cell.arch]
+
+        def value_and_grad(st, b):
+            return steps.gnn_value_and_grad(model, st["params"], b[0], cfg)
+    else:
+        def value_and_grad(st, b):
+            return steps.dlrm_value_and_grad(st["params"], *b, cfg)
+    def rules():
+        return sl.axis_rules(mesh, steps.rules_for(cell.arch, cell.shape,
+                                                   mesh))
+    twin_state = map_tree(lambda t: t.clone(), state)
+    with rules():
+        twin = steps.shard_train_cell(dataclasses.replace(
+            cell, args=(twin_state,) + batch))
+    tstate, tbatch = twin.args[0], twin.args[1:]
+    counts = {name: 0 for name in saved}
+    ms = {False: [], True: []}
+    metrics = {}
+
+    def step(ruled):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        if ruled:
+            reset_counts()
+        start.record()
+        if ruled:
+            with rules():
+                m = twin.fn(tstate, *tbatch)[1]
+        else:
+            m = cell.fn(state, *batch)[1]
+        stop.record()
+        torch.cuda.synchronize()
+        if ruled:
+            for name, n in paths_now().items():
+                counts[name] += n
+        ms[ruled].append(start.elapsed_time(stop))
+        return {k: v.item() for k, v in m.items()}
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            loss_u, grads_u = value_and_grad(state, batch)
+            with rules():
+                loss_s, grads_s = value_and_grad(tstate, tbatch)
+            grad_diff = tree_reading(torch, grads_s, grads_u)
+            loss_pair = (loss_s.item(), loss_u.item())
+            del grads_u, grads_s
+            free(torch)
+            metrics[False], metrics[True] = step(False), step(True)
+            state_diff = tree_reading(torch, tstate, state)
+            for _ in range(SHARDED_TRAIN_STEPS):
+                step(False)
+                step(True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split(".")[0] for w in caught
+                     if "deterministic" in str(w.message)})
+    s_, u = metrics[True], metrics[False]
+    exact = (loss_pair[0] == loss_pair[1] and s_ == u
+             and grad_diff[0] == 0 and state_diff[0] == 0)
+
+    def near(a, b):
+        return abs(a - b) <= SHARDED_TRAIN_NONDET * abs(b)
+    ok = exact or (nondet and near(*loss_pair) and near(s_["loss"], u["loss"])
+                   and near(s_["gnorm"], u["gnorm"])
+                   and max(grad_diff[1], state_diff[1])
+                   <= SHARDED_TRAIN_NONDET)
+    for name, fn in _counters().items():
+        fn.launches = saved[name]
+    say(f"{what} sharded under {cell.family} rules on the (1, 1) NCCL mesh "
+        f"against unsharded (deterministic algorithms on): loss "
+        f"{loss_pair[0]!r} vs {loss_pair[1]!r}, step loss {s_['loss']!r} vs "
+        f"{u['loss']!r}, gnorm {s_['gnorm']!r} vs {u['gnorm']!r}; gradient "
+        f"leaves differing {grad_diff[0]} (worst relative L2 "
+        f"{grad_diff[1]:.3e}), state leaves after the step differing "
+        f"{state_diff[0]} (worst {state_diff[1]:.3e}); "
+        + ("bit-equal" if exact else
+           f"ops without a deterministic path {nondet}, bound "
+           f"{SHARDED_TRAIN_NONDET}")
+        + f"; step {median(ms[True][1:]):.3f} ms sharded vs "
+        f"{median(ms[False][1:]):.3f} ms unsharded (CUDA events, median of "
+        f"{SHARDED_TRAIN_STEPS} after the compared step: sharded "
+        f"{[round(x, 3) for x in ms[True]]}, unsharded "
+        f"{[round(x, 3) for x in ms[False]]}); sharded launches "
+        f"{ {k: n for k, n in counts.items() if n} }; "
+        f"{time.perf_counter() - t0:.1f} s, on {card}")
+    if not ok:
+        raise AssertionError(f"{what}: the sharded step is not the "
+                             f"unsharded one (ops without a deterministic "
+                             f"path: {nondet})")
+    del twin, tstate, twin_state
+    free(torch)
+    return counts
+
+
+def rm2_row_blocks(torch, card: str, cell, n_blocks: int = 2) -> None:
+    """Phase 16 (a): the sharded lookup's kernels on a rank's row block.
+    For each of ``n_blocks`` row blocks of rm2's tables (``lo`` its first
+    row), ``bag_sum`` and ``bag_sum_backward`` on the block, the ids
+    outside it sent past the end (``dlrm._lookup``), on the cell's batch
+    and a seeded cotangent: the lookup bit for bit the whole table's rows
+    (zero rows for the other ids); the block's gradient held to the plain
+    version as phase 10 holds the whole table's (``check_bwd_output``:
+    bit-equal at one slot a row).  The kernel sums a row's slots in
+    chunks of the sorted slots, whose bounds move when the other rows'
+    slots leave, so a row of several slots may round otherwise than in
+    the whole table's gradient: the share of rows equal bit for bit is
+    printed."""
+    from repro_torch.kernels.embedding_bag.ops import plan_backward
+    from repro_torch.models import dlrm
+    tables, ids = cell.args[0]["params"]["tables"], cell.args[2]
+    t, v, d = tables.shape
+    gen = torch.Generator(device=tables.device).manual_seed(16)
+    cot = torch.randn((ids.shape[0], t, d), generator=gen,
+                      device=tables.device)
+
+    def run(tab, lo):
+        tab = tab.detach().requires_grad_(True)
+        out = dlrm._lookup(tab, ids, lo)
+        out.backward(cot)
+        return out.detach(), tab.grad
+    whole_out, whole = run(tables, 0)
+    per = v // n_blocks
+    flat_g = cot.view(-1, d)
+    ones = torch.ones((flat_g.shape[0], 1), device=tables.device)
+    for r in range(n_blocks):
+        lo = r * per
+        out, grad = run(tables[:, lo:lo + per].contiguous(), lo)
+        local = ids.long() - lo
+        mine = (local >= 0) & (local < per)
+        if not torch.equal(out, torch.where(mine[..., None], whole_out,
+                                            0.0)):
+            raise AssertionError(f"rm2 row block {r} of {n_blocks}: the "
+                                 "block's lookup is not the whole table's "
+                                 "rows")
+        flat = torch.where(mine, local + torch.arange(
+            t, device=ids.device) * per, t * per).to(torch.int32)
+        chk = check_bwd_output(torch, grad.view(t * per, d), flat_g,
+                               flat.view(-1, 1), ones, t * per,
+                               plan_backward(flat.numel(), t * per).chunk)
+        touched = (whole[:, lo:lo + per] != 0).any(-1) | (grad != 0).any(-1)
+        same = int(((whole[:, lo:lo + per] == grad).all(-1)
+                    & touched).sum())
+        say(f"dlrm-rm2 row block {r} of {n_blocks} ({per} rows a table, "
+            f"{int(mine.sum())} of {mine.numel()} ids inside, the rest sent "
+            f"past the end): bag_sum bit-equal to the whole table's rows "
+            f"and zeros; bag_sum_backward within phase 10's bound of the "
+            f"plain version (max |err| {chk['max_abs_err']:.3e}, "
+            f"{chk['touched']} rows touched, {chk['one_slot']} of one slot "
+            f"bit-equal), {same} of {int(touched.sum())} touched rows "
+            f"bit-equal to the whole table's gradient, on {card}")
+        del out, grad, flat, local, mine, touched
+        free(torch)
+    del whole_out, whole, cot
+    free(torch)
+
+
+def gnn_sharded(torch, card: str, cell, mesh) -> dict:
+    """Phase 16 on one of phase 11's cells (gcn-cora ogb_products also
+    with the opt layout on the same graph): summed sharded counts."""
+    import dataclasses
+    from repro_torch.launch import steps
+    runs = [(cell, f"{cell.arch} {cell.shape}")]
+    if (cell.arch, cell.shape) == ("gcn-cora", "ogb_products"):
+        cfg = dataclasses.replace(cell.meta["cfg"],
+                                  edge_layout="partitioned")
+        runs.append((dataclasses.replace(
+            cell, fn=steps._gnn_train_step(
+                steps.GNN_MODULES[cell.arch], cfg),
+            meta=dict(cell.meta, cfg=cfg)),
+            f"{cell.arch} {cell.shape} (opt, partitioned)"))
+    total = {}
+    for c, what in runs:
+        for name, n in sharded_train_check(torch, card, c, mesh,
+                                           what).items():
+            total[name] = total.get(name, 0) + n
+    return total
 
 
 def main() -> int:
@@ -4097,17 +4386,32 @@ def main() -> int:
                                                                    card)
         rows["embedding_bag"] = check_bag_sum(torch, card)
         free(torch)
+        say(f"phase 3 (kernels) took {time.perf_counter() - t_save:.1f} s "
+            "beside the saves")
+        # phases 6 and 7 need nothing of the index and time the card, so
+        # they run while the saves finish
+        t0 = time.perf_counter()
+        lm_paths = drive_lm(torch, card)
+        free(torch)
+        say(f"LM phase took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        dlrm_out = {}
+        dlrm_paths = drive_dlrm(torch, card, dlrm_out)
+        free(torch)
+        say(f"DLRM phase took {time.perf_counter() - t0:.1f} s")
         t_wait = time.perf_counter()
         store_paths = saving.result()
         say(f"the stores' saves took {time.perf_counter() - t_save:.1f} s "
-            f"beside phase 3, {time.perf_counter() - t_wait:.1f} s of it "
-            f"waited for after phase 3")
+            f"beside phases 3, 6 and 7, {time.perf_counter() - t_wait:.1f} "
+            f"s of it waited for after them")
     finally:
         saver.shutdown(wait=True)
         if not saving.done() or saving.exception() is not None:
             shutil.rmtree(root, ignore_errors=True)
 
+    t0 = time.perf_counter()
     mem = drive_slice(np, torch, card, g, ix)
+    say(f"phase 4 (in-memory serving) took {time.perf_counter() - t0:.1f} s")
     paths = {name: {"hod_serve_stream": n}
              for name, n in mem["launches"].items()}
     try:
@@ -4138,15 +4442,8 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     del g, ix, mem
     free(torch)
-    t0 = time.perf_counter()
-    paths["flash_decode"] = drive_lm(torch, card)
-    free(torch)
-    say(f"LM phase took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    dlrm_out = {}
-    paths["embedding_bag"] = drive_dlrm(torch, card, dlrm_out)
-    free(torch)
-    say(f"DLRM phase took {time.perf_counter() - t0:.1f} s")
+    paths["flash_decode"] = lm_paths
+    paths["embedding_bag"] = dlrm_paths
     t0 = time.perf_counter()
     paths["embedding_bag"]["dlrm_serve_dp"] = drive_dp_models(
         np, torch, card, dlrm_out)
@@ -4164,8 +4461,9 @@ def main() -> int:
             paths[name][path] = n
     say(f"training phase took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    for name, n in drive_gnn(np, torch, card).items():
-        paths[name]["gnn_train"] = n
+    for path, counts in drive_gnn(np, torch, card).items():
+        for name, n in counts.items():
+            paths[name][path] = n
     say(f"GNN phase took {time.perf_counter() - t0:.1f} s")
     for path, counts in drive_family(torch, card, base_train).items():
         for name, n in counts.items():

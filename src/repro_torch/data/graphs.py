@@ -64,6 +64,15 @@ def synth_feature_graph(name: str, seed: int = 0, device=None) -> GraphBatch:
     return make_graph_batch(seed=seed, device=device, **shapes[name])
 
 
+def stub_edge_feat(n_edges: int, shape=()) -> np.ndarray:
+    """f32 features of ``n_edges`` padding edges: zeros, or unit stub
+    vectors along z for 3-vector features (a zero vector has no frame)."""
+    ef = np.zeros((n_edges,) + tuple(shape), np.float32)
+    if ef.ndim == 2 and ef.shape[1] == 3:
+        ef[:, 2] = 1.0
+    return ef
+
+
 def bucket_edges_by_dst(g: GraphBatch, n_buckets: int,
                         pad_factor: float = 1.15) -> GraphBatch:
     """Reorder (and pad) edges into contiguous destination ranges.
@@ -90,10 +99,8 @@ def bucket_edges_by_dst(g: GraphBatch, n_buckets: int,
     new_e = cap * n_buckets
     ns = np.full(new_e, n, np.int32)
     nd = np.full(new_e, n, np.int32)
-    ef = (np.zeros((new_e,) + tuple(g.edge_feat.shape[1:]), np.float32)
+    ef = (stub_edge_feat(new_e, tuple(g.edge_feat.shape[1:]))
           if g.edge_feat is not None else None)
-    if ef is not None and ef.ndim == 2 and ef.shape[1] == 3:
-        ef[:, 2] = 1.0          # unit stub vectors for padding
     src_s, dst_s = src[order], dst[order]
     efe = g.edge_feat.cpu().numpy()[order] if g.edge_feat is not None \
         else None

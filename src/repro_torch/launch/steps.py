@@ -24,14 +24,14 @@ of (seed, step).  A GNN step's batch is one ``GraphBatch``.
 Built under ``shardlib.axis_rules(mesh, rules_for(arch, shape, mesh))``
 a cell carries ``in_shardings``: one ``NamedSharding`` a leaf of its
 arguments, resolved from the logical axis rules (the JAX cells' trees).
-The LM cells (train, prefill, decode) and the recsys serving cells
-(serve_p99, serve_bulk, retrieval_cand) then hold this rank's blocks,
-cut by ``local_block`` from the same seeded weights and inputs, and run
-sharded under the same rules (``cell.run()`` inside the ``with``): an
-LM train step sums each gradient block over the ranks its uses are
-partial on and clips to the whole model's norm.  The GNN cells and the
-recsys train cell refuse to run on a mesh: their sharded steps wait for
-later slices (``ROADMAP.md`` queue 1).
+Every cell then holds this rank's blocks, cut by ``local_block`` from
+the same seeded weights and inputs, and runs sharded under the same
+rules (``cell.run()`` inside the ``with``): a train step sums each
+gradient block over the ranks its uses are partial on and clips to the
+whole model's norm.  A GNN cell's graph is laid out for its node blocks
+first (:func:`gnn_mesh_layout`: padded, and bucketed by owner for the
+``opt`` layouts); a layout the mesh cannot hold raises, naming the arch
+and the mesh.
 """
 from __future__ import annotations
 
@@ -48,12 +48,13 @@ from ..configs.shapes import SHAPE_PARAMS
 from ..data import (NeighborSampler, RecsysStream, TokenStream,
                     bucket_edges_by_dst, csr_from_edges, make_graph_batch,
                     synth_molecule_batch)
+from ..data.graphs import stub_edge_feat
 from ..device import resolve_device
 from ..models import dlrm as dlrm_mod
 from ..models import gnn
 from ..models import transformer as tf
 from ..models.convert import local_blocks
-from ..models.gnn.common import GraphBatch, n_edge_chunks
+from ..models.gnn.common import GraphBatch, n_edge_chunks, node_axes
 from ..optim import OptState, adamw_init, adamw_update, cosine_schedule
 from ..tree import leaves, map_tree, unflatten
 from . import mesh as mesh_mod
@@ -109,36 +110,6 @@ def rules_for(arch_id: str, shape_name: str, mesh):
     if mod.FAMILY == "gnn":
         return mesh_mod.rules_gnn(mesh)
     return mesh_mod.rules_recsys(mesh, params.get("batch", 0))
-
-
-#: What each refused family waits for (``ROADMAP.md`` queue 1).
-_NEXT_SLICE = {
-    "gnn": "the GNN family under rules_gnn (nodes and edges over every "
-           "axis)",
-    "recsys": "dlrm-rm2's train cell under rules_recsys (bag_sum_backward "
-              "on each rank's rows)",
-}
-
-
-def _on_mesh(cell: Cell) -> Cell:
-    """``cell`` as built under the current rules: its step refuses to
-    run where the port has no sharded form yet (a GNN cell, every one a
-    train cell, and the recsys train cell)."""
-    mesh = sl.current_mesh()
-    if mesh is None or cell.family == "lm":
-        return cell
-    if cell.kind == "train":
-        what = (f"sharded training of {cell.family} cells"
-                if cell.family == "recsys" or mesh.size() == 1
-                else f"a whole-model sharded {cell.family} step")
-
-        def refuse(*args, **kwargs):
-            raise NotImplementedError(
-                f"{cell.arch} {cell.shape}: {what} waits for the next "
-                f"slices of the port: {_NEXT_SLICE[cell.family]} "
-                "(ROADMAP.md queue 1)")
-        cell.fn = refuse
-    return cell
 
 
 # ---------------------------------------------------------------------------
@@ -481,15 +452,36 @@ def _gnn_flops(arch_id, cfg, n, e):
     return 3.0 * per
 
 
+def _replicated(tree):
+    """A ``NamedSharding`` of the whole tensor for each leaf of
+    ``tree`` (None without rules)."""
+    if sl.current_rules() is None:
+        return None
+    return map_tree(lambda _: sl.sharding_for(), tree)
+
+
+def gnn_value_and_grad(model, params, batch: GraphBatch, cfg):
+    """(loss, grads) of ``model.loss_fn`` at ``params`` (grads shaped
+    like ``params``).  Under a mesh ``batch`` holds this rank's node and
+    edge blocks and the loss is the whole graph's; each rank's edges and
+    nodes give a partial gradient of the replicated parameters, summed
+    over the node axes (``shardlib.reduce_grads``)."""
+    loss, grads = value_and_grad(lambda p: model.loss_fn(p, batch, cfg),
+                                 params)
+    if sl.current_mesh() is not None:
+        sl.reduce_grads(grads, _replicated(grads), node_axes())
+    return loss, grads
+
+
 def _gnn_train_step(model, cfg):
     """The JAX GNN train step: loss and grads, AdamW at lr 1e-3 with no
-    weight decay (clip 1.0); in place."""
+    weight decay (clip 1.0); in place.  Under a mesh, on this rank's
+    blocks (:func:`gnn_value_and_grad`)."""
     def step(state, batch: GraphBatch):
-        loss, grads = value_and_grad(
-            lambda p: model.loss_fn(p, batch, cfg), state["params"])
-        _, state["opt"], gnorm = adamw_update(state["params"], grads,
-                                              state["opt"], 1e-3,
-                                              weight_decay=0.0)
+        loss, grads = gnn_value_and_grad(model, state["params"], batch, cfg)
+        _, state["opt"], gnorm = adamw_update(
+            state["params"], grads, state["opt"], 1e-3, weight_decay=0.0,
+            shardings=_replicated(grads))
         return state, {"loss": loss, "gnorm": gnorm}
     return step
 
@@ -497,7 +489,9 @@ def _gnn_train_step(model, cfg):
 def _build_gnn_cell(arch_id, shape_name, mod, smoke, device,
                     variant="base"):
     """A GNN train cell.  ``smoke``: the JAX smoke cell (reduced config,
-    the smoke batch; ``variant`` is ignored there, as in JAX).  Else the
+    the smoke batch; ``variant="opt"`` gives its edges the opt layout,
+    where the JAX smoke cell ignores the variant: both layouts compute
+    its loss).  Else the
     published config at the shape: ``full_graph_sm`` and ``ogb_products``
     train on one synthetic graph every step, ``molecule`` on 128 packed
     molecules, and ``minibatch_lg`` on a ``NeighborSampler`` block a
@@ -505,7 +499,8 @@ def _build_gnn_cell(arch_id, shape_name, mod, smoke, device,
     from ``default_rng((SEED, step))``.  ``variant="opt"``: the JAX
     cell's owner-bucketed layouts (GCN, GIN and SchNet "partitioned", on
     one device any edge order; EquiformerV2 "dst_ranged", its edges
-    bucketed when they span more than one chunk)."""
+    bucketed when they span more than one chunk).  Under axis rules the
+    cell is :func:`shard_train_cell` of this one."""
     base = mod.smoke_config() if smoke else mod.CONFIG
     sp = dict(SHAPE_PARAMS["gnn"][shape_name])
     model = GNN_MODULES[arch_id]
@@ -513,7 +508,8 @@ def _build_gnn_cell(arch_id, shape_name, mod, smoke, device,
     if smoke:
         cfg = _gnn_cell_config(arch_id, base,
                                {**sp, "d_feat": min(sp.get("d_feat", 16), 32),
-                                "n_classes": sp["n_classes"]}, smoke=True)
+                                "n_classes": sp["n_classes"]}, smoke=True,
+                               variant=variant)
         batch = _gnn_concrete_batch(arch_id, sp, device=device)
         cfg = dataclasses.replace(
             cfg, d_in=(batch.node_feat.shape[1]
@@ -550,17 +546,183 @@ def _build_gnn_cell(arch_id, shape_name, mod, smoke, device,
     state = {"params": params, "opt": adamw_init(params)}
     meta.update(cfg=cfg, n_nodes=batch.n_nodes,
                 n_edges=int(batch.src.shape[0]))
-    in_sh = None
-    if sl.current_rules() is not None:
-        repl = map_tree(lambda _: sl.sharding_for(), params)
-        in_sh = ({"params": repl,
-                  "opt": type(state["opt"])(m=repl, v=repl,
-                                            count=sl.sharding_for())},
-                 _gnn_batch_shardings(batch))
-    return Cell(arch_id, shape_name, "train", "gnn",
+    cell = Cell(arch_id, shape_name, "train", "gnn",
                 _gnn_train_step(model, cfg), (state, batch),
                 _gnn_flops(arch_id, cfg, batch.n_nodes, batch.src.shape[0]),
-                meta, batch_at=batch_at, in_shardings=in_sh)
+                meta, batch_at=batch_at)
+    if sl.current_rules() is not None:
+        cell = shard_train_cell(cell)
+    return cell
+
+
+def _mesh_text(mesh) -> str:
+    names = tuple(mesh.mesh_dim_names)
+    return "mesh " + "x".join(str(mesh.size(i)) for i in range(len(names))) \
+        + f" over {names}"
+
+
+def gnn_mesh_layout(arch_id: str, cfg, g: GraphBatch) -> GraphBatch:
+    """The whole graph ``g`` laid out for the node blocks of the current
+    rules' mesh (the JAX cell pads its shapes to the mesh the same way):
+    ``g`` itself where the nodes split over one rank.  Else, S ranks
+    over the node axes:
+
+    * ``n`` is padded to a multiple of S (of the chunk count for
+      ``dst_ranged``): a padded node has zero features, label 0,
+      ``train_mask`` False (a node-level graph without a mask gets one)
+      and graph id ``n_graphs`` (the sentinel graph), and no edge;
+      sentinel edges are re-pointed from the old ``n`` to the new one,
+      so padding leaves the loss as it was;
+    * "arbitrary" edges are padded with sentinel edges to a multiple of
+      S; "partitioned" ones bucketed by destination owner, one bucket a
+      node block (``partitioned_aggregate``'s precondition); chunked
+      "dst_ranged" ones re-bucketed into their chunks over the padded
+      ranges, each chunk's range inside one node block, which needs the
+      chunk count to be a multiple of S.  Where it is not, this raises,
+      naming the arch and the mesh.
+
+    :func:`shard_train_cell` cuts the rank's blocks from the result."""
+    mesh = sl.current_mesh()
+    ranks = sl.axis_size(node_axes())
+    if mesh is None or ranks == 1:
+        return g
+    e = g.src.shape[0]
+    n_chunks = n_edge_chunks(e, cfg.edge_chunk)
+    ranged = cfg.edge_layout == "dst_ranged" and n_chunks > 1
+    if ranged and n_chunks % ranks:
+        raise ValueError(
+            f"{arch_id}: its {n_chunks} dst_ranged edge chunks do not fall "
+            f"whole in the node blocks of the {_mesh_text(mesh)} ({ranks} "
+            "ranks over the nodes): a chunk count that the node ranks "
+            "divide is needed")
+    g = _pad_nodes(g, _pad_to(g.n_nodes, n_chunks if ranged else ranks))
+    if ranged:
+        return _owner_buckets(g, n_chunks, -(-e // n_chunks), arch_id,
+                              mesh)
+    if cfg.edge_layout == "partitioned":
+        return _owner_buckets(g, ranks)
+    return _pad_edges(g, _pad_to(e, ranks))
+
+
+def _pad_nodes(g: GraphBatch, n_pad: int) -> GraphBatch:
+    """``g`` with ``n_pad`` nodes (see :func:`gnn_mesh_layout`)."""
+    n, k = g.n_nodes, n_pad - g.n_nodes
+    node_level = g.graph_ids is None
+
+    def rows(t, fill):
+        if t is None or not k:
+            return t
+        return torch.cat([t, t.new_full((k,) + tuple(t.shape[1:]), fill)])
+    mask = g.train_mask
+    if mask is None and node_level:
+        mask = torch.ones(n, dtype=torch.bool, device=g.src.device)
+    return dataclasses.replace(
+        g, n_nodes=n_pad,
+        src=torch.where(g.src == n, n_pad, g.src),
+        dst=torch.where(g.dst == n, n_pad, g.dst),
+        node_feat=rows(g.node_feat, 0),
+        graph_ids=rows(g.graph_ids, g.n_graphs),
+        labels=rows(g.labels, 0) if node_level else g.labels,
+        train_mask=rows(mask, False))
+
+
+def _pad_edges(g: GraphBatch, e_pad: int) -> GraphBatch:
+    """``g`` with sentinel edges appended up to ``e_pad``."""
+    k = e_pad - g.src.shape[0]
+    if not k:
+        return g
+    sent = g.src.new_full((k,), g.n_nodes)
+    ef = g.edge_feat
+    if ef is not None:
+        ef = torch.cat([ef, torch.from_numpy(stub_edge_feat(
+            k, tuple(ef.shape[1:]))).to(ef.device, ef.dtype)])
+    return dataclasses.replace(g, src=torch.cat([g.src, sent]),
+                               dst=torch.cat([g.dst, sent]), edge_feat=ef)
+
+
+def _owner_buckets(g: GraphBatch, n_buckets: int, cap: Optional[int] = None,
+                   arch_id: str = "", mesh=None) -> GraphBatch:
+    """``g``'s edges bucketed by destination into ``n_buckets`` equal
+    node ranges (``n_nodes`` a multiple of ``n_buckets``), each bucket
+    padded with sentinel edges to ``cap`` edges (default: the fullest
+    bucket's count).  Edges into the sentinel add to no node and are
+    dropped.  On the host, as ``bucket_edges_by_dst``."""
+    n = g.n_nodes
+    width = n // n_buckets
+    src, dst = g.src.cpu().numpy(), g.dst.cpu().numpy()
+    keep = np.flatnonzero(dst < n)
+    bucket = dst[keep] // width
+    counts = np.bincount(bucket, minlength=n_buckets)
+    if cap is None:
+        cap = max(int(counts.max()), 1)
+    elif counts.max() > cap:
+        raise ValueError(
+            f"{arch_id}: a dst_ranged chunk of the padded graph takes "
+            f"{int(counts.max())} edges, more than its {cap} slots, on the "
+            f"{_mesh_text(mesh)}")
+    order = keep[np.argsort(bucket, kind="stable")]
+    slot = (np.repeat(np.arange(n_buckets) * cap, counts)
+            + np.arange(order.shape[0])
+            - np.repeat(np.cumsum(counts) - counts, counts))
+    new_src = np.full(n_buckets * cap, n, np.int32)
+    new_dst = np.full(n_buckets * cap, n, np.int32)
+    new_src[slot], new_dst[slot] = src[order], dst[order]
+    dev = g.src.device
+    ef = g.edge_feat
+    if ef is not None:
+        feat = stub_edge_feat(n_buckets * cap, tuple(ef.shape[1:]))
+        feat[slot] = ef.cpu().numpy()[order]
+        ef = torch.from_numpy(feat).to(dev, ef.dtype)
+    return dataclasses.replace(
+        g, src=torch.from_numpy(new_src).to(dev, g.src.dtype),
+        dst=torch.from_numpy(new_dst).to(dev, g.dst.dtype), edge_feat=ef)
+
+
+def shard_train_cell(cell: Cell) -> Cell:
+    """A built GNN or recsys train cell on this rank's blocks under the
+    current rules, with its step and ``in_shardings``: the same cell as
+    ``build_cell`` makes under them, from the cell's own state and batch
+    (so a caller that holds a full-size cell lays it out without building
+    it again).  Where nothing is cut (the replicated GNN parameters, a
+    one-rank mesh) a block is the cell's own tensor: clone the state
+    first to step both cells.
+
+    A GNN cell's graph is laid out by :func:`gnn_mesh_layout` and cut to
+    the rank's node and edge blocks.  Every step's graph is laid out the
+    same way (a ``minibatch_lg`` block is drawn whole on every rank from
+    the same seed, and each keeps its own blocks); a cell's one graph is
+    laid out once.  A recsys train cell's tables are cut to the rank's
+    row blocks and its batch to the rank's rows."""
+    if (cell.family, cell.kind) == ("recsys", "train"):
+        cfg = cell.meta["cfg"]
+        in_sh = _recsys_train_shardings(cfg)
+        whole_at = cell.batch_at
+        return dataclasses.replace(
+            cell, args=local_blocks(cell.args, in_sh), in_shardings=in_sh,
+            batch_at=lambda step: local_blocks(whole_at(step), in_sh[1:]))
+    if cell.family != "gnn":
+        raise ValueError(f"{cell.arch} {cell.shape}: shard_train_cell lays "
+                         "out the GNN and recsys train cells")
+    cfg = cell.meta["cfg"]
+    state, graph = cell.args
+
+    def layout(g):
+        whole = gnn_mesh_layout(cell.arch, cfg, g)
+        sh = _gnn_batch_shardings(whole)
+        return local_blocks(whole, sh), sh
+    mine, batch_sh = layout(graph)
+    repl = _replicated(state["params"])
+    in_sh = ({"params": repl,
+              "opt": OptState(m=repl, v=repl, count=sl.sharding_for())},
+             batch_sh)
+    whole_at = cell.batch_at
+
+    def batch_at(step):
+        g = whole_at(step)[0]
+        return ((mine if g is graph else layout(g)[0]),)
+    return dataclasses.replace(
+        cell, args=(local_blocks(state, in_sh[0]), mine), batch_at=batch_at,
+        in_shardings=in_sh)
 
 
 def _gnn_batch_shardings(g: GraphBatch) -> GraphBatch:
@@ -617,22 +779,45 @@ def dlrm_value_and_grad(params, dense: torch.Tensor, sparse: torch.Tensor,
                         labels: torch.Tensor, cfg: dlrm_mod.DLRMConfig):
     """(loss, grads) of ``dlrm.loss_fn`` at ``params``, grads shaped like
     ``params``.  The tables' gradient is the dense one that
-    ``bag_sum``'s backward returns, taken as it is (no copy)."""
-    return value_and_grad(
+    ``bag_sum``'s backward returns, taken as it is (no copy).  Under a
+    mesh ``params`` are this rank's blocks (a row block of every table,
+    the MLPs whole) and the inputs its data shard's rows; the loss is
+    the whole batch's, and every gradient block, the MLPs' and the
+    table's, is summed over the data axes that split the batch."""
+    loss, grads = value_and_grad(
         lambda p: dlrm_mod.loss_fn(p, dense, sparse, labels, cfg), params)
+    if sl.current_mesh() is not None:
+        sl.reduce_grads(grads, _resolve(dlrm_mod.param_shardings(cfg)),
+                        sl._live_axes("batch"))
+    return loss, grads
 
 
 def _dlrm_train_step(cfg: dlrm_mod.DLRMConfig):
     """The JAX DLRM train step: loss and grads, AdamW at lr 1e-3 with no
-    weight decay (clip 1.0); in place."""
+    weight decay (clip 1.0); in place.  Under a mesh, on this rank's
+    blocks, clipped to the whole model's norm (the tables' squares
+    summed over ``model``)."""
     def step(state, dense, sparse, labels):
         loss, grads = dlrm_value_and_grad(state["params"], dense, sparse,
                                           labels, cfg)
+        shardings = (_resolve(dlrm_mod.param_shardings(cfg))
+                     if sl.current_mesh() is not None else None)
         _, state["opt"], gnorm = adamw_update(state["params"], grads,
                                               state["opt"], 1e-3,
-                                              weight_decay=0.0)
+                                              weight_decay=0.0,
+                                              shardings=shardings)
         return state, {"loss": loss, "gnorm": gnorm}
     return step
+
+
+def _recsys_train_shardings(cfg: dlrm_mod.DLRMConfig):
+    """A recsys train cell's ``in_shardings`` under the current rules:
+    the tables' rows over ``model``, the batch over the data axes."""
+    psh = _resolve(dlrm_mod.param_shardings(cfg))
+    rows = sl.sharding_for("batch", None)
+    return ({"params": psh,
+             "opt": OptState(m=psh, v=psh, count=sl.sharding_for())},
+            rows, rows, sl.sharding_for("batch"))
 
 
 def _build_recsys_cell(arch_id, shape_name, mod, smoke, device, batch):
@@ -665,19 +850,14 @@ def _build_recsys_cell(arch_id, shape_name, mod, smoke, device, batch):
         else:       # Zipf ids, as training traffic has
             batch_args = _on(stream.batch_at(0), device)
         meta["data"] = "RecsysStream"
-        state = {"params": params, "opt": adamw_init(params)}
-        in_sh = None
-        if psh is not None:
-            in_sh = ({"params": psh,
-                      "opt": type(state["opt"])(m=psh, v=psh,
-                                                count=sl.sharding_for())},
-                     sl.sharding_for("batch", None),
-                     sl.sharding_for("batch", None), sl.sharding_for("batch"))
-        return Cell(arch_id, shape_name, kind, "recsys",
-                    _dlrm_train_step(cfg), (state,) + batch_args,
-                    _dlrm_flops(cfg, kind, b), meta,
-                    batch_at=lambda step: _on(stream.batch_at(step), device),
-                    in_shardings=in_sh)
+        # under rules each rank makes the whole state and keeps its
+        # blocks (per-rank construction: ROADMAP.md queue 1)
+        cell = Cell(arch_id, shape_name, kind, "recsys",
+                    _dlrm_train_step(cfg),
+                    ({"params": params, "opt": adamw_init(params)},)
+                    + batch_args, _dlrm_flops(cfg, kind, b), meta,
+                    batch_at=lambda step: _on(stream.batch_at(step), device))
+        return cell if psh is None else shard_train_cell(cell)
     if kind == "serve":
         args = (params, dense, sparse)
         in_sh = None
@@ -731,15 +911,14 @@ def build_cell(arch_id: str, shape_name: str, smoke: bool = False,
         raise NotImplementedError(f"{arch_id}: only the LM and GNN cells "
                                   "have an 'opt' variant")
     if mod.FAMILY == "lm":
-        return _on_mesh(_build_lm_cell(arch_id, shape_name, smoke, device,
-                                       batch, layers, variant))
+        return _build_lm_cell(arch_id, shape_name, smoke, device, batch,
+                              layers, variant)
     if layers is not None:
         raise ValueError(f"{arch_id}: layers= cuts an LM's depth only")
     if mod.FAMILY == "gnn":
         if batch is not None:
             raise ValueError(f"{arch_id}: batch= cuts an LM or DLRM batch "
                              "only")
-        return _on_mesh(_build_gnn_cell(arch_id, shape_name, mod, smoke,
-                                        device, variant))
-    return _on_mesh(_build_recsys_cell(arch_id, shape_name, mod, smoke,
-                                       device, batch))
+        return _build_gnn_cell(arch_id, shape_name, mod, smoke, device,
+                               variant)
+    return _build_recsys_cell(arch_id, shape_name, mod, smoke, device, batch)

@@ -15,7 +15,11 @@ Under an active mesh (``shardlib.axis_rules``) the tables are
 **row-sharded over the model axis** and each rank holds its ``[26, V_l,
 D]`` block: a lookup runs ``bag_sum`` on the rank's rows (ids shifted by
 ``axis_index * V_l``; an id outside them gives a zero row) and one
-``psum`` joins the ranks, never an all-gather of the table.
+``psum`` joins the ranks, never an all-gather of the table.  Its
+backward passes the whole cotangent to every rank's lookup, whose
+``bag_sum_backward`` fills the gradient of the rank's rows alone (an id
+sent past the end adds to none).  A train step's loss is the whole
+batch's on every rank (:func:`loss_fn`).
 
 ``retrieval_cand`` scores one query against 10^6 candidates as a
 (sharded) matvec, a local ``topk``, an all-gather of the winners over
@@ -191,11 +195,18 @@ def loss_fn(params, dense: torch.Tensor, sparse_ids: torch.Tensor,
     """Mean binary cross-entropy of the CTR logits, in the JAX formula's
     stable form ``max(l, 0) - l * y + log1p(exp(-|l|))`` (``torch.maximum``
     splits a tie's gradient in half, as ``jnp.maximum`` does).  The
-    table's gradient comes from ``bag_sum``'s backward."""
+    table's gradient comes from ``bag_sum``'s backward.  Under a mesh
+    whose data axes split the batch, the whole batch's mean on every
+    rank: the mean of the data shards' equal-sized means (a ``psum``
+    over those axes, divided by their size)."""
     logit = forward(params, dense, sparse_ids, cfg)
     y = labels.to(torch.float32)
-    return torch.mean(torch.maximum(logit, logit.new_zeros(())) - logit * y
+    mean = torch.mean(torch.maximum(logit, logit.new_zeros(())) - logit * y
                       + torch.log1p(torch.exp(-torch.abs(logit))))
+    if sl.current_mesh() is None:
+        return mean
+    dp = sl._live_axes(DP)
+    return sl.psum(mean, dp) / sl.axis_size(dp)
 
 
 def user_vector(params, dense: torch.Tensor, sparse_ids: torch.Tensor,

@@ -7,17 +7,31 @@ into one scrap row that is sliced off.  Here every gather reads from the
 source with one fill row appended (:func:`take`), and every scatter adds
 into ``n + 1`` rows; an index is never clamped (a sentinel clamped to
 ``n - 1`` would read and write a real node).
+
+Under a mesh with a live ``"nodes"`` axis (``rules_gnn``: every mesh
+axis, flat) a model runs on this rank's blocks: node tensors are rows
+``[i n / S, (i + 1) n / S)`` of the whole (``S`` ranks, ``i`` this
+rank's index over the node axes), edge tensors an even share of the
+edges, whose endpoints stay global ids, and ``GraphBatch.n_nodes`` the
+whole (padded) count.  Each primitive then spells out the reduction
+GSPMD lowers it to: a node tensor read at edge endpoints is gathered
+whole first (:func:`gather_nodes`, an ``all_gather``), an edge-to-node
+sum is built whole and cut back to node blocks (:func:`scatter_nodes`,
+a ``psum_scatter``), and a readout over graphs or a masked mean over
+nodes is a ``psum`` over the node axes, whole on every rank.  Without
+those axes every primitive is the unsharded function.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ... import shardlib as sl
 from ...shardlib import P
+from ...tree import map_tree, register_dataclass
 from ..common import mlp, mlp_init  # noqa: F401  (the JAX module's helpers)
 
 
@@ -47,6 +61,66 @@ class GraphBatch:
         return dataclasses.replace(self, **{
             k: getattr(self, k).to(device) for k in self.TENSORS
             if getattr(self, k) is not None})
+
+
+# the JAX module's register_dataclass: a tree of the data fields, in this
+# order (a cell's sharding tree is a GraphBatch of NamedShardings)
+register_dataclass(GraphBatch, GraphBatch.TENSORS)
+
+
+# ---------------------------------------------------------------------------
+# node and edge blocks under a mesh
+# ---------------------------------------------------------------------------
+
+def node_axes() -> Tuple[str, ...]:
+    """The mesh axes the node and edge blocks split over under the
+    current rules (() without a mesh, or under rules with no "nodes")."""
+    if sl.current_mesh() is None:
+        return ()
+    return sl._live_axes("nodes")
+
+
+def edge_count(g: "GraphBatch") -> int:
+    """The whole graph's edge count: ``g``'s (its block under a mesh)
+    times the ranks the edges split over.  Every model chunks by it, as
+    the JAX cell's scan chunks the whole edge list."""
+    e = g.src.shape[0]
+    if sl.current_mesh() is None:
+        return e
+    return e * sl.axis_size(sl._live_axes("edges"))
+
+
+def gather_nodes(x: torch.Tensor) -> torch.Tensor:
+    """The whole node tensor from this rank's block (``all_gather`` over
+    the node axes; its backward a ``psum_scatter``); ``x`` itself
+    without them."""
+    return sl.all_gather(x, node_axes(), axis=0)
+
+
+def scatter_nodes(full: torch.Tensor) -> torch.Tensor:
+    """This rank's node block of the ranks' summed whole node tensors
+    (``psum_scatter`` over the node axes; its backward an
+    ``all_gather``); ``full`` itself without them."""
+    return sl.psum_scatter(full, node_axes(), 0)
+
+
+def at_edges(x: torch.Tensor, index: torch.Tensor,
+             fill: float = 0.0) -> torch.Tensor:
+    """The node tensor ``x`` (a block under a mesh) at the edge
+    endpoints ``index`` (global ids; the sentinel reads ``fill``)."""
+    return take(gather_nodes(x), index, fill)
+
+
+def once(tree):
+    """``tree``'s tensors for work that every rank of the node axes
+    repeats on whole tensors (a head after a graph readout): as they are
+    on the first rank, detached on the others, so that the sum of the
+    ranks' gradients over the node axes (``reduce_grads``) counts that
+    work once.  ``tree`` itself without node axes."""
+    axes = node_axes()
+    if not axes or sl.axis_index(axes) == 0:
+        return tree
+    return map_tree(lambda t: t.detach(), tree)
 
 
 class _AddRows(torch.autograd.Function):
@@ -117,34 +191,51 @@ def chunked_scatter_sum(edge_fn: Callable, n_chunks: int, arrays, n: int,
     chunk's ``edge_fn`` runs under ``torch.utils.checkpoint``: backward
     recomputes it, and no chunk's [e_c, F] messages outlive its add (the
     JAX function's ``jax.checkpoint`` on the scan body).  The adds go
-    into one accumulator in place, in chunk order.
+    into one accumulator in place, in chunk order.  Under a mesh the
+    rank's edges go in ``n_chunks`` chunks (the whole edge list's count)
+    into a whole accumulator, cut back to node blocks at the end
+    (:func:`scatter_nodes`).
 
     ``dst_ranged``: edges are pre-bucketed so chunk i's destinations fall
     in node range [i·(n/n_chunks), (i+1)·(n/n_chunks)); each chunk scatters
     into a range-sized local buffer (its scrap row takes the rest) and the
     buffers are concatenated.  No body remat on this branch, as in JAX.
+    Under a mesh of S ranks over the nodes a rank holds the chunks
+    ``[i n_chunks / S, (i + 1) n_chunks / S)``, whose ranges make up its
+    node block: no collective at all.  The chunks must fall whole in
+    the node blocks (``n_chunks`` a multiple of S, ``n`` of
+    ``n_chunks``), or this raises.
     """
-    chunked = edge_chunks(n_chunks, *arrays, sentinel=n)
     out_shape = tuple(out_shape)
     dev = arrays[0].device
     if not dst_ranged:
+        chunked = edge_chunks(n_chunks, *arrays, sentinel=n)
         acc = torch.zeros((n + 1,) + out_shape, dtype=dtype, device=dev)
         for i in range(n_chunks):
             vals, dst = checkpoint(edge_fn, *(c[i] for c in chunked),
                                    use_reentrant=False)
             acc = add_rows_(acc, dst, vals.to(dtype))
-        return acc[:n]
+        return scatter_nodes(acc[:n])
 
+    axes = node_axes()
+    ranks = sl.axis_size(axes)
     rng_sz = -(-n // n_chunks)
+    if ranks > 1 and (n_chunks % ranks or rng_sz * n_chunks != n):
+        raise ValueError(
+            f"dst_ranged: {n_chunks} chunks of {n} nodes do not fall whole "
+            f"in the node blocks of {ranks} ranks over {axes}")
+    mine = n_chunks // ranks
+    first = sl.axis_index(axes) * mine
+    chunked = edge_chunks(mine, *arrays, sentinel=n)
     bufs = []
-    for i in range(n_chunks):
+    for i in range(mine):
         vals, dst = edge_fn(*(c[i] for c in chunked))
-        local = dst - i * rng_sz
+        local = dst - (first + i) * rng_sz
         ok = (local >= 0) & (local < rng_sz)
         local = torch.where(ok, local, rng_sz)      # scrap row
         buf = torch.zeros((rng_sz + 1,) + out_shape, dtype=dtype, device=dev)
         bufs.append(add_rows_(buf, local, vals.to(dtype))[:rng_sz])
-    return torch.cat(bufs)[:n]
+    return torch.cat(bufs)[:n // ranks]
 
 
 def partitioned_aggregate(x: torch.Tensor, arrays, edge_fn: Callable,
@@ -167,8 +258,10 @@ def partitioned_aggregate(x: torch.Tensor, arrays, edge_fn: Callable,
     """
     axes = sl._live_axes("nodes")
     if sl.current_mesh() is None or not axes:
-        return _owner_aggregate(x, x.shape[0], 0, arrays, edge_fn, n,
-                                out_shape, dtype, n_chunks)
+        # a view: the chunks' gradients sum into it before they meet the
+        # rest of x's (the order the mapped branch's all_gather gives)
+        return _owner_aggregate(x.view_as(x), x.shape[0], 0, arrays,
+                                edge_fn, n, out_shape, dtype, n_chunks)
 
     def inner(x_l, *arr_l):
         return _owner_aggregate(sl.all_gather(x_l, axes, axis=0),
@@ -211,26 +304,44 @@ def _owner_aggregate(x_full, n_local: int, offset: int, arrays, edge_fn,
     return acc[:n_local]
 
 
-def scatter_sum(values: torch.Tensor, index: torch.Tensor,
-                n: int) -> torch.Tensor:
-    """segment-sum of ``values`` [E, ...] into ``n`` rows (+1 scrap row)."""
+def _scatter_rows(values: torch.Tensor, index: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """segment-sum of ``values`` [E, ...] into ``n`` rows (+1 scrap row),
+    on this rank's values alone."""
     out = values.new_zeros((n + 1,) + tuple(values.shape[1:]))
     return add_rows_(out, index, values)[:n]
 
 
-def scatter_max(values: torch.Tensor, index: torch.Tensor, n: int,
-                fill: float = -float("inf")) -> torch.Tensor:
+def _max_rows(values: torch.Tensor, index: torch.Tensor, n: int,
+              fill: float) -> torch.Tensor:
     out = values.new_full((n + 1,) + tuple(values.shape[1:]), fill)
     idx = index.long().reshape((-1,) + (1,) * (values.dim() - 1))
     return out.scatter_reduce(0, idx.expand_as(values), values, "amax",
                               include_self=True)[:n]
 
 
+def scatter_sum(values: torch.Tensor, index: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """segment-sum of ``values`` [E, ...] into ``n`` rows (+1 scrap row);
+    under a mesh, edge values into this rank's node block."""
+    return scatter_nodes(_scatter_rows(values, index, n))
+
+
+def scatter_max(values: torch.Tensor, index: torch.Tensor, n: int,
+                fill: float = -float("inf")) -> torch.Tensor:
+    """segment-max into ``n`` rows; under a mesh, edge values into this
+    rank's node block (a ``pmax`` of the whole, no gradient)."""
+    axes = node_axes()
+    full = sl.pmax(_max_rows(values, index, n, fill), axes)
+    return full.chunk(sl.axis_size(axes))[sl.axis_index(axes)]
+
+
 def gather_scatter_sum(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                        n: int, edge_weight: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
-    """The SpMM core: out[dst] += w * x[src], static shapes, sentinel-safe."""
-    msgs = take(x, src)
+    """The SpMM core: out[dst] += w * x[src], static shapes, sentinel-safe
+    (under a mesh, ``x`` and the result node blocks)."""
+    msgs = at_edges(x, src)
     if edge_weight is not None:
         msgs = msgs * edge_weight[:, None].to(msgs.dtype)
     return scatter_sum(msgs, dst, n)
@@ -238,27 +349,47 @@ def gather_scatter_sum(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
 
 def segment_softmax(logits: torch.Tensor, index: torch.Tensor,
                     n: int) -> torch.Tensor:
-    """Softmax over edges grouped by ``index`` (per-destination)."""
-    m = scatter_max(logits, index, n)
+    """Softmax over edges grouped by ``index`` (per-destination); under a
+    mesh over every rank's edges of a destination (the maxima by
+    ``pmax``, the sums cut to node blocks and gathered whole)."""
+    m = sl.pmax(_max_rows(logits, index, n, -float("inf")), node_axes())
     m = torch.where(torch.isfinite(m), m, 0.0)
     p = torch.exp(logits - take(m, index))
-    z = scatter_sum(p, index, n)
+    z = gather_nodes(scatter_sum(p, index, n))
     z = take(torch.clamp(z, min=1e-30), index, fill=1.0)
     return p / z
 
 
 def degrees(index: torch.Tensor, n: int) -> torch.Tensor:
+    """In-degrees of the ``n`` nodes (under a mesh, this rank's block)."""
     return scatter_sum(torch.ones(index.shape[0], dtype=torch.float32,
                                   device=index.device), index, n)
 
 
 def graph_readout(x: torch.Tensor, graph_ids: torch.Tensor, n_graphs: int,
                   op: str = "sum") -> torch.Tensor:
-    s = scatter_sum(x, graph_ids, n_graphs)
+    """Per-graph sum (or mean) of the node rows ``x``; under a mesh the
+    node blocks' sums ``psum``-ed over the node axes, whole on every
+    rank."""
+    axes = node_axes()
+    s = sl.psum(_scatter_rows(x, graph_ids, n_graphs), axes)
     if op == "sum":
         return s
-    cnt = torch.clamp(degrees(graph_ids, n_graphs), min=1.0)
+    ones = torch.ones(graph_ids.shape[0], dtype=torch.float32,
+                      device=graph_ids.device)
+    cnt = torch.clamp(sl.psum(_scatter_rows(ones, graph_ids, n_graphs),
+                              axes), min=1.0)
     return s / cnt[:, None]
+
+
+def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean of ``values`` over the rows where ``mask`` holds (at least 1
+    in the denominator); under a mesh over every rank's node block (the
+    masked sum and the count ``psum``-ed), whole on every rank."""
+    axes = node_axes()
+    m = mask.to(values.dtype)
+    return sl.psum((values * m).sum(), axes) / torch.clamp(
+        sl.psum(mask.sum(), axes), min=1)
 
 
 def n_edge_chunks(n_edges: int, edge_chunk: int) -> int:

@@ -36,8 +36,9 @@ import torch.nn.functional as F
 
 from ...device import resolve_device
 from ..common import dense_init
-from .common import (GraphBatch, chunked_scatter_sum, extend, graph_readout,
-                     mlp, mlp_init, n_edge_chunks, scatter_sum)
+from .common import (GraphBatch, chunked_scatter_sum, edge_count, extend,
+                     gather_nodes, graph_readout, mlp, mlp_init,
+                     n_edge_chunks, scatter_sum)
 from .schnet import rbf_expand, regression_or_nll
 
 
@@ -307,22 +308,25 @@ def forward(params, g: GraphBatch, cfg: EquiformerV2Config) -> torch.Tensor:
     n, c = g.n_nodes, cfg.d_hidden
     per_head = c // cfg.n_heads
     vec = g.edge_feat.float().reshape(-1, 3)
-    n_chunks = n_edge_chunks(g.src.shape[0], cfg.edge_chunk)
+    n_chunks = n_edge_chunks(edge_count(g), cfg.edge_chunk)
 
     if cfg.d_in == 0:
         x0 = params["embed"].index_select(0, g.node_feat.long())
     else:
         x0 = g.node_feat.to(cfg.dtype) @ params["embed"][: cfg.d_in]
-    x = torch.cat([x0[:, None], x0.new_zeros((n, cfg.n_coef - 1, c))],
-                  dim=1)
+    x = torch.cat([x0[:, None], x0.new_zeros((x0.shape[0], cfg.n_coef - 1,
+                                              c))], dim=1)
 
+    # under a mesh x is this rank's node block: the edges read the whole
+    # (gathered) features and softmax denominators
     def layer_fn(x, lp):
-        xe = extend(x)
+        xe = extend(gather_nodes(x))
         if n_chunks == 1:
             msg, logits, rots = _edge_message(xe, lp, cfg, g.src, vec)
             denom = scatter_sum(torch.exp(logits), g.dst, n)     # [N, H]
             alpha = torch.exp(logits) / extend(
-                torch.clamp(denom, min=1e-30), 1.0).index_select(0, g.dst)
+                torch.clamp(gather_nodes(denom), min=1e-30),
+                1.0).index_select(0, g.dst)
             # jnp.repeat spreads each head over its channels
             alpha = torch.repeat_interleave(alpha, per_head, dim=-1)
             msg = msg * alpha[:, None, :]
@@ -336,7 +340,8 @@ def forward(params, g: GraphBatch, cfg: EquiformerV2Config) -> torch.Tensor:
                     xe, lp, cfg, s, v, capped_only=True)), d),
                 n_chunks, (g.src, g.dst, vec), n, (cfg.n_heads,),
                 torch.float32, dst_ranged=ranged)
-            denom_e = extend(torch.clamp(denom, min=1e-30), 1.0)
+            denom_e = extend(torch.clamp(gather_nodes(denom), min=1e-30),
+                             1.0)
 
             # pass 2: full message, normalized, rotated back, scattered
             def edge_op(s, d, v):

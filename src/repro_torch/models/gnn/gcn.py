@@ -12,9 +12,9 @@ from typing import Any, Dict, Optional
 import torch
 
 from ...device import resolve_device
-from .common import (GraphBatch, chunked_scatter_sum, degrees, extend,
-                     gather_scatter_sum, mlp_init, n_edge_chunks,
-                     partitioned_aggregate, take)
+from .common import (GraphBatch, chunked_scatter_sum, degrees, edge_count,
+                     extend, gather_nodes, gather_scatter_sum, masked_mean,
+                     mlp_init, n_edge_chunks, partitioned_aggregate, take)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,12 +44,16 @@ def init_params(cfg: GCNConfig, generator: Optional[torch.Generator] = None,
 
 
 def forward(params, g: GraphBatch, cfg: GCNConfig) -> torch.Tensor:
+    """Logits of the nodes (under a mesh, of this rank's node block:
+    ``common``'s primitives run on blocks, and the norm's ``inv_sqrt``
+    is gathered whole for the edge endpoints)."""
     n = g.n_nodes
     deg = degrees(g.dst, n) + 1.0                      # +1: self loop
     inv_sqrt = torch.rsqrt(deg)
-    coef = take(inv_sqrt, g.src) * take(inv_sqrt, g.dst)
+    inv_e = extend(gather_nodes(inv_sqrt))
+    coef = inv_e.index_select(0, g.src) * inv_e.index_select(0, g.dst)
     x = g.node_feat.to(cfg.dtype)
-    n_chunks = n_edge_chunks(g.src.shape[0], cfg.edge_chunk)
+    n_chunks = n_edge_chunks(edge_count(g), cfg.edge_chunk)
     for i, (w, b) in enumerate(params["layers"]):
         x = x @ w                                       # transform first:
         if cfg.edge_layout == "partitioned":            # smaller SpMM width
@@ -63,8 +67,8 @@ def forward(params, g: GraphBatch, cfg: GCNConfig) -> torch.Tensor:
             # xe bound now: backward re-runs the chunk after the loop
             # has moved on to the next layer's x
             agg = chunked_scatter_sum(
-                lambda s, d, c, xe=extend(x): (xe.index_select(0, s)
-                                               * c[:, None], d),
+                lambda s, d, c, xe=extend(gather_nodes(x)): (
+                    xe.index_select(0, s) * c[:, None], d),
                 n_chunks, (g.src, g.dst, coef), n, x.shape[1:], x.dtype)
         x = agg + x * inv_sqrt[:, None] ** 2 + b        # self-loop term
         if i < len(params["layers"]) - 1:
@@ -75,11 +79,11 @@ def forward(params, g: GraphBatch, cfg: GCNConfig) -> torch.Tensor:
 def masked_nll(logits: torch.Tensor, labels: torch.Tensor,
                mask: torch.Tensor) -> torch.Tensor:
     """Mean negative log-likelihood over the rows where ``mask`` holds
-    (at least 1 in the denominator)."""
+    (at least 1 in the denominator; under a mesh over every rank's node
+    block, :func:`masked_mean`)."""
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels.long()[:, None])[:, 0]
-    m = mask.to(nll.dtype)
-    return (nll * m).sum() / torch.clamp(mask.sum(), min=1)
+    return masked_mean(nll, mask)
 
 
 def loss_fn(params, g: GraphBatch, cfg: GCNConfig) -> torch.Tensor:

@@ -12,9 +12,10 @@ from typing import Any, Dict, Optional
 import torch
 
 from ...device import resolve_device
-from .common import (GraphBatch, chunked_scatter_sum, extend,
-                     gather_scatter_sum, graph_readout, mlp, mlp_init,
-                     n_edge_chunks, partitioned_aggregate, take)
+from .common import (GraphBatch, chunked_scatter_sum, edge_count, extend,
+                     gather_nodes, gather_scatter_sum, graph_readout, mlp,
+                     mlp_init, n_edge_chunks, once, partitioned_aggregate,
+                     take)
 from .gcn import masked_nll
 
 
@@ -54,9 +55,12 @@ def init_params(cfg: GINConfig, generator: Optional[torch.Generator] = None,
 
 
 def forward(params, g: GraphBatch, cfg: GINConfig) -> torch.Tensor:
+    """Logits of the nodes (node level; under a mesh of this rank's node
+    block) or of the graphs (whole on every rank: the readout sums the
+    blocks, and the head after it counts its gradient once, ``once``)."""
     n = g.n_nodes
     x = g.node_feat.to(cfg.dtype)
-    n_chunks = n_edge_chunks(g.src.shape[0], cfg.edge_chunk)
+    n_chunks = n_edge_chunks(edge_count(g), cfg.edge_chunk)
     reps = []
     for lp in params["layers"]:
         if cfg.edge_layout == "partitioned":
@@ -69,7 +73,8 @@ def forward(params, g: GraphBatch, cfg: GINConfig) -> torch.Tensor:
             # xe bound now: backward re-runs the chunk after the loop
             # has moved on to the next layer's x
             agg = chunked_scatter_sum(
-                lambda s, d, xe=extend(x): (xe.index_select(0, s), d),
+                lambda s, d, xe=extend(gather_nodes(x)): (
+                    xe.index_select(0, s), d),
                 n_chunks, (g.src, g.dst), n, x.shape[1:], x.dtype)
         x = mlp((1.0 + lp["eps"]) * x + agg, lp["mlp"])
         reps.append(x)
@@ -77,7 +82,7 @@ def forward(params, g: GraphBatch, cfg: GINConfig) -> torch.Tensor:
     if cfg.node_level:
         return mlp(h, [params["head"][0]])
     pooled = graph_readout(h, g.graph_ids, g.n_graphs, op="sum")
-    return mlp(pooled, [params["head"][0]])
+    return mlp(pooled, [once(params["head"][0])])
 
 
 def loss_fn(params, g: GraphBatch, cfg: GINConfig) -> torch.Tensor:

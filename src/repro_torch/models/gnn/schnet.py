@@ -18,9 +18,9 @@ import torch
 
 from ...device import resolve_device
 from ..common import dense_init
-from .common import (GraphBatch, chunked_scatter_sum, extend, graph_readout,
-                     mlp, mlp_init, n_edge_chunks, partitioned_aggregate,
-                     scatter_sum)
+from .common import (GraphBatch, chunked_scatter_sum, edge_count, extend,
+                     gather_nodes, graph_readout, mlp, mlp_init,
+                     n_edge_chunks, partitioned_aggregate, scatter_sum)
 from .gcn import masked_nll
 
 LOG2 = math.log(2.0)
@@ -119,7 +119,7 @@ def forward(params, g: GraphBatch, cfg: SchNetConfig) -> torch.Tensor:
     else:
         x = g.node_feat.to(cfg.dtype) @ params["embed_w"]
     dist = edge_distances(g)
-    n_chunks = n_edge_chunks(g.src.shape[0], cfg.edge_chunk)
+    n_chunks = n_edge_chunks(edge_count(g), cfg.edge_chunk)
     for lp in params["interactions"]:
         h = x @ lp["in_w"]
         # the edge functions bind this interaction's weights and features
@@ -132,7 +132,7 @@ def forward(params, g: GraphBatch, cfg: SchNetConfig) -> torch.Tensor:
                     extend(hf).index_select(0, s) * filt(dd), d),
                 n, (cfg.d_hidden,), h.dtype, n_chunks=n_chunks)
         else:
-            def edge_op(s, d, dd, he=extend(h), filt=filt):
+            def edge_op(s, d, dd, he=extend(gather_nodes(h)), filt=filt):
                 return he.index_select(0, s) * filt(dd), d
 
             if n_chunks == 1:

@@ -3,13 +3,27 @@
 The port keeps the JAX package's parameter and optimizer layouts (dicts,
 lists, ``OptState``), so checkpoints and converters address leaves by the
 same paths.  JAX visits a dict's keys sorted, a list or tuple by index
-and a NamedTuple by field; ``None`` is an empty subtree.  These helpers
-visit in that order, so a leaf's path and position agree across the two
-packages.
+and a NamedTuple by field; ``None`` is an empty subtree.  A dataclass
+registered with :func:`register_dataclass` (JAX's
+``jax.tree_util.register_dataclass``) is an inner node whose children
+are its data fields in the order given; its other fields ride along.
+These helpers visit in that order, so a leaf's path and position agree
+across the two packages.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+import dataclasses
+from typing import Any, Callable, Dict, List, Sequence, Tuple
+
+#: dataclass type -> its data fields, in the order they are visited
+_DATACLASSES: Dict[type, Tuple[str, ...]] = {}
+
+
+def register_dataclass(cls: type, data_fields: Sequence[str]) -> type:
+    """Walk ``cls``'s instances as inner nodes over ``data_fields`` (in
+    that order); the other fields are metadata, kept as they are."""
+    _DATACLASSES[cls] = tuple(data_fields)
+    return cls
 
 
 def _is_namedtuple(x) -> bool:
@@ -18,18 +32,23 @@ def _is_namedtuple(x) -> bool:
 
 def _children(node) -> List[Tuple[str, Any]]:
     """(path piece, child) of an inner node, in JAX's order; [] for a
-    leaf (anything that is not a dict, list, tuple or None)."""
+    leaf (anything that is not a dict, list, tuple, registered dataclass
+    or None)."""
     if isinstance(node, dict):
         return [(str(k), node[k]) for k in sorted(node)]
     if _is_namedtuple(node):
         return list(zip(node._fields, node))
     if isinstance(node, (list, tuple)):
         return [(str(i), c) for i, c in enumerate(node)]
+    fields = _DATACLASSES.get(type(node))
+    if fields is not None:
+        return [(f, getattr(node, f)) for f in fields]
     return []
 
 
 def _is_inner(node) -> bool:
-    return node is None or isinstance(node, (dict, list, tuple))
+    return (node is None or isinstance(node, (dict, list, tuple))
+            or type(node) in _DATACLASSES)
 
 
 def _walk(node, prefix: str, out: list) -> None:
@@ -67,6 +86,9 @@ def _build(node, it):
         built = {k: _build(node[k], it) for k in sorted(node)}
         return {k: built[k] for k in node}
     kids = [_build(c, it) for _, c in _children(node)]
+    if type(node) in _DATACLASSES:
+        return dataclasses.replace(node, **dict(zip(
+            _DATACLASSES[type(node)], kids)))
     if _is_namedtuple(node):
         return type(node)(*kids)
     return type(node)(kids)

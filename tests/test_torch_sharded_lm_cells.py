@@ -1,8 +1,10 @@
 """The other whole-model sharded LM cells of the port: glm4-9b's train
 step with the ``opt`` variant and in bf16, prefill and decode against
 the JAX package, the sharded cells at world size 1 against the
-unsharded ones, the production layouts, and the cells the port still
-refuses on a mesh.
+unsharded ones, and the production layouts.  (The GNN and recsys train
+cells, which refused a mesh before, run on one in
+``tests/test_torch_sharded_gnn.py`` and
+``tests/test_torch_sharded_recsys.py``.)
 
 Train variants (``torchdist_lm_bodies.train_case``): glm4-9b's smoke
 train_4k cell under ``rules_train_lm`` at mesh (2, 2), with the ``opt``
@@ -301,29 +303,3 @@ def test_production_layouts_split_evenly(arch):
             for t, sh in zip(ts, ss):
                 assert _splits(t, sh.spec, mesh), (shape, tuple(t.shape),
                                                    sh.spec)
-
-
-# ---------------------------------------------------------------------------
-# What the port still refuses on a mesh
-# ---------------------------------------------------------------------------
-
-class _Group(_Mesh):
-    def __init__(self, n):
-        self.shape, self.mesh_dim_names = (1, n), ("data", "model")
-
-
-@pytest.mark.parametrize("world", [1, 4])
-@pytest.mark.parametrize("arch,shape,next_slice", [
-    ("gcn-cora", "full_graph_sm", "the GNN family under rules_gnn"),
-    ("dlrm-rm2", "train_batch",
-     "dlrm-rm2's train cell under rules_recsys"),
-])
-def test_refused_cells_name_the_next_slice(arch, shape, next_slice, world):
-    mesh = _Group(world)
-    lm = steps.build_cell("glm4-9b", "train_4k", smoke=True, device="cpu")
-    step = lm.fn
-    with sl.axis_rules(mesh, steps.rules_for(arch, shape, mesh)):
-        cell = steps.build_cell(arch, shape, smoke=True, device="cpu")
-        with pytest.raises(NotImplementedError, match=next_slice):
-            cell.run()
-        assert steps._on_mesh(lm).fn is step        # an LM cell runs

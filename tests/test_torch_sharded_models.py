@@ -25,8 +25,7 @@ another order, as ``tests/test_torch_dlrm.py`` and
 ``tests/test_torch_gnn.py`` hold them).  The dlrm-rm2 smoke serve cell
 under ``rules_recsys`` at 2 and 4 ranks gives the unsharded cell's
 logits bit for bit, and the smoke cells' sharding trees align with
-their arguments leaf for leaf (the LM and recsys cells run on the
-2-rank mesh, the GNN cell refuses).
+their arguments leaf for leaf (every cell runs on the 2-rank mesh).
 """
 import jax
 import jax.numpy as jnp
@@ -316,9 +315,9 @@ def test_rm2_serve_cell_under_rules_recsys(world, rm2_unsharded):
 def test_cells_have_consistent_sharding_trees(world):
     """The JAX test of the same name on smoke cells (the port's full
     cells allocate the full size), on the 2-rank mesh: as many sharding
-    leaves as argument leaves, each spec no longer than its tensor's
-    dims; the LM and recsys cells run across ranks under their rules,
-    the GNN cell refuses."""
+    leaves as argument leaves (a graph batch's are its tensors), each
+    spec no longer than its tensor's dims; every cell, the GNN cell
+    too, runs across ranks under its rules."""
     w, outs, ref, want = world
     trees = outs[0].get("trees")
     assert (trees is not None) == (w == 2)
@@ -326,7 +325,7 @@ def test_cells_have_consistent_sharding_trees(world):
         return
     for (arch, shape), (n_args, n_sh, fits, runs) in trees.items():
         assert n_args == n_sh and fits, (arch, shape)
-        assert runs == (arch != "gcn-cora"), (arch, shape)
+        assert runs, (arch, shape)
 
 
 def test_convert_hands_back_local_blocks(world):

@@ -430,12 +430,11 @@ def _converted_blocks(mesh, p):
 
 def _sharding_trees(mesh):
     """The JAX ``test_cells_have_consistent_sharding_trees`` on smoke
-    cells: leaves of args and of in_shardings align, each spec fits its
-    tensor; and which cells run on this mesh (under its rules) and which
-    refuse."""
+    cells: leaves of args and of in_shardings align (a graph batch's
+    leaves are its tensors), each spec fits its tensor; and whether each
+    cell runs on this mesh under its rules."""
     from repro_torch import shardlib as sl
     from repro_torch.launch import steps
-    from repro_torch.models.gnn.common import GraphBatch
     from repro_torch.tree import leaves
     out = {}
     for arch, shape in [("glm4-9b", "train_4k"),
@@ -449,13 +448,7 @@ def _sharding_trees(mesh):
         s_leaves = leaves(cell.in_shardings)
         fits = len(a_leaves) == len(s_leaves)
         for a, s in zip(a_leaves, s_leaves):
-            if isinstance(a, GraphBatch):
-                for f in GraphBatch.TENSORS:
-                    ta, ts = getattr(a, f), getattr(s, f)
-                    fits &= (ta is None) == (ts is None)
-                    if ta is not None:
-                        fits &= len(ts.spec) <= ta.dim()
-            elif isinstance(a, torch.Tensor):
+            if isinstance(a, torch.Tensor):
                 fits &= isinstance(s, sl.NamedSharding) \
                     and len(s.spec) <= a.dim()
         try:
