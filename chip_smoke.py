@@ -272,6 +272,24 @@ never JAX or the JAX package.  Phases, each of which asserts:
    line, each counted over the sharded steps alone:
    ``dlrm_train_sharded`` (``bag_sum`` and ``bag_sum_backward`` once a
    step) and ``gnn_train_sharded`` (none).
+17. training on a mesh: (a) after phase 7, while phase 5's stores
+   finish saving (it is mostly the host's start-up of two
+   interpreters), the train CLI itself (``python -m
+   torch.distributed.run --standalone --nproc-per-node 1 -m
+   repro_torch.launch.train``, NCCL on ``cuda:0``, ``--deterministic``)
+   on gcn-cora full_graph_sm at its published config:
+   run A trains 4 steps with a checkpoint every 2, run B starts from a
+   copy of A's step 1 and trains to step 3; B's step 3 equals A's leaf by
+   leaf, bit for bit (or within SHARDED_TRAIN_NONDET where the CLI logs
+   an op without a deterministic path, the reading printed); each run's
+   wall time printed.  A child that exits non-zero fails the phase.  Its
+   path in the kernels line: ``train_cli_mesh``, the launches each run
+   counts and logs (none run there).  (b) inside phase 10, after phase
+   16 (a): the params of the sharded rm2 train_batch cell (the 6.66 GB
+   of tables and the MLPs; not m and v, to bound the disk) saved by
+   blocks on the ``(1, 1)`` NCCL mesh, restored by blocks, and read back
+   by the plain loader with its CRCs: each bit-equal; the seconds, GB/s
+   and the directory's free space printed.
 
 Each path frees its memory before the next.  Every launch counter is
 zeroed just before a served run and read just after it.  It prints one
@@ -282,7 +300,7 @@ own count, phase 8's paths ``hod_mixed_slo``,
 ``hod_fleet_raw`` and ``hod_fleet_delta`` (each the sum over its runs
 at 1, 2 and 4 shards) and ``hod_fleet_mixed_slo``, phase 10's
 ``dlrm_train`` and ``lm_train``, phase 11's ``gnn_train``, phase
-12's, phase 13's, phase 15's and phase 16's paths included;
+12's, phase 13's, phase 15's, phase 16's and phase 17's paths included;
 ``bag_sum_backward`` has no TPU kernel and names the JAX lookup's
 ``jnp.take``), the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``.  Any failure
@@ -494,6 +512,17 @@ SHARDED_DECODE_PROMPT = 512
 GNN_SHARDED = (("gcn-cora", "ogb_products"), ("gin-tu", "minibatch_lg"),
                ("schnet", "molecule"), ("equiformer-v2", "molecule"))
 SHARDED_TRAIN_STEPS, SHARDED_TRAIN_NONDET = 3, 1e-6
+
+# Phase 17: (a) the train CLI under torchrun at one NCCL rank, on CLI_CELL
+# at its published config with --deterministic: run A trains CLI_STEPS
+# steps with a checkpoint every CLI_EVERY, run B starts from a copy of
+# A's first checkpoint and trains to the same end; B's last checkpoint
+# must equal A's leaf by leaf, bit for bit, unless torch reports an op
+# without a deterministic path: then within SHARDED_TRAIN_NONDET as a
+# relative L2 a leaf.  (b) rm2's params saved by blocks on the (1, 1)
+# NCCL mesh and restored by blocks and by the plain loader, bit-equal.
+CLI_CELL, CLI_STEPS, CLI_EVERY, CLI_TIMEOUT = \
+    ("gcn-cora", "full_graph_sm"), 4, 2, 300
 
 # The served run whose launch count the kernels line reports: the one at
 # the shape each kernel is timed at.
@@ -2479,13 +2508,8 @@ def drive_dlrm(torch, card: str, keep: dict) -> dict:
 
 # ------------------------------------------------------------- phase 10
 def _counters() -> dict:
-    from repro_torch.kernels.embedding_bag import bag_sum, bag_sum_backward
-    from repro_torch.kernels.flash_decode import flash_decode
-    from repro_torch.kernels.edge_relax import relax_sweep_
-    from repro_torch.kernels.tropical_matmul import minplus
-    return {"edge_relax": relax_sweep_, "tropical_matmul": minplus,
-            "flash_decode": flash_decode, "embedding_bag": bag_sum,
-            "bag_sum_backward": bag_sum_backward}
+    from repro_torch.kernels import launch_counters
+    return launch_counters()
 
 
 def paths_now() -> dict:
@@ -2791,6 +2815,7 @@ def drive_dlrm_train(torch, card: str) -> "tuple[dict, dict, dict]":
         sharded = sharded_train_check(torch, card, cell, mesh,
                                       "dlrm-rm2 train_batch")
     rm2_row_blocks(torch, card, cell)
+    rm2_sharded_save(torch, card, cell)
     n = 1 + SHARDED_TRAIN_STEPS
     if (sharded["embedding_bag"], sharded["bag_sum_backward"]) != (n, n) \
             or sum(sharded.values()) != 2 * n:
@@ -4308,6 +4333,162 @@ def gnn_sharded(torch, card: str, cell, mesh) -> dict:
     return total
 
 
+# ------------------------------------------------------------- phase 17
+def train_cli(argv: list, what: str) -> "tuple[str, float]":
+    """``repro_torch.launch.train`` under torchrun at one rank on the
+    card (NCCL on ``cuda:0``); (its standard output, wall seconds).  A
+    child that exits non-zero, or outlives CLI_TIMEOUT (its process
+    group is then killed), fails the phase."""
+    import signal
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=os.pathsep.join(
+                   [str(SRC)] + ([os.environ["PYTHONPATH"]]
+                                 if os.environ.get("PYTHONPATH") else [])))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "repro_torch.launch.train", *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=CLI_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: torchrun exited {proc.returncode}:"
+                             f"\n{out[-3000:]}\n{err[-3000:]}")
+    return out, wall
+
+
+def drive_train_cli(torch, card: str) -> dict:
+    """Phase 17 (a): the train CLI under torchrun at one NCCL rank on
+    CLI_CELL at its published config: run A, then run B from a copy of
+    A's first checkpoint, B's last checkpoint held to A's.  Returns the
+    port's kernel launches of both runs (each CLI prints its own)."""
+    from repro_torch.checkpoint import CheckpointManager, load_pytree
+    from repro_torch.tree import flatten_with_paths
+    arch, shape = CLI_CELL
+    root = tempfile.mkdtemp(prefix="train_cli_")
+    first = f"step_{CLI_EVERY - 1:08d}"
+    last = f"step_{CLI_STEPS - 1:08d}"
+    argv = ["--arch", arch, "--shape", shape, "--steps", str(CLI_STEPS),
+            "--ckpt-every", str(CLI_EVERY), "--log-every", "1",
+            "--deterministic"]
+    try:
+        a, b = os.path.join(root, "a"), os.path.join(root, "b")
+        out_a, wall_a = train_cli(argv + ["--ckpt-dir", a], "run A")
+        os.makedirs(b)
+        shutil.copytree(os.path.join(a, first), os.path.join(b, first))
+        out_b, wall_b = train_cli(argv + ["--ckpt-dir", b], "run B")
+        like, extra = CheckpointManager(a).peek(CLI_STEPS - 1)
+        want, _ = load_pytree(os.path.join(a, last), like)
+        got, extra_b = load_pytree(os.path.join(b, last), like)
+        differ, worst = tree_reading(torch, got, want)
+        n_leaves = len(flatten_with_paths(want))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    lines = {"A": out_a.splitlines(), "B": out_b.splitlines()}
+    losses = {run: [float(ln.split()[3]) for ln in ls
+                    if ln.startswith("step ")] for run, ls in lines.items()}
+    nondet = sorted({ln.split(": ", 1)[1] for ls in lines.values()
+                     for ln in ls if ln.startswith("no deterministic path")})
+    counts = [json.loads(ln.split(" ", 2)[2]) for ls in lines.values()
+              for ln in ls if ln.startswith("kernel launches ")]
+    exact = differ == 0
+    say(f"train CLI under torchrun (1 NCCL rank) on {arch} {shape}: run A "
+        f"{CLI_STEPS} steps in {wall_a:.1f} s wall, losses {losses['A']}; "
+        f"run B from A's {first} in {wall_b:.1f} s wall, losses "
+        f"{losses['B']}; B's {last} against A's: leaves differing {differ} "
+        f"of {n_leaves} (worst relative "
+        f"L2 {worst:.3e}); "
+        + ("bit-equal" if exact else f"ops without a deterministic path "
+           f"{nondet}, bound {SHARDED_TRAIN_NONDET}")
+        + f"; kernel launches {counts}, on {card}")
+    ok = exact or (nondet and worst <= SHARDED_TRAIN_NONDET)
+    finite = all(x == x and abs(x) < float("inf")
+                 for x in losses["A"] + losses["B"])
+    resumed = f"resumed from step {CLI_EVERY - 1}" in out_b
+    if exact:       # the logged losses of the steps both runs took, too
+        ok = losses["B"] == losses["A"][CLI_EVERY:]
+    if not (ok and finite and resumed and len(counts) == 2
+            and extra == extra_b and len(losses["A"]) == CLI_STEPS
+            and len(losses["B"]) == CLI_STEPS - CLI_EVERY):
+        raise AssertionError(f"train CLI: run B is not run A's end "
+                             f"(nondeterministic ops {nondet})")
+    return {name: sum(c[name] for c in counts) for name in counts[0]}
+
+
+def rm2_sharded_save(torch, card: str, cell) -> None:
+    """Phase 17 (b), after phase 16 (a): the params of rm2's sharded
+    train_batch cell (``steps.shard_train_cell`` on the (1, 1) NCCL mesh:
+    its blocks are the cell's own tensors), the 26 x 10^6-row f32 tables
+    (6.66 GB) and the MLPs, without AdamW's m and v (they would triple
+    the disk), saved by blocks (``save_pytree(..., shardings=)``) and
+    restored by blocks onto the card, every leaf bit-equal; then read by
+    the plain loader (no shardings, CRCs verified) to the host, bit-equal
+    again: the files are whole leaves in the JAX layout.  Prints the
+    save's and restores' seconds and GB/s and the directory's free
+    space; removes the directory and frees the card after."""
+    from repro_torch import shardlib as sl
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.launch import steps
+    from repro_torch.tree import flatten_with_paths, leaves
+    root = tempfile.mkdtemp(prefix="rm2_ckpt_")
+    path = os.path.join(root, "params")
+
+    def differing(got, want):
+        return [k for (k, g), (_, w) in zip(flatten_with_paths(got),
+                                            flatten_with_paths(want))
+                if g.dtype != w.dtype or g.shape != w.shape
+                or not torch.equal(g.to(w.device), w)]
+    try:
+        with one_rank_mesh(torch) as mesh:
+            with sl.axis_rules(mesh, steps.rules_for("dlrm-rm2",
+                                                     "train_batch", mesh)):
+                twin = steps.shard_train_cell(cell)
+            params = twin.args[0]["params"]
+            sh = twin.in_shardings[0]["params"]
+            del twin
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in leaves(params))
+            room = shutil.disk_usage(root).free
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_pytree(params, path, {"step": 0}, shardings=sh)
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got, _ = load_pytree(path, params, device="cuda",
+                                 shardings=sh)
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t0
+            by_blocks = differing(got, params)
+            del got
+            free(torch)
+        t0 = time.perf_counter()
+        plain, _ = load_pytree(path, params, verify=True)
+        t_plain = time.perf_counter() - t0
+        whole = differing(plain, params)
+        del plain
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    say(f"dlrm-rm2 train_batch params by blocks on the (1, 1) NCCL mesh: "
+        f"{len(leaves(params))} leaves, {nbytes / 1e9:.3f} GB, "
+        f"{room / 1e9:.1f} GB free in the directory before; save "
+        f"{t_save:.2f} s ({nbytes / t_save / 1e9:.2f} GB/s, CRCs read "
+        f"back), restore by blocks to the card {t_restore:.2f} s "
+        f"({nbytes / t_restore / 1e9:.2f} GB/s, CRCs verified), plain "
+        f"load_pytree to the host {t_plain:.2f} s "
+        f"({nbytes / t_plain / 1e9:.2f} GB/s, CRCs verified); leaves "
+        f"differing by blocks {by_blocks}, plain {whole}; host clock, the "
+        f"page cache warm, on {card}")
+    if by_blocks or whole:
+        raise AssertionError("rm2's params do not come back bit-equal")
+    free(torch)
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -4399,11 +4580,17 @@ def main() -> int:
         dlrm_paths = drive_dlrm(torch, card, dlrm_out)
         free(torch)
         say(f"DLRM phase took {time.perf_counter() - t0:.1f} s")
+        # phase 17 (a) is mostly two interpreters' start-up on the host,
+        # so it runs while the saves finish too
+        t0 = time.perf_counter()
+        cli_counts = drive_train_cli(torch, card)
+        say(f"phase 17 (a) took {time.perf_counter() - t0:.1f} s")
         t_wait = time.perf_counter()
         store_paths = saving.result()
         say(f"the stores' saves took {time.perf_counter() - t_save:.1f} s "
-            f"beside phases 3, 6 and 7, {time.perf_counter() - t_wait:.1f} "
-            f"s of it waited for after them")
+            f"beside phases 3, 6, 7 and 17 (a), "
+            f"{time.perf_counter() - t_wait:.1f} s of it waited for after "
+            f"them")
     finally:
         saver.shutdown(wait=True)
         if not saving.done() or saving.exception() is not None:
@@ -4456,6 +4643,7 @@ def main() -> int:
     rows["bag_sum_backward"], train_paths = drive_train(torch, card,
                                                         base_train)
     paths["bag_sum_backward"] = {}
+    train_paths["train_cli_mesh"] = cli_counts
     for path, counts in train_paths.items():
         for name, n in counts.items():
             paths[name][path] = n

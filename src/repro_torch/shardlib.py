@@ -15,9 +15,10 @@ cuts a global array instead); the collective helpers (:func:`psum`,
 :func:`pmax`, :func:`pmin`, :func:`psum_scatter`, :func:`all_gather`)
 reduce over the process group of the named mesh dims, and return their
 input when no axis is live, as in JAX.  :func:`local_block` cuts a
-rank's block from a global tensor and :func:`gather_blocks` joins the
-blocks back.  A mesh lives on ``"cuda"`` over NCCL or on ``"cpu"`` over
-gloo (:func:`make_mesh`); nothing falls back from one to the other.
+rank's block from a global tensor (:func:`block_slices` names where it
+lies) and :func:`gather_blocks` joins the blocks back.  A mesh lives on
+``"cuda"`` over NCCL or on ``"cpu"`` over gloo (:func:`make_mesh`);
+nothing falls back from one to the other.
 
 Gradients cross the collectives (Megatron's convention: a tensor held
 whole on every rank of a group carries the whole cotangent on each).
@@ -50,7 +51,8 @@ __all__ = [
     "logical_to_spec", "shard",
     "sharding_for", "make_mesh", "maybe_shard_map", "psum", "pmax", "pmin",
     "psum_scatter", "all_gather", "enter", "axis_size", "axis_index",
-    "local_block", "gather_blocks", "reduce_grads", "spec_axes",
+    "block_slices", "local_block", "gather_blocks", "mesh_group",
+    "mesh_index", "reduce_grads", "spec_axes",
     "GROUP_TIMEOUT",
 ]
 
@@ -529,24 +531,51 @@ def maybe_shard_map(fn: Callable, in_specs, out_specs) -> Callable:
     return mapped
 
 
-def local_block(x: torch.Tensor, spec, mesh=None) -> torch.Tensor:
-    """This rank's block of the global tensor ``x`` under ``spec``
-    (each sharded dim cut evenly, in :func:`axis_index` order);
-    contiguous, and ``x`` itself where nothing is cut."""
+def block_slices(shape: Sequence[int], spec, mesh=None
+                 ) -> Tuple[slice, ...]:
+    """The slices, one a dim, that cut this rank's block out of a global
+    tensor of ``shape`` under ``spec`` (each sharded dim cut evenly, in
+    :func:`axis_index` order); whole dims without a mesh."""
     mesh = mesh or current_mesh()
+    out = [slice(0, n) for n in shape]
     if mesh is None:
-        return x
+        return tuple(out)
     for d, part in enumerate(tuple(spec)):
         axes = _axes_tuple(part)
         if not axes:
             continue
         n = axis_size(axes, mesh)
-        if x.shape[d] % n:
-            raise ValueError(f"dim {d} of {tuple(x.shape)} does not split "
+        if shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not split "
                              f"over {n} ranks of {axes}")
-        size = x.shape[d] // n
-        x = x.narrow(d, axis_index(axes, mesh) * size, size)
+        size = shape[d] // n
+        lo = axis_index(axes, mesh) * size
+        out[d] = slice(lo, lo + size)
+    return tuple(out)
+
+
+def local_block(x: torch.Tensor, spec, mesh=None) -> torch.Tensor:
+    """This rank's block of the global tensor ``x`` under ``spec``
+    (:func:`block_slices`); contiguous, and ``x`` itself where nothing
+    is cut."""
+    mesh = mesh or current_mesh()
+    if mesh is None:
+        return x
+    for d, s in enumerate(block_slices(x.shape, spec, mesh)):
+        if s.stop - s.start != x.shape[d]:
+            x = x.narrow(d, s.start, s.stop - s.start)
     return x.contiguous()
+
+
+def mesh_group(mesh):
+    """The process group over every dim of ``mesh`` (one rank a mesh
+    position), as :func:`make_mesh` made it."""
+    return _group(_names(mesh), mesh)
+
+
+def mesh_index(mesh) -> int:
+    """This rank's row-major position in ``mesh`` (0 to its size - 1)."""
+    return axis_index(_names(mesh), mesh)
 
 
 def gather_blocks(x: torch.Tensor, spec) -> torch.Tensor:
