@@ -290,6 +290,23 @@ never JAX or the JAX package.  Phases, each of which asserts:
    blocks on the ``(1, 1)`` NCCL mesh, restored by blocks, and read back
    by the plain loader with its CRCs: each bit-equal; the seconds, GB/s
    and the directory's free space printed.
+18. the dry run's predictions against real steps: while nvcc builds the
+   kernels, a child process (nice 10, one torch thread) runs
+   ``repro_torch.launch.dryrun.run_cell`` on fake tensors on the card's
+   device type for three cuts with no mesh: glm4-9b train_4k at 2 layers
+   and batch 1, glm4-9b decode_32k at batch 32 (phase 6's cell) and
+   dlrm-rm2 train_batch (phase 10's).  One real step of each is read
+   where an earlier phase holds its cell (phase 6 after its profile,
+   phase 10 after its counted steps and profile; the glm4 train cut is
+   built at the end, stepped once to warm up): the kernels' launches
+   (the ``launch_counters()`` delta), the time (CUDA events) and the peak
+   (``max_memory_allocated`` after ``reset_peak_memory_stats``), then the
+   product FLOPs of one more step under ``FlopCounterMode``.  The
+   predicted launches must equal the delta and the predicted product
+   FLOPs ``FlopCounterMode``'s, exactly; the predicted peak (argument,
+   output and temp bytes) must lie within DRYRUN_PEAK_RTOL of the
+   measured one; the roofline's time (its largest term) must not exceed
+   the measured step, and their ratio is printed.
 
 Each path frees its memory before the next.  Every launch counter is
 zeroed just before a served run and read just after it.  It prints one
@@ -524,6 +541,21 @@ SHARDED_TRAIN_STEPS, SHARDED_TRAIN_NONDET = 3, 1e-6
 CLI_CELL, CLI_STEPS, CLI_EVERY, CLI_TIMEOUT = \
     ("gcn-cora", "full_graph_sm"), 4, 2, 300
 
+# Phase 18: the dry run's cuts (run_cell's keywords, no mesh) and the
+# bound on its predicted peak against the measured one (the allocator's
+# rounding, cuBLAS's workspace and what else the phase holds).
+DRYRUN_CUTS = {
+    "glm4-9b train_4k": dict(arch="glm4-9b", shape="train_4k",
+                             mesh_shape=[], layers=2, batch=LM_TRAIN_BATCH),
+    "glm4-9b decode_32k": dict(arch="glm4-9b", shape="decode_32k",
+                               mesh_shape=[], batch=DECODE_BATCH),
+    "dlrm-rm2 train_batch": dict(arch="dlrm-rm2", shape="train_batch",
+                                 mesh_shape=[]),
+}
+DRYRUN_PEAK_RTOL, DRYRUN_TIMEOUT = 0.10, 600
+# the readings of real steps that phases 6, 10 and 18 take, by cut
+REAL_STEPS = {}
+
 # The served run whose launch count the kernels line reports: the one at
 # the shape each kernel is timed at.
 MAIN_PATH = {"edge_relax": "hod_serve_stream",
@@ -677,6 +709,7 @@ def check_minplus(torch, card: str, m: int, k: int, n: int,
     plain version, and the bound."""
     from repro_torch.kernels.tropical_matmul import minplus, minplus_ref
     from repro_torch.kernels.tropical_matmul import ops as mp_ops
+    from repro_torch.kernels.tropical_matmul.ops import minplus_cost
     a, b = minplus_inputs(torch, m, k, n, lda_pad, offset)
     got = minplus(a, b) if n_k is None else mp_ops._launch(a, b, n_k=n_k)
     want = minplus_ref(a, b)
@@ -695,8 +728,7 @@ def check_minplus(torch, card: str, m: int, k: int, n: int,
     if timed:
         row["ms"] = time_ms(torch, lambda: minplus(a, b), iters=20)
         row["plain_ms"] = time_ms(torch, lambda: minplus_ref(a, b), iters=3)
-        row["bound_ms"], row["bound_by"] = bound(
-            4.0 * (m * k + k * n + m * n), 2.0 * m * k * n)
+        row["bound_ms"], row["bound_by"] = bound(*minplus_cost(m, k, n))
     say(f"minplus {row['shape']} lda={lda} copies {va}/{vb} B"
         + (f", forced {n_k} chunks" if n_k else f", {row['plan']}")
         + ": equal to plain"
@@ -784,31 +816,27 @@ def check_relax_synthetic(np, torch, s: int, n: int, m_pad: int,
 
 
 def sweep_bound(torch, sweep, s: int):
-    """(bytes, operations, L2 bytes) of a sweep.  Bytes: what it must
-    move from device memory, all its state fitting in L2 (5.1 MB at
-    N = 40,001, S = 32; L2 is 50 MB): its CSR once (level pointer and
-    ways, a row's destination and pointer, a slot's source and weight,
-    4 bytes each), the S labels of each distinct node it reads (a
-    source, or a destination's old labels) read once, and those of each
-    distinct node it writes written once.  Operations: an add and a min
-    a slot and label.  L2 bytes, a figure with no rate attached: the
-    same summed level by level (each level's CSR, the labels of the
-    distinct nodes it reads, the labels it writes read and written),
-    the traffic that stays in L2 between levels."""
+    """(bytes, operations, L2 bytes) of a sweep.  Bytes and operations:
+    ``relax_sweep_cost`` with this sweep's distinct nodes read and
+    written (all its state fits in L2: 5.1 MB at N = 40,001, S = 32; L2
+    is 50 MB).  L2 bytes, a figure with no rate attached: the same
+    summed level by level (each level's CSR, the labels of the distinct
+    nodes it reads, the labels it writes read and written), the traffic
+    that stays in L2 between levels."""
+    from repro_torch.kernels.edge_relax.ops import relax_sweep_cost
     r, e, n_lv = sweep.level_rows, sweep.level_slots, sweep.n_levels
     rows, slots = r[-1] - r[0], e[-1] - e[0]
     src = sweep.src[e[0]:e[-1]]
     dst = sweep.row_dst[r[0]:r[-1]]
     read = int(torch.unique(torch.cat([src, dst])).numel())
     written = int(torch.unique(dst).numel())
-    csr = 4 * (2 * n_lv + 1) + 8 * rows + 4 + 8 * slots
-    nbytes = csr + 4 * s * (read + written)
+    nbytes, ops = relax_sweep_cost(n_lv, rows, slots, read, written, s)
     l2 = 0
     for i in range(n_lv):
         reads = int(torch.unique(sweep.src[e[i]:e[i + 1]]).numel())
         l2 += 8 * (r[i + 1] - r[i]) + 8 * (e[i + 1] - e[i]) \
             + 4 * s * (reads + 2 * (r[i + 1] - r[i]))
-    return nbytes, 2 * s * slots, l2
+    return nbytes, ops, l2
 
 
 def check_relax_sweeps(np, torch, card: str, ix) -> dict:
@@ -1780,6 +1808,7 @@ def check_flash_decode(torch, card: str) -> dict:
     kv_len, beside SDPA (GQA) on the same inputs."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
+    from repro_torch.kernels.flash_decode.ops import flash_decode_cost
     gen = torch.Generator(device="cuda").manual_seed(11)
     bf16 = torch.bfloat16
     q = torch.randn((FD_B, FD_H, FD_DH), generator=gen, device="cuda",
@@ -1894,12 +1923,10 @@ def check_flash_decode(torch, card: str) -> dict:
     row["library_ms"] = time_ms(torch, sdpa, iters=20)
     lib_err = (sdpa().reshape(FD_B, FD_H, FD_DH).float()
                - flash_decode_ref(q, k, v, kv_main)).abs().max().item()
-    # Bytes: K and V rows below kv_len once, q in, f32 out; operations:
-    # a multiply-add per (head, position, column) for QK and for PV, bf16
-    # products on the tensor cores.
+    # bf16 products on the tensor cores
     row["bound_ms"], row["bound_by"] = bound(
-        2.0 * FD_B * FD_KH * kv_main * FD_DH * 2 + FD_B * FD_H * FD_DH * 6,
-        4.0 * FD_B * FD_H * kv_main * FD_DH, BF16_TC_OPS_PER_S)
+        *flash_decode_cost(FD_B, FD_H, FD_KH, FD_DH, kv_main),
+        BF16_TC_OPS_PER_S)
     say(f"flash_decode: kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, SDPA (library, enable_gqa) "
         f"{row['library_ms']:.4f} ms (its max |SDPA - plain| {lib_err:.3e}), "
@@ -1917,6 +1944,7 @@ def check_flash_decode_family(torch, card: str) -> list:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
     from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode.ops import flash_decode_cost
     gen = torch.Generator(device="cuda").manual_seed(13)
     rows = []
     for what, b, h, kh, dh, s, kv_len in FD_FAMILY:
@@ -1944,8 +1972,7 @@ def check_flash_decode_family(torch, card: str) -> list:
                "ms": time_ms(torch, lambda: flash_decode(q, k, v, kv_len),
                              iters=iters, queued=True)}
         row["bound_ms"], row["bound_by"] = bound(
-            2.0 * b * kh * kv_len * dh * 2 + b * h * dh * 6,
-            4.0 * b * h * kv_len * dh, BF16_TC_OPS_PER_S)
+            *flash_decode_cost(b, h, kh, dh, kv_len), BF16_TC_OPS_PER_S)
         qs = q.view(b, h, 1, dh)
         ks, vs = k[:, :kv_len].transpose(1, 2), v[:, :kv_len].transpose(1, 2)
         try:        # a yardstick only: a backend may refuse the shape
@@ -1974,6 +2001,7 @@ def check_bag_sum(torch, card: str) -> dict:
     beside F.embedding_bag(mode="sum", per_sample_weights=mask)."""
     import torch.nn.functional as F
     from repro_torch.kernels.embedding_bag import bag_sum, bag_sum_ref, take_fill
+    from repro_torch.kernels.embedding_bag.ops import bag_sum_cost
     gen = torch.Generator(device="cuda").manual_seed(12)
     table = torch.empty((RM2_ROWS, RM2_DIM), device="cuda")
     table.uniform_(-1e-3, 1e-3, generator=gen)
@@ -2005,8 +2033,7 @@ def check_bag_sum(torch, card: str) -> dict:
     # Bytes: each distinct row gathered once, ids and mask in, rows out.
     rows = int(torch.unique(ids).numel())
     row["bound_ms"], row["bound_by"] = bound(
-        4.0 * RM2_DIM * (rows + BULK_BAGS) + 8.0 * BULK_BAGS,
-        2.0 * BULK_BAGS * RM2_DIM)
+        *bag_sum_cost(BULK_BAGS, 1, RM2_DIM, rows))
     say(f"bag_sum: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
         f"ms, F.embedding_bag (library) {row['library_ms']:.4f} ms, bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']}, {rows} distinct rows) "
@@ -2429,6 +2456,9 @@ def lm_decode_32k(torch, cell, gen, w_bytes: int, kv_bytes: int,
     profile_device(torch, lambda: tf.decode_step(params, caches, toks,
                                                  cur0, cfg),
                    2, f"{cell.shape} steps (batch {batch})", card)
+    if cell.arch == "glm4-9b" and batch == DECODE_BATCH:
+        del logits
+        real_step(torch, cell.run, "glm4-9b decode_32k")     # phase 18
     return launches
 
 
@@ -2635,6 +2665,7 @@ def bwd_call_times(torch, g, ids, mask, n_rows: int, buf,
     ``touched`` rows written."""
     from repro_torch.kernels.embedding_bag import (bag_sum_backward,
                                                    bag_sum_backward_ref)
+    from repro_torch.kernels.embedding_bag.ops import bag_sum_backward_cost
     n, d = ids.numel(), g.shape[1]
     out = {"ms": time_ms(torch, lambda: bag_sum_backward(
         g, ids, mask, n_rows, out=buf), iters=20, queued=True)}
@@ -2644,10 +2675,9 @@ def bwd_call_times(torch, g, ids, mask, n_rows: int, buf,
     src = g * mask.reshape(-1, 1)              # K = 1: one slot a bag
     out["library_ms"] = time_ms(torch, lambda: buf.index_add_(0, flat, src),
                                 iters=20)
-    # Bytes: grad_out's rows, ids and mask (4 B a slot each) in, each
-    # touched row written once; one multiply and one add an element a slot.
+    b = g.shape[0]
     out["bound_ms"], out["bound_by"] = bound(
-        4.0 * n * d + 8.0 * n + 4.0 * d * touched, 2.0 * n * d)
+        *bag_sum_backward_cost(b, n // b, d, touched))
     return out
 
 
@@ -2810,6 +2840,7 @@ def drive_dlrm_train(torch, card: str) -> "tuple[dict, dict, dict]":
     profile_device(torch, lambda: cell.fn(state, *nxt), 1,
                    "dlrm-rm2 train steps", card, top=15)
     del batches, nxt
+    real_step(torch, cell.run, "dlrm-rm2 train_batch")       # phase 18
     free(torch)
     with one_rank_mesh(torch) as mesh:
         sharded = sharded_train_check(torch, card, cell, mesh,
@@ -4489,6 +4520,127 @@ def rm2_sharded_save(torch, card: str, cell) -> None:
     free(torch)
 
 
+# ------------------------------------------------------------- phase 18
+_DRYRUN_CHILD = """
+import json, sys, torch
+torch.set_num_threads(1)
+from repro_torch.launch.dryrun import run_cell
+out = {key: run_cell(**kw) for key, kw in json.loads(sys.argv[1]).items()}
+with open(sys.argv[2], "w") as f:
+    json.dump(out, f)
+"""
+
+
+def start_dryrun(root: str) -> "subprocess.Popen":
+    """Phase 18's child: run_cell on DRYRUN_CUTS, into ``root``."""
+    err = open(os.path.join(root, "dryrun.err"), "w")
+    try:
+        return subprocess.Popen(
+            [sys.executable, "-c", _DRYRUN_CHILD, json.dumps(DRYRUN_CUTS),
+             os.path.join(root, "dryrun.json")],
+            stdout=err, stderr=subprocess.STDOUT, cwd=str(ROOT),
+            env={**os.environ, "PYTHONPATH": str(SRC)},
+            preexec_fn=lambda: os.nice(10))
+    finally:
+        err.close()
+
+
+def real_step(torch, step, what: str) -> None:
+    """Phase 18's reading of one real step ``step()`` of the cut ``what``
+    (REAL_STEPS): the kernels' launches, the time by CUDA events and the
+    peak of a first call, then one more call's product FLOPs under
+    ``FlopCounterMode``."""
+    from torch.utils.flop_counter import FlopCounterMode
+    free(torch)
+    before = paths_now()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = step()
+    stop.record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: n - before[k] for k, n in paths_now().items()
+                if n != before[k]}
+    del out
+    with FlopCounterMode(display=False) as fc:
+        step()
+    torch.cuda.synchronize()
+    REAL_STEPS[what] = {"launches": launches, "ms": start.elapsed_time(stop),
+                        "peak": peak, "held": held,
+                        "matmul_flops": fc.get_total_flops()}
+
+
+def dryrun_train_cut(torch) -> None:
+    """The glm4-9b train_4k cut of phase 18: built unsharded at 2 layers
+    and batch 1, stepped once to warm up, then read."""
+    from repro_torch.launch.steps import build_cell
+    kw = DRYRUN_CUTS["glm4-9b train_4k"]
+    cell = build_cell("glm4-9b", "train_4k", device="cuda",
+                      batch=kw["batch"], layers=kw["layers"])
+    cell.run()
+    torch.cuda.synchronize()
+    real_step(torch, cell.run, "glm4-9b train_4k")
+    del cell
+    free(torch)
+
+
+def check_dryrun(torch, card: str, child, root: str) -> None:
+    """Phase 18: the child's predictions held to REAL_STEPS."""
+    try:
+        child.wait(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.wait()
+        raise AssertionError(f"the dry run's child ran past "
+                             f"{DRYRUN_TIMEOUT} s") from None
+    if child.returncode:
+        with open(os.path.join(root, "dryrun.err")) as f:
+            raise AssertionError(f"the dry run's child exited "
+                                 f"{child.returncode}:\n{f.read()[-4000:]}")
+    with open(os.path.join(root, "dryrun.json")) as f:
+        reports = json.load(f)
+    bad = []
+    for what, rep in reports.items():
+        real = REAL_STEPS[what]
+        pd = rep["per_device"]
+        want = {k: v["launches"] for k, v in rep["kernels"].items()}
+        pred = pd["argument_bytes"] + pd["output_bytes"] + pd["temp_bytes"]
+        roof = max(rep["roofline"][k] for k in
+                   ("compute_s", "memory_s", "collective_s")) * 1e3
+        peak_err = real["peak"] / pred - 1
+        say(f"phase 18 {what}: launches predicted {want}, measured "
+            f"{real['launches']}; product FLOPs predicted "
+            f"{pd['matmul_flops']:.6e}, FlopCounterMode "
+            f"{real['matmul_flops']:.6e} (model FLOPs "
+            f"{rep['model_flops']:.6e}, products / model "
+            f"{pd['matmul_flops'] / rep['model_flops']:.3f}); peak predicted "
+            f"{pred / 1e9:.3f} GB "
+            f"(argument {pd['argument_bytes'] / 1e9:.3f}, output "
+            f"{pd['output_bytes'] / 1e9:.3f}, temp "
+            f"{pd['temp_bytes'] / 1e9:.3f}), measured "
+            f"{real['peak'] / 1e9:.3f} GB ({peak_err:+.2%}; held before the "
+            f"step {real['held'] / 1e9:.3f} GB); roofline "
+            f"{roof:.3f} ms ({rep['roofline']['dominant']}), measured step "
+            f"{real['ms']:.3f} ms, ratio {real['ms'] / roof:.3f}; traced in "
+            f"{rep['trace_s']} s on fake {rep['fake_device']} tensors; on "
+            f"{card}")
+        if want != real["launches"]:
+            bad.append(f"{what}: launches {want} != {real['launches']}")
+        if pd["matmul_flops"] != real["matmul_flops"]:
+            bad.append(f"{what}: product FLOPs {pd['matmul_flops']} != "
+                       f"{real['matmul_flops']}")
+        if abs(peak_err) > DRYRUN_PEAK_RTOL:
+            bad.append(f"{what}: peak {real['peak']} vs predicted {pred}")
+        if roof > real["ms"]:
+            bad.append(f"{what}: roofline {roof:.3f} ms above the measured "
+                       f"{real['ms']:.3f} ms")
+    if bad:
+        raise AssertionError(f"phase 18: {bad}")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -4519,6 +4671,21 @@ def main() -> int:
         f"({torch.cuda.get_device_properties(0).multi_processor_count} SMs x "
         f"{FP32_LANES_PER_SM} lanes x {mhz:.0f} MHz, clocks.max.sm)")
 
+    # phase 18's child traces its cuts on the host while nvcc builds
+    dry_root = tempfile.mkdtemp(prefix="dryrun_")
+    dry_child = start_dryrun(dry_root)
+    try:
+        return _phases(np, torch, card, dry_child, dry_root)
+    finally:
+        if dry_child.poll() is None:
+            dry_child.kill()
+            dry_child.wait()
+        shutil.rmtree(dry_root, ignore_errors=True)
+
+
+def _phases(np, torch, card: str, dry_child, dry_root: str) -> int:
+    """Phases 2 to 18 and the closing lines (main holds phase 18's
+    child)."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     _build.build()
@@ -4664,6 +4831,11 @@ def main() -> int:
     for path, counts in drive_sharded_lm(torch, card).items():
         for name, n in counts.items():
             paths[name][path] = n
+    t0 = time.perf_counter()
+    dryrun_train_cut(torch)
+    check_dryrun(torch, card, dry_child, dry_root)
+    say(f"phase 18 (the dry run against real steps) took "
+        f"{time.perf_counter() - t0:.1f} s after phase 15")
     if "jax" in sys.modules or any(m == "repro" or m.startswith("repro.")
                                    for m in sys.modules):
         raise AssertionError("the smoke imported jax or the JAX package")

@@ -22,6 +22,17 @@ from ..models.gnn.common import GraphBatch
 from .graphs import _on
 
 
+def block_shape(batch_nodes: int, fanout: Sequence[int]) -> Tuple[int, int]:
+    """(nodes, edges) of a sampled block's static shape."""
+    tot_n, tot_e = batch_nodes, 0
+    layer = batch_nodes
+    for f in fanout:
+        layer = layer * f
+        tot_e += layer
+        tot_n += layer
+    return tot_n, tot_e
+
+
 @dataclasses.dataclass
 class NeighborSampler:
     ptr: np.ndarray       # CSR in-neighbor pointers [N+1]
@@ -33,14 +44,7 @@ class NeighborSampler:
     device: Any = None    # where blocks go (default cuda)
 
     def block_shape(self, batch_nodes: int) -> Tuple[int, int]:
-        n = batch_nodes
-        tot_n, tot_e = n, 0
-        layer = n
-        for f in self.fanout:
-            layer = layer * f
-            tot_e += layer
-            tot_n += layer
-        return tot_n, tot_e
+        return block_shape(batch_nodes, self.fanout)
 
     def sample(self, batch_ids: np.ndarray, step: int = 0) -> GraphBatch:
         device = resolve_device(self.device)

@@ -14,10 +14,24 @@ from .._build import load
 from .ref import relax_sweep_ref_
 from .sweep import Sweep, ways_of
 
-__all__ = ["relax_sweep_", "plan_sweep_launch", "SweepLaunch"]
+__all__ = ["relax_sweep_", "plan_sweep_launch", "SweepLaunch",
+           "relax_sweep_cost"]
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] \
     + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def relax_sweep_cost(n_levels: int, rows: int, slots: int, read: int,
+                     written: int, s: int) -> "tuple[int, int]":
+    """(bytes, operations) of one sweep over S sources, all its state in
+    L2: its CSR once (the level pointers and ways, a row's destination
+    and pointer, a slot's source and weight, 4 bytes each), the S labels
+    of each of the ``read`` distinct nodes it reads (a source, or a
+    destination's old labels) read once, and those of the ``written``
+    distinct nodes it writes written once; an add and a min a slot and
+    source."""
+    csr = 4 * (2 * n_levels + 1) + 8 * rows + 4 + 8 * slots
+    return csr + 4 * s * (read + written), 2 * s * slots
 
 
 class SweepLaunch(NamedTuple):

@@ -10,11 +10,14 @@ import functools
 from typing import NamedTuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
+from .. import note_fake_launch
 from .._build import load
 from .ref import backward_plan, bag_sum_backward_ref, bag_sum_ref, take_fill
 
-__all__ = ["bag_sum", "bag_sum_backward", "backward_index", "plan_backward"]
+__all__ = ["bag_sum", "bag_sum_backward", "backward_index", "plan_backward",
+           "bag_sum_cost", "bag_sum_backward_cost"]
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] \
     + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -33,6 +36,25 @@ SORT_RADIX = 1 << SORT_DIGIT_BITS
 #: longer than this is summed in parts, combined in chunk order.  Sized
 #: for the pass's eight rows in flight a lane, not for latency.
 BWD_CHUNK = 128
+
+
+def bag_sum_cost(b: int, k: int, d: int, rows: int,
+                 row_bytes: int = 4) -> "tuple[int, int]":
+    """(bytes, operations) of one :func:`bag_sum` call on B bags of K
+    slots: each of the ``rows`` distinct rows the ids name gathered once
+    and the [B, D] output written (``row_bytes`` an element, the table's
+    dtype), ids and mask in (4 bytes a slot each); a multiply and an add
+    an element a slot."""
+    return (row_bytes * d * (rows + b) + 8 * b * k, 2 * b * k * d)
+
+
+def bag_sum_backward_cost(b: int, k: int, d: int,
+                          touched: int) -> "tuple[int, int]":
+    """(bytes, operations) of one :func:`bag_sum_backward` call: the f32
+    ``grad_out`` [B, D], ids and mask (4 bytes a slot each) read once,
+    each of the ``touched`` rows the ids name written once; a multiply
+    and an add an element a slot."""
+    return (4 * b * d + 8 * b * k + 4 * d * touched, 2 * b * k * d)
 
 
 class BackwardPlan(NamedTuple):
@@ -188,9 +210,15 @@ def _bag_sum_forward(table, ids, mask):
     if _on_cpu(table, ids, mask):
         return bag_sum_ref(take_fill(table, ids), mask)
     mask = mask.to(table.dtype)          # the JAX kernel's cast
-    _check(table, ids, mask)
     v, d = table.shape
     b, k = ids.shape
+    if isinstance(table, FakeTensor):
+        # the fake form: the ids are unknown, so every slot's row is
+        # counted as a distinct one
+        note_fake_launch("embedding_bag", *bag_sum_cost(
+            b, k, d, min(b * k, v), table.element_size()), table.dtype)
+        return torch.empty((b, d), dtype=table.dtype, device=table.device)
+    _check(table, ids, mask)
     out = torch.empty((b, d), dtype=table.dtype, device=table.device)
     if b == 0 or d == 0:
         return out
@@ -239,7 +267,9 @@ def bag_sum_backward(grad_out: torch.Tensor, ids: torch.Tensor,
         ref = bag_sum_backward_ref(grad_out, ids, mask, n_rows)
         return ref if out is None else out.copy_(ref)
     mask = mask.to(torch.float32).contiguous()
-    _check(grad_out, ids, mask)
+    fake = isinstance(grad_out, FakeTensor)
+    if not fake:
+        _check(grad_out, ids, mask)
     b, k = ids.shape
     d = grad_out.shape[1]
     n = b * k
@@ -254,8 +284,14 @@ def bag_sum_backward(grad_out: torch.Tensor, ids: torch.Tensor,
                          f"{grad_out.device}")
     if n == 0 or d == 0 or n_rows == 0:
         return out
-    lib, stream = _bwd_lib(), _stream(grad_out.device)
     scratch = _scratch(plan, n, d, grad_out.device)
+    if fake:
+        # the fake form: the zero fill and the scratch as on the card;
+        # every slot's row counted as a distinct one
+        note_fake_launch("bag_sum_backward", *bag_sum_backward_cost(
+            b, k, d, min(n, n_rows)), torch.float32)
+        return out
+    lib, stream = _bwd_lib(), _stream(grad_out.device)
     rows, slots = _launch_sort(lib, ids, n_rows, plan, scratch, stream)
     _launch_reduce(lib, rows, slots, mask, grad_out, out, k, plan,
                    scratch["parts"], 3, stream)

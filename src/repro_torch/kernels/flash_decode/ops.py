@@ -8,11 +8,13 @@ import ctypes
 import functools
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
+from .. import note_fake_launch
 from .._build import load
 from .ref import flash_decode_ref, q_scale
 
-__all__ = ["flash_decode", "plan_splits"]
+__all__ = ["flash_decode", "plan_splits", "flash_decode_cost"]
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float] \
     + [ctypes.c_int] * 8 + [ctypes.c_void_p]
@@ -46,6 +48,18 @@ def plan_splits(b: int, kh: int, n_valid: int, sms: int,
     n_split = max(1, min(tiles, sms * blocks_per_sm // (b * kh)))
     split_tiles = -(-tiles // n_split)
     return -(-tiles // split_tiles), split_tiles * TILE
+
+
+def flash_decode_cost(b: int, h: int, kh: int, dh: int, kv_len: int,
+                      cache_bytes: int = 2, q_bytes: int = 2
+                      ) -> "tuple[int, int]":
+    """(bytes, operations) of one call: the K and V rows below
+    ``kv_len`` (``cache_bytes`` an element) read once, q in (``q_bytes``)
+    and the f32 output written; a multiply and an add per (head,
+    position, column) for QK and for PV.  The products run on the
+    tensor cores over bf16 caches."""
+    return (2 * b * kh * kv_len * dh * cache_bytes + b * h * dh * (q_bytes + 4),
+            4 * b * h * kv_len * dh)
 
 
 @functools.lru_cache(maxsize=None)
@@ -130,7 +144,21 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu" and k_cache.device.type == "cpu" \
             and v_cache.device.type == "cpu":
         return flash_decode_ref(q, k_cache, v_cache, kv_len)
+    if isinstance(q, FakeTensor):
+        return _fake(q, k_cache, kv_len)
     return _launch(q, k_cache, v_cache, kv_len)
+
+
+def _fake(q: torch.Tensor, k_cache: torch.Tensor,
+          kv_len: int) -> torch.Tensor:
+    """The kernel's fake form: its output, and the call reported with
+    :func:`flash_decode_cost` (products in the caches' dtype)."""
+    b, h, dh = q.shape
+    _, s, kh, _ = k_cache.shape
+    note_fake_launch("flash_decode", *flash_decode_cost(
+        b, h, kh, dh, min(kv_len, s), k_cache.element_size(),
+        q.element_size()), k_cache.dtype)
+    return torch.empty((b, h, dh), dtype=torch.float32, device=q.device)
 
 
 def _launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

@@ -13,13 +13,20 @@ import torch
 from .._build import load
 from .ref import minplus_ref
 
-__all__ = ["minplus", "plan_split_k", "copy_widths", "SplitK"]
+__all__ = ["minplus", "plan_split_k", "copy_widths", "SplitK",
+           "minplus_cost"]
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
     + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 #: The kernel's block tile: BM rows x BN columns of out, K in tiles of BK.
 BM, BN, BK = 32, 128, 32
+
+
+def minplus_cost(m: int, k: int, n: int) -> "tuple[int, int]":
+    """(bytes, operations) of ``[m, k] x [k, n]``: a, b read once and
+    the f32 output written once; an add and a min a (row, column, k)."""
+    return 4 * (m * k + k * n + m * n), 2 * m * k * n
 
 
 class SplitK(NamedTuple):

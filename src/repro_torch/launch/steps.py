@@ -32,6 +32,16 @@ whole model's norm.  A GNN cell's graph is laid out for its node blocks
 first (:func:`gnn_mesh_layout`: padded, and bucketed by owner for the
 ``opt`` layouts); a layout the mesh cannot hold raises, naming the arch
 and the mesh.
+
+``abstract=True`` is the JAX builder's ``eval_shape`` path: every leaf of
+the cell's arguments is a fake tensor (``FakeTensorMode``) on
+:func:`~repro_torch.device.fake_device` with the shape and dtype of the
+concrete cell's leaf, this rank's block under axis rules.  Nothing is
+drawn on the host or the card: the weights' shapes come from their
+initializers run on fake CPU tensors, and the inputs (tokens, DLRM
+rows, a GNN cell's graph and its layout over the mesh) are empty
+tensors of the concrete inputs' shapes.  The cell's step runs under
+``cell.meta["fake_mode"]``; the dry run (:mod:`.dryrun`) counts it.
 """
 from __future__ import annotations
 
@@ -41,6 +51,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch._guards import detect_fake_mode
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from .. import shardlib as sl
 from ..configs import get_arch
@@ -49,7 +61,8 @@ from ..data import (NeighborSampler, RecsysStream, TokenStream,
                     bucket_edges_by_dst, csr_from_edges, make_graph_batch,
                     synth_molecule_batch)
 from ..data.graphs import stub_edge_feat
-from ..device import resolve_device
+from ..data.sampler import block_shape
+from ..device import fake_device, resolve_device
 from ..models import dlrm as dlrm_mod
 from ..models import gnn
 from ..models import transformer as tf
@@ -150,6 +163,31 @@ def _on(arrays, device) -> Tuple[torch.Tensor, ...]:
                  for a in arrays)
 
 
+def _empty(device, *specs) -> Tuple[torch.Tensor, ...]:
+    """An abstract cell's inputs: one empty tensor a ``(shape, dtype)``."""
+    return tuple(torch.empty(shape, dtype=dtype, device=device)
+                 for shape, dtype in specs)
+
+
+def _abstract(tree, device):
+    """``tree`` with every tensor leaf an empty one of its shape and
+    dtype on ``device`` (fake under the active ``FakeTensorMode``)."""
+    return map_tree(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device=device), tree)
+
+
+def _init(init, cfg, device, abstract: bool, **kw):
+    """``init(cfg, generator, device, **kw)``: the weights drawn from
+    SEED by a generator on ``device``; abstract, their shapes and dtypes
+    on ``device``, from the initializer run on fake CPU tensors (no
+    generator on the card, nothing drawn)."""
+    if not abstract:
+        return init(cfg, torch.Generator(device=device).manual_seed(SEED),
+                    device, **kw)
+    return _abstract(init(cfg, torch.Generator().manual_seed(SEED), "cpu",
+                          **kw), device)
+
+
 def _partial_axes() -> Tuple[str, ...]:
     """The mesh axes an LM gradient block is partial on unless its leaf
     is split over them: the batch's (each data shard sees its own
@@ -230,20 +268,26 @@ def lm_train_layers(cfg: tf.TransformerConfig, device_bytes: int,
     return max(period, n - n % period)
 
 
-def _build_lm_train_cell(arch_id, shape_name, cfg, smoke, device, meta):
+def _build_lm_train_cell(arch_id, shape_name, cfg, smoke, device, meta,
+                         abstract=False):
     b, s = meta["batch"], meta["seq_len"]
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    params = tf.init_params(cfg, gen, device)          # f32, as JAX trains
-    stream = TokenStream(vocab=cfg.vocab, batch=b, seq_len=s, seed=SEED)
-    if smoke:   # the JAX smoke cell's tokens
-        toks = np.random.default_rng(SEED).integers(
-            0, cfg.vocab, (b, s + 1)).astype(np.int32)
-        batch_args = _on((toks[:, :-1], toks[:, 1:]), device)
+    params = _init(tf.init_params, cfg, device, abstract)  # f32, as JAX trains
+    if abstract:
+        batch_args = _empty(device, ((b, s), torch.int32),
+                            ((b, s), torch.int32))
+        batch_at = lambda step: batch_args  # noqa: E731
     else:
-        batch_args = _on(stream.batch_at(0), device)
+        stream = TokenStream(vocab=cfg.vocab, batch=b, seq_len=s, seed=SEED)
+        if smoke:   # the JAX smoke cell's tokens
+            toks = np.random.default_rng(SEED).integers(
+                0, cfg.vocab, (b, s + 1)).astype(np.int32)
+            batch_args = _on((toks[:, :-1], toks[:, 1:]), device)
+        else:
+            batch_args = _on(stream.batch_at(0), device)
+        batch_at = lambda step: _on(stream.batch_at(step),  # noqa: E731
+                                    device)
     meta["data"] = "TokenStream"
     in_sh = None
-    batch_at = lambda step: _on(stream.batch_at(step), device)  # noqa: E731
     if sl.current_rules() is not None:
         psh = _resolve(tf.param_shardings(cfg))
         tok = sl.sharding_for("batch", None)
@@ -277,7 +321,7 @@ def lm_cell_config(arch_id: str, smoke: bool = False,
 
 
 def _build_lm_cell(arch_id, shape_name, smoke, device, batch, layers=None,
-                   variant="base"):
+                   variant="base", abstract=False):
     cfg = lm_cell_config(arch_id, smoke, variant)
     sp = dict(SHAPE_PARAMS["lm"][shape_name])
     kind = sp["kind"]
@@ -301,21 +345,26 @@ def _build_lm_cell(arch_id, shape_name, smoke, device, batch, layers=None,
         meta["reduced"] = reduced
     if kind == "train":
         return _build_lm_train_cell(arch_id, shape_name, cfg, smoke, device,
-                                    meta)
-    gen = torch.Generator(device=device).manual_seed(SEED)
+                                    meta, abstract)
     # serving: bf16 parameters, as the JAX serving cells cast them
-    params = tf.init_params(cfg, gen, device, dtype=torch.bfloat16)
+    params = _init(tf.init_params, cfg, device, abstract,
+                   dtype=torch.bfloat16)
     flops = _lm_flops(cfg, kind, b, s)
     ruled = sl.current_rules() is not None
     if kind == "prefill":
-        args = (params, torch.from_numpy(np.random.default_rng(SEED).integers(
-            0, cfg.vocab, (b, s)).astype(np.int32)).to(device))
+        args = (params, (_empty(device, ((b, s), torch.int32))[0]
+                         if abstract else
+                         torch.from_numpy(np.random.default_rng(SEED).integers(
+                             0, cfg.vocab, (b, s)).astype(np.int32)).to(device)))
         in_sh = ((_resolve(tf.param_shardings(cfg)),
                   sl.sharding_for("batch", None)) if ruled else None)
         fn = functools.partial(tf.prefill, cfg=cfg)
     else:
-        args = (params,
-                tf.make_cache(cfg, b, s, dtype=torch.bfloat16, device=device),
+        cache = (_abstract(tf.make_cache(cfg, b, s, dtype=torch.bfloat16,
+                                         device="cpu"), device)
+                 if abstract else
+                 tf.make_cache(cfg, b, s, dtype=torch.bfloat16, device=device))
+        args = (params, cache,
                 torch.zeros(b, dtype=torch.int32, device=device), s - 1)
         in_sh = ((_resolve(tf.param_shardings(cfg)),
                   _resolve(tf.cache_shardings(cfg)), sl.sharding_for("batch"),
@@ -394,6 +443,59 @@ def _gnn_concrete_batch(arch_id, sp, smoke_scale=True,
                             with_geometry=True, device=device)
 
 
+def _gnn_abstract_batch(arch_id, sp, smoke: bool, device) -> GraphBatch:
+    """The shapes and dtypes of :func:`_gnn_concrete_batch`'s graph (of a
+    ``NeighborSampler`` block for the full ``minibatch_lg`` cell), as
+    empty tensors on ``device``: nothing drawn."""
+    geo = arch_id in ("schnet", "equiformer-v2")
+    i32, f32 = torch.int32, torch.float32
+    node_level = _node_level(arch_id, sp)
+    if "batch" in sp:                           # packed molecules
+        n_graphs = 4 if smoke else sp["batch"]
+        n, e = n_graphs * sp["n_nodes"], n_graphs * sp["n_edges"]
+        feat = ((n,), i32) if geo else ((n, 16), f32)   # one-hot for gcn/gin
+    else:
+        n_graphs = 1
+        if smoke:
+            n, e, d = 64, 256, min(sp.get("d_feat", 16), 32)
+        elif "batch_nodes" in sp:
+            (n, e), d = block_shape(sp["batch_nodes"], sp["fanout"]), \
+                sp["d_feat"]
+        else:
+            n, e, d = sp["n_nodes"], sp["n_edges"], sp.get("d_feat", 16)
+        feat = ((n, d), f32)
+    src, dst, node_feat, edge_feat = _empty(
+        device, ((e,), i32), ((e,), i32), feat, ((e, 3), f32))
+    graph_ids = labels = train_mask = None
+    if node_level:
+        labels, train_mask = _empty(device, ((n,), i32), ((n,), torch.bool))
+    else:
+        graph_ids, labels = _empty(device, ((n,), i32), ((n_graphs,), i32))
+    return GraphBatch(n_nodes=n, n_graphs=n_graphs, src=src, dst=dst,
+                      node_feat=node_feat, edge_feat=edge_feat,
+                      graph_ids=graph_ids, labels=labels,
+                      train_mask=train_mask)
+
+
+def _resized(g: GraphBatch, n: int, e: int) -> GraphBatch:
+    """Empty tensors of ``g``'s dtypes for ``n`` nodes and ``e`` edges
+    (an abstract graph laid out): a node-level graph gets a mask."""
+    node_level = g.graph_ids is None
+
+    def rows(t, k):
+        return None if t is None else torch.empty(
+            (k,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+    mask = g.train_mask
+    if mask is None and node_level:
+        mask = g.src.new_empty((n,), dtype=torch.bool)
+    return dataclasses.replace(
+        g, n_nodes=n, src=rows(g.src, e), dst=rows(g.dst, e),
+        node_feat=rows(g.node_feat, n), edge_feat=rows(g.edge_feat, e),
+        graph_ids=rows(g.graph_ids, n),
+        labels=rows(g.labels, n) if node_level else g.labels,
+        train_mask=rows(mask, n))
+
+
 def _minibatch_sampler(sp, device) -> NeighborSampler:
     """The host graph of ``minibatch_lg`` (Reddit's node and edge counts,
     uniform random edges, normal features, uniform labels; seeded) in
@@ -412,14 +514,18 @@ def _minibatch_sampler(sp, device) -> NeighborSampler:
                            seed=SEED + 1, device=device)
 
 
-def _dst_ranged(g: GraphBatch, edge_chunk: int) -> GraphBatch:
+def _dst_ranged(g: GraphBatch, edge_chunk: int,
+                abstract: bool = False) -> GraphBatch:
     """``g``'s edges bucketed by destination into the chunks that
     EquiformerV2's ``dst_ranged`` layout reads: as many buckets as chunks
     of ``edge_chunk`` edges after the 1.15x padding of
-    ``bucket_edges_by_dst``."""
+    ``bucket_edges_by_dst`` (abstract: its shapes, each bucket at that
+    padding's cap)."""
     e = g.src.shape[0]
     n_buckets = -(-int(np.ceil(e * 1.15)) // edge_chunk)
-    out = bucket_edges_by_dst(g, n_buckets)
+    out = (_resized(g, g.n_nodes, n_buckets * int(np.ceil(
+        e / n_buckets * 1.15))) if abstract
+        else bucket_edges_by_dst(g, n_buckets))
     if n_edge_chunks(out.src.shape[0], edge_chunk) != n_buckets:
         raise ValueError(f"{out.src.shape[0]} bucketed edges do not fall in "
                          f"{n_buckets} chunks of {edge_chunk}")
@@ -487,7 +593,7 @@ def _gnn_train_step(model, cfg):
 
 
 def _build_gnn_cell(arch_id, shape_name, mod, smoke, device,
-                    variant="base"):
+                    variant="base", abstract=False):
     """A GNN train cell.  ``smoke``: the JAX smoke cell (reduced config,
     the smoke batch; ``variant="opt"`` gives its edges the opt layout,
     where the JAX smoke cell ignores the variant: both layouts compute
@@ -500,7 +606,8 @@ def _build_gnn_cell(arch_id, shape_name, mod, smoke, device,
     cell's owner-bucketed layouts (GCN, GIN and SchNet "partitioned", on
     one device any edge order; EquiformerV2 "dst_ranged", its edges
     bucketed when they span more than one chunk).  Under axis rules the
-    cell is :func:`shard_train_cell` of this one."""
+    cell is :func:`shard_train_cell` of this one.  ``abstract``: the
+    graph's shapes (:func:`_gnn_abstract_batch`), nothing sampled."""
     base = mod.smoke_config() if smoke else mod.CONFIG
     sp = dict(SHAPE_PARAMS["gnn"][shape_name])
     model = GNN_MODULES[arch_id]
@@ -510,7 +617,8 @@ def _build_gnn_cell(arch_id, shape_name, mod, smoke, device,
                                {**sp, "d_feat": min(sp.get("d_feat", 16), 32),
                                 "n_classes": sp["n_classes"]}, smoke=True,
                                variant=variant)
-        batch = _gnn_concrete_batch(arch_id, sp, device=device)
+        batch = (_gnn_abstract_batch(arch_id, sp, True, device) if abstract
+                 else _gnn_concrete_batch(arch_id, sp, device=device))
         cfg = dataclasses.replace(
             cfg, d_in=(batch.node_feat.shape[1]
                        if batch.node_feat.dim() == 2 else 0))
@@ -519,7 +627,16 @@ def _build_gnn_cell(arch_id, shape_name, mod, smoke, device,
     else:
         cfg = _gnn_cell_config(arch_id, base, sp, smoke=False,
                                variant=variant)
-        if "batch_nodes" in sp:
+        if abstract:
+            batch = _gnn_abstract_batch(arch_id, sp, False, device)
+            if (cfg.edge_layout == "dst_ranged"
+                    and n_edge_chunks(batch.src.shape[0], cfg.edge_chunk) > 1):
+                batch = _dst_ranged(batch, cfg.edge_chunk, abstract=True)
+            batch_at = lambda step: (batch,)  # noqa: E731
+            meta["data"] = ("NeighborSampler" if "batch_nodes" in sp else
+                            "synth_molecule_batch" if "batch" in sp
+                            else "make_graph_batch")
+        elif "batch_nodes" in sp:
             sampler = _minibatch_sampler(sp, device)
 
             def batch_at(step):
@@ -541,11 +658,11 @@ def _build_gnn_cell(arch_id, shape_name, mod, smoke, device,
                             else "make_graph_batch")
         if batch.node_feat.dim() == 1:
             cfg = dataclasses.replace(cfg, d_in=0)
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    params = model.init_params(cfg, gen, device)
+    params = _init(model.init_params, cfg, device, abstract)
     state = {"params": params, "opt": adamw_init(params)}
     meta.update(cfg=cfg, n_nodes=batch.n_nodes,
                 n_edges=int(batch.src.shape[0]))
+    meta["abstract"] = abstract
     cell = Cell(arch_id, shape_name, "train", "gnn",
                 _gnn_train_step(model, cfg), (state, batch),
                 _gnn_flops(arch_id, cfg, batch.n_nodes, batch.src.shape[0]),
@@ -561,7 +678,8 @@ def _mesh_text(mesh) -> str:
         + f" over {names}"
 
 
-def gnn_mesh_layout(arch_id: str, cfg, g: GraphBatch) -> GraphBatch:
+def gnn_mesh_layout(arch_id: str, cfg, g: GraphBatch,
+                    abstract: bool = False) -> GraphBatch:
     """The whole graph ``g`` laid out for the node blocks of the current
     rules' mesh (the JAX cell pads its shapes to the mesh the same way):
     ``g`` itself where the nodes split over one rank.  Else, S ranks
@@ -581,7 +699,11 @@ def gnn_mesh_layout(arch_id: str, cfg, g: GraphBatch) -> GraphBatch:
       chunk count to be a multiple of S.  Where it is not, this raises,
       naming the arch and the mesh.
 
-    :func:`shard_train_cell` cuts the rank's blocks from the result."""
+    :func:`shard_train_cell` cuts the rank's blocks from the result.
+    ``abstract``: ``g``'s shapes laid out (empty tensors); a
+    "partitioned" layout's buckets, whose fullest one the graph decides,
+    are taken at the 1.15x padding that the JAX builder's abstract cell
+    gives them."""
     mesh = sl.current_mesh()
     ranks = sl.axis_size(node_axes())
     if mesh is None or ranks == 1:
@@ -595,7 +717,13 @@ def gnn_mesh_layout(arch_id: str, cfg, g: GraphBatch) -> GraphBatch:
             f"whole in the node blocks of the {_mesh_text(mesh)} ({ranks} "
             "ranks over the nodes): a chunk count that the node ranks "
             "divide is needed")
-    g = _pad_nodes(g, _pad_to(g.n_nodes, n_chunks if ranged else ranks))
+    n_pad = _pad_to(g.n_nodes, n_chunks if ranged else ranks)
+    if abstract:
+        return _resized(g, n_pad, (
+            n_chunks * -(-e // n_chunks) if ranged else
+            ranks * int(np.ceil(e / ranks * 1.15))
+            if cfg.edge_layout == "partitioned" else _pad_to(e, ranks)))
+    g = _pad_nodes(g, n_pad)
     if ranged:
         return _owner_buckets(g, n_chunks, -(-e // n_chunks), arch_id,
                               mesh)
@@ -707,7 +835,8 @@ def shard_train_cell(cell: Cell) -> Cell:
     state, graph = cell.args
 
     def layout(g):
-        whole = gnn_mesh_layout(cell.arch, cfg, g)
+        whole = gnn_mesh_layout(cell.arch, cfg, g,
+                                cell.meta.get("abstract", False))
         sh = _gnn_batch_shardings(whole)
         return local_blocks(whole, sh), sh
     mine, batch_sh = layout(graph)
@@ -820,7 +949,8 @@ def _recsys_train_shardings(cfg: dlrm_mod.DLRMConfig):
             rows, rows, sl.sharding_for("batch"))
 
 
-def _build_recsys_cell(arch_id, shape_name, mod, smoke, device, batch):
+def _build_recsys_cell(arch_id, shape_name, mod, smoke, device, batch,
+                       abstract=False):
     cfg = mod.smoke_config() if smoke else mod.CONFIG
     sp = dict(SHAPE_PARAMS["recsys"][shape_name])
     kind = sp["kind"]
@@ -830,25 +960,35 @@ def _build_recsys_cell(arch_id, shape_name, mod, smoke, device, batch):
     meta = {"cfg": cfg, "batch": b}
     if b != full_b:
         meta["reduced"] = {"batch": [full_b, b]}
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    params = dlrm_mod.init_params(cfg, gen, device)
+    params = _init(dlrm_mod.init_params, cfg, device, abstract)
     psh = (_resolve(dlrm_mod.param_shardings(cfg))
            if sl.current_rules() is not None else None)
     rng = np.random.default_rng(SEED)
-    dense = torch.from_numpy(
-        rng.normal(size=(b, cfg.n_dense)).astype(np.float32)).to(device)
-    sparse = torch.from_numpy(rng.integers(
-        0, cfg.vocab_per_table, (b, cfg.n_sparse)).astype(np.int32)).to(device)
+    if abstract:
+        dense, sparse = _empty(device, ((b, cfg.n_dense), torch.float32),
+                               ((b, cfg.n_sparse), torch.int32))
+    else:
+        dense = torch.from_numpy(
+            rng.normal(size=(b, cfg.n_dense)).astype(np.float32)).to(device)
+        sparse = torch.from_numpy(rng.integers(
+            0, cfg.vocab_per_table, (b, cfg.n_sparse)).astype(
+                np.int32)).to(device)
     if kind == "train":
-        stream = RecsysStream(batch=b, n_dense=cfg.n_dense,
-                              n_sparse=cfg.n_sparse,
-                              vocab=cfg.vocab_per_table, seed=SEED)
-        if smoke:   # the JAX smoke cell's inputs
-            labels = torch.from_numpy(
-                rng.integers(0, 2, b).astype(np.int32)).to(device)
-            batch_args = (dense, sparse, labels)
-        else:       # Zipf ids, as training traffic has
-            batch_args = _on(stream.batch_at(0), device)
+        if abstract:
+            batch_args = (dense, sparse) + _empty(device, ((b,), torch.int32))
+            batch_at = lambda step: batch_args  # noqa: E731
+        else:
+            stream = RecsysStream(batch=b, n_dense=cfg.n_dense,
+                                  n_sparse=cfg.n_sparse,
+                                  vocab=cfg.vocab_per_table, seed=SEED)
+            if smoke:   # the JAX smoke cell's inputs
+                labels = torch.from_numpy(
+                    rng.integers(0, 2, b).astype(np.int32)).to(device)
+                batch_args = (dense, sparse, labels)
+            else:       # Zipf ids, as training traffic has
+                batch_args = _on(stream.batch_at(0), device)
+            batch_at = lambda step: _on(stream.batch_at(step),  # noqa: E731
+                                        device)
         meta["data"] = "RecsysStream"
         # under rules each rank makes the whole state and keeps its
         # blocks (per-rank construction: ROADMAP.md queue 1)
@@ -856,7 +996,7 @@ def _build_recsys_cell(arch_id, shape_name, mod, smoke, device, batch):
                     _dlrm_train_step(cfg),
                     ({"params": params, "opt": adamw_init(params)},)
                     + batch_args, _dlrm_flops(cfg, kind, b), meta,
-                    batch_at=lambda step: _on(stream.batch_at(step), device))
+                    batch_at=batch_at)
         return cell if psh is None else shard_train_cell(cell)
     if kind == "serve":
         args = (params, dense, sparse)
@@ -870,8 +1010,9 @@ def _build_recsys_cell(arch_id, shape_name, mod, smoke, device, batch):
                     _dlrm_flops(cfg, kind, b), meta, in_shardings=in_sh)
     # the candidates split evenly over the data axes
     n_cand = _pad_to(n_cand, sl.axis_size(sl._live_axes("cand")))
-    cand = torch.from_numpy(rng.integers(
-        0, cfg.vocab_per_table, n_cand).astype(np.int32)).to(device)
+    cand = (_empty(device, ((n_cand,), torch.int32))[0] if abstract else
+            torch.from_numpy(rng.integers(
+                0, cfg.vocab_per_table, n_cand).astype(np.int32)).to(device))
     meta["n_candidates"] = n_cand
     args = (params, dense[:1], sparse[:1], cand)
     in_sh = None
@@ -891,15 +1032,34 @@ def _build_recsys_cell(arch_id, shape_name, mod, smoke, device, batch):
 
 def build_cell(arch_id: str, shape_name: str, smoke: bool = False,
                device=None, batch: Optional[int] = None,
-               layers: Optional[int] = None, variant: str = "base") -> Cell:
+               layers: Optional[int] = None, variant: str = "base",
+               abstract: bool = False) -> Cell:
     """The cell ``(arch_id, shape_name)`` with concrete tensors on
     ``device`` (default ``cuda``; raises without a card unless given
     ``"cpu"``).  ``batch`` overrides the assigned batch of an LM or DLRM
     cell and ``layers`` an LM's depth (cuts, recorded in
     ``meta["reduced"]``); ``variant="opt"`` picks an LM's optimized
     training (:func:`lm_cell_config`) or a GNN cell's bucketed edge
-    layouts.  Weights and inputs come from seed 0."""
-    device = resolve_device(device)
+    layouts.  Weights and inputs come from seed 0.
+
+    ``abstract=True``: the same cell on fake tensors (the module's
+    docstring), built and to be run under ``meta["fake_mode"]`` (the
+    active ``FakeTensorMode``, else a new one); ``device`` is ignored,
+    and no card is needed."""
+    if abstract:
+        mode = detect_fake_mode() or FakeTensorMode(
+            allow_non_fake_inputs=True)
+        with mode:
+            cell = _build(arch_id, shape_name, smoke, fake_device(), batch,
+                          layers, variant, True)
+        cell.meta.update(fake_mode=mode, abstract=True)
+        return cell
+    return _build(arch_id, shape_name, smoke, resolve_device(device), batch,
+                  layers, variant, False)
+
+
+def _build(arch_id, shape_name, smoke, device, batch, layers, variant,
+           abstract) -> Cell:
     mod = get_arch(arch_id)
     skip = getattr(mod, "SKIP_SHAPES", {})
     if shape_name in skip:
@@ -912,7 +1072,7 @@ def build_cell(arch_id: str, shape_name: str, smoke: bool = False,
                                   "have an 'opt' variant")
     if mod.FAMILY == "lm":
         return _build_lm_cell(arch_id, shape_name, smoke, device, batch,
-                              layers, variant)
+                              layers, variant, abstract)
     if layers is not None:
         raise ValueError(f"{arch_id}: layers= cuts an LM's depth only")
     if mod.FAMILY == "gnn":
@@ -920,5 +1080,6 @@ def build_cell(arch_id: str, shape_name: str, smoke: bool = False,
             raise ValueError(f"{arch_id}: batch= cuts an LM or DLRM batch "
                              "only")
         return _build_gnn_cell(arch_id, shape_name, mod, smoke, device,
-                               variant)
-    return _build_recsys_cell(arch_id, shape_name, mod, smoke, device, batch)
+                               variant, abstract)
+    return _build_recsys_cell(arch_id, shape_name, mod, smoke, device, batch,
+                              abstract)

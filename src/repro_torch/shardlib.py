@@ -244,6 +244,7 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
                                  mesh=grid, mesh_dim_names=names)
     # the groups of several dims, for the collectives over a tuple rule
     mesh._repro_groups = {k: g for k, g in mine.items() if len(k) > 1}
+    mesh._repro_ranks = ranks       # row-major, read on the host
     return mesh
 
 
@@ -474,9 +475,16 @@ def _row_major(coord, axes: Tuple[str, ...], mesh) -> int:
 
 
 def _axis_index_of(rank: int, axes: Tuple[str, ...], mesh=None) -> int:
-    """Row-major index of global ``rank`` over mesh dims ``axes``."""
+    """Row-major index of global ``rank`` over mesh dims ``axes`` (the
+    rank's coordinate found on the host: no tensor op, so it holds under
+    a ``FakeTensorMode`` too)."""
     mesh = mesh or _mesh_or_raise()
-    return _row_major((mesh.mesh == rank).nonzero()[0].tolist(), axes, mesh)
+    flat = getattr(mesh, "_repro_ranks", None) or mesh.mesh.flatten().tolist()
+    coord, i = [], flat.index(rank)
+    for n in reversed(mesh.mesh.shape):
+        i, c = divmod(i, n)
+        coord.append(c)
+    return _row_major(coord[::-1], axes, mesh)
 
 
 def axis_index(axes: Sequence[str], mesh=None) -> int:
@@ -556,14 +564,19 @@ def block_slices(shape: Sequence[int], spec, mesh=None
 
 def local_block(x: torch.Tensor, spec, mesh=None) -> torch.Tensor:
     """This rank's block of the global tensor ``x`` under ``spec``
-    (:func:`block_slices`); contiguous, and ``x`` itself where nothing
-    is cut."""
+    (:func:`block_slices`): a contiguous tensor of its own where ``x`` is
+    cut (never a view that would keep the whole alive), and ``x`` itself
+    (made contiguous) where nothing is cut."""
     mesh = mesh or current_mesh()
     if mesh is None:
         return x
+    cut = False
     for d, s in enumerate(block_slices(x.shape, spec, mesh)):
         if s.stop - s.start != x.shape[d]:
             x = x.narrow(d, s.start, s.stop - s.start)
+            cut = True
+    if cut:
+        return x.clone(memory_format=torch.contiguous_format)
     return x.contiguous()
 
 

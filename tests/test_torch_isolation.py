@@ -61,6 +61,7 @@ def test_import_loads_neither_jax_nor_repro():
             "import repro_torch.optim, repro_torch.data, repro_torch.tree\n"
             "import repro_torch.checkpoint, repro_torch.ft\n"
             "import repro_torch.launch.train\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.op_analysis\n"
             "from repro_torch.kernels.embedding_bag import BagSum\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
