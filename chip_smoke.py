@@ -101,8 +101,12 @@ never JAX or the JAX package.  Phases, each of which asserts:
    served on the card and equal to host Dijkstra;
 6. LM serving at full width: first glm4-9b's width at 2 layers in f32,
    whose decode must equal prefill of the extended sequences at atol
-   1e-4 (the logic); then all 40 layers, random bf16 weights (18.8 GB)
-   from a seeded generator.  (a) 4 prompts of 512 tokens are prefilled
+   1e-4 (the logic); at 2 layers in bf16 the keyed draw rewritten in
+   place by ``tf.draw_sequential_`` must equal ``tf.init_params(cfg,
+   Generator("cuda").manual_seed(0))`` bit for bit; then all 40 layers,
+   random bf16 weights (18.8 GB): the decode cell's keyed draw,
+   rewritten in place by that sequential draw from seed 0 (the serve
+   bounds' seed), on which (a) and (b) run.  (a) 4 prompts of 512 tokens are prefilled
    into a 1024-slot cache and decoded greedily for 32 steps; every
    step's logits must match a prefill of the extended sequences within
    a relative L2 bound (LM_REL_L2), and the 32 steps re-run on the same
@@ -120,7 +124,9 @@ never JAX or the JAX package.  Phases, each of which asserts:
 10. training at full width (budget: 150 s), after phase 7.  (a) dlrm-rm2
    train_batch through the train cell: B = 65,536 on RecsysStream's
    Zipf ids, 26 x 10^6-row f32 tables (params, grads, m and v ~26.6 GB).
-   5 steps, each loss finite, ``bag_sum`` and ``bag_sum_backward``
+   Before the steps, the cell's blocks as rank 0 of the 16x16 mesh (a
+   "fake" group of 256) are drawn on the card and must equal the cut of
+   this world-1 cell's state, leaf for leaf, bit for bit.  5 steps, each loss finite, ``bag_sum`` and ``bag_sum_backward``
    launching once a step; median step (CUDA events), peak memory, a
    profile.  Then one step's table gradient, from the hand-written
    backward through autograd, is held against ``bag_sum_backward_ref``
@@ -162,8 +168,8 @@ never JAX or the JAX package.  Phases, each of which asserts:
    1,024-token prompt, so decode wraps its rolling caches; the steps
    re-run with each planted fault (gemma3 also two faults of the ring)
    must each put a logit outside that atol; (2) full
-   depth in bf16 (decode_32k's cell, random weights from a seeded
-   generator): phase 6's serve run (4 prompts, 32 greedy steps; gemma3's
+   depth in bf16 (decode_32k's cell, its keyed weights rewritten in place
+   by the sequential draw from seed 0, as in phase 6): phase 6's serve run (4 prompts, 32 greedy steps; gemma3's
    prompt one window, its cache 1,088) held to prefill within the
    arch's relative L2 bound over all 32 steps, its planted faults
    outside it (bounds from ``tools/serve_bound_sweep.py``); (3)
@@ -284,7 +290,14 @@ never JAX or the JAX package.  Phases, each of which asserts:
    an op without a deterministic path, the reading printed); each run's
    wall time printed.  A child that exits non-zero fails the phase.  Its
    path in the kernels line: ``train_cli_mesh``, the launches each run
-   counts and logs (none run there).  (b) inside phase 10, after phase
+   counts and logs (none run there).  While run A starts and trains, this
+   process builds command-r-35b train_4k and glm4-9b decode_32k at batch
+   128 (cells whose whole state no card holds) with real tensors on the
+   card as rank 0 of the 16x16 mesh (a "fake" group of 256), each rank's
+   state drawn by blocks (``models/init.py``): the rise of
+   ``max_memory_allocated`` over each build must stay within the dry
+   run's argument bytes for the cell plus 128 MiB, and the cell must
+   hold exactly those bytes.  (b) inside phase 10, after phase
    16 (a): the params of the sharded rm2 train_batch cell (the 6.66 GB
    of tables and the MLPs; not m and v, to bound the disk) saved by
    blocks on the ``(1, 1)`` NCCL mesh, restored by blocks, and read back
@@ -540,6 +553,13 @@ SHARDED_TRAIN_STEPS, SHARDED_TRAIN_NONDET = 3, 1e-6
 # NCCL mesh and restored by blocks and by the plain loader, bit-equal.
 CLI_CELL, CLI_STEPS, CLI_EVERY, CLI_TIMEOUT = \
     ("gcn-cora", "full_graph_sm"), 4, 2, 300
+# Beside run A: cells whose whole state no card holds, built as rank 0 of
+# the 16x16 mesh, (arch, shape, batch); a build's peak may pass the dry
+# run's argument bytes by BLOCK_SLACK (one 32 MiB tile of the draw in
+# f32, the whole inputs before their cut).
+BLOCK_CELLS = (("command-r-35b", "train_4k", None),
+               ("glm4-9b", "decode_32k", 128))
+BLOCK_SLACK = 128 << 20
 
 # Phase 18: the dry run's cuts (run_cell's keywords, no mesh) and the
 # bound on its predicted peak against the measured one (the allocator's
@@ -2049,6 +2069,48 @@ def free(torch) -> None:
     torch.cuda.empty_cache()
 
 
+def sequential_weights(torch, params, cfg, arch: str) -> None:
+    """Phases 6 and 12: a decode cell's weights (the keyed draw) are
+    rewritten in place by the sequential law from SEED (seed 0, the one
+    ``tools/serve_bound_sweep.py`` derived the serve bounds on), so the
+    serve check and the timed decode steps after it run on the weights
+    ``tf.init_params(cfg, Generator("cuda").manual_seed(0))`` draws, bit
+    for bit (``check_sequential_redraw``), with no second copy."""
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    t0 = time.perf_counter()
+    tf.draw_sequential_(params, cfg, torch.Generator(
+        device="cuda").manual_seed(steps.SEED))
+    torch.cuda.synchronize()
+    say(f"{arch}: weights rewritten in place by the sequential draw from "
+        f"seed {steps.SEED} in {time.perf_counter() - t0:.1f} s")
+
+
+def check_sequential_redraw(torch, card: str) -> None:
+    """Phase 6: glm4-9b's bf16 weights at full width and 2 layers, the
+    keyed draw rewritten by ``tf.draw_sequential_``, bit-equal to
+    ``tf.init_params(cfg, Generator("cuda").manual_seed(0))``'s: the law
+    of the serve checks' weights in phases 6 and 12."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import flatten_with_paths, leaves
+    cfg = dataclasses.replace(get_arch("glm4-9b").CONFIG, n_layers=2)
+    got = tf.init_params(cfg, device="cuda", dtype=torch.bfloat16)
+    tf.draw_sequential_(got, cfg, torch.Generator(device="cuda").manual_seed(0))
+    want = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          "cuda", dtype=torch.bfloat16)
+    differ = [k for (k, a), b in zip(flatten_with_paths(got), leaves(want))
+              if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"the in-place sequential draw differs from "
+                             f"init_params(generator) at {differ}")
+    say(f"glm4-9b at 2 layers (bf16): the keyed draw rewritten in place "
+        f"equals init_params(cfg, Generator('cuda').manual_seed(0)) bit for "
+        f"bit ({len(leaves(want))} leaves), on {card}")
+
+
 # ------------------------------------------------------------- phase 6
 def drive_lm(torch, card: str) -> dict:
     """glm4-9b serving at full width through the port's entry points;
@@ -2058,6 +2120,8 @@ def drive_lm(torch, card: str) -> dict:
     from repro_torch.launch.steps import build_cell
 
     lm_f32_logic(torch, card)
+    free(torch)
+    check_sequential_redraw(torch, card)
     free(torch)
     t0 = time.perf_counter()
     cell = build_cell("glm4-9b", "decode_32k", device="cuda",
@@ -2075,6 +2139,7 @@ def drive_lm(torch, card: str) -> dict:
         f"{kv_bytes / 1e9:.2f} GB decode_32k cache (batch "
         f"{cell.meta['reduced']['batch']}) made on the card in "
         f"{time.perf_counter() - t0:.1f} s")
+    sequential_weights(torch, params, cfg, "glm4-9b")
     gen = torch.Generator(device="cuda").manual_seed(1)
     launches = {"lm_serve": lm_serve_requests(torch, params, cfg, gen, card)}
     free(torch)
@@ -2811,6 +2876,7 @@ def drive_dlrm_train(torch, card: str) -> "tuple[dict, dict, dict]":
         f"{tuple(state['params']['tables'].shape)} f32; params, m and v of "
         f"the tables {nbytes / 1e9:.2f} GB made in "
         f"{time.perf_counter() - t0:.1f} s; data {cell.meta['data']}")
+    rm2_drawn_blocks(torch, card, cell)
     batches = [cell.args[1:]] + [cell.batch_at(i)
                                  for i in range(1, DLRM_TRAIN_STEPS)]
     ids0 = batches[0][1]
@@ -2856,6 +2922,44 @@ def drive_dlrm_train(torch, card: str) -> "tuple[dict, dict, dict]":
     del cell, state
     free(torch)
     return row, counts, sharded
+
+
+def rm2_drawn_blocks(torch, card: str, whole) -> None:
+    """Phase 10 (a), before the steps: rm2 train_batch's blocks as rank 0
+    of the 16x16 mesh (a "fake" group of 256: no collective runs), drawn
+    on the card by the keyed draw, against the cut of the world-1 cell
+    ``whole`` (views of its leaves, nothing copied): every leaf of the
+    state bit for bit."""
+    from repro_torch import shardlib as sl
+    from repro_torch.launch.dryrun import fake_mesh
+    from repro_torch.launch.mesh import production_mesh_shape
+    from repro_torch.launch.steps import build_cell, rules_for
+    from repro_torch.tree import flatten_with_paths, leaves
+    shape, names = production_mesh_shape()
+    t0 = time.perf_counter()
+    with fake_mesh(shape, names, 0) as mesh, \
+            sl.axis_rules(mesh, rules_for("dlrm-rm2", "train_batch", mesh)):
+        cell = build_cell("dlrm-rm2", "train_batch", device="cuda")
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        mine = flatten_with_paths(cell.args[0])
+        differ = []
+        for (k, a), w, sh in zip(mine, leaves(whole.args[0]),
+                                 leaves(cell.in_shardings[0])):
+            cut = w[sl.block_slices(w.shape, sh.spec, sh.mesh)]
+            if a.shape != cut.shape or not torch.equal(a, cut):
+                differ.append(k)
+        held = tree_bytes(cell.args[0])
+        del cell
+    free(torch)
+    if differ:
+        raise AssertionError(f"rm2 blocks drawn as rank 0 of "
+                             f"{'x'.join(map(str, shape))} differ from the "
+                             f"cut of the world-1 cell at {differ}")
+    say(f"dlrm-rm2 train_batch as rank 0 of the {'x'.join(map(str, shape))} "
+        f"mesh: its blocks of the state ({held / 1e9:.3f} GB, {len(mine)} "
+        f"leaves) drawn on the card in {t_build:.2f} s, each bit-equal to "
+        f"the cut of the world-1 cell's leaf, on {card}")
 
 
 def check_grads(torch, got, want, what: str) -> float:
@@ -3381,6 +3485,7 @@ def family_serve(torch, arch: str, spec: dict, card: str) -> dict:
         f"decode_32k cache (batch {cell.meta['batch']}; cuts "
         f"{cell.meta.get('reduced')}) made on the card in "
         f"{time.perf_counter() - t0:.1f} s")
+    sequential_weights(torch, params, cfg, arch)
     gen = torch.Generator(device="cuda").manual_seed(1)
     reset_counts()
     with DropCount() as drops:
@@ -4365,11 +4470,12 @@ def gnn_sharded(torch, card: str, cell, mesh) -> dict:
 
 
 # ------------------------------------------------------------- phase 17
-def train_cli(argv: list, what: str) -> "tuple[str, float]":
+def train_cli(argv: list, what: str, meanwhile=None) -> "tuple[str, float]":
     """``repro_torch.launch.train`` under torchrun at one rank on the
     card (NCCL on ``cuda:0``); (its standard output, wall seconds).  A
     child that exits non-zero, or outlives CLI_TIMEOUT (its process
-    group is then killed), fails the phase."""
+    group is then killed), fails the phase.  ``meanwhile()`` runs in
+    this process while the child starts and trains."""
     import signal
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
                PYTHONPATH=os.pathsep.join(
@@ -4382,6 +4488,8 @@ def train_cli(argv: list, what: str) -> "tuple[str, float]":
                             stderr=subprocess.PIPE, text=True,
                             start_new_session=True)
     try:
+        if meanwhile is not None:
+            meanwhile()
         out, err = proc.communicate(timeout=CLI_TIMEOUT)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
@@ -4410,7 +4518,8 @@ def drive_train_cli(torch, card: str) -> dict:
             "--deterministic"]
     try:
         a, b = os.path.join(root, "a"), os.path.join(root, "b")
-        out_a, wall_a = train_cli(argv + ["--ckpt-dir", a], "run A")
+        out_a, wall_a = train_cli(argv + ["--ckpt-dir", a], "run A",
+                                  lambda: production_blocks(torch, card))
         os.makedirs(b)
         shutil.copytree(os.path.join(a, first), os.path.join(b, first))
         out_b, wall_b = train_cli(argv + ["--ckpt-dir", b], "run B")
@@ -4450,6 +4559,50 @@ def drive_train_cli(torch, card: str) -> dict:
         raise AssertionError(f"train CLI: run B is not run A's end "
                              f"(nondeterministic ops {nondet})")
     return {name: sum(c[name] for c in counts) for name in counts[0]}
+
+
+def production_blocks(torch, card: str) -> None:
+    """Phase 17 (a), beside run A: each of BLOCK_CELLS built with real
+    tensors on the card as rank 0 of the 16x16 mesh (a "fake" group of
+    256), its state drawn by blocks: the rise of
+    ``max_memory_allocated`` over the build must be at most the dry
+    run's argument bytes for the cell (``build_cell(abstract=True)``
+    under the same mesh) plus BLOCK_SLACK, and the built cell's arguments
+    must hold exactly those bytes."""
+    from repro_torch import shardlib as sl
+    from repro_torch.launch.dryrun import fake_mesh
+    from repro_torch.launch.mesh import production_mesh_shape
+    from repro_torch.launch.op_analysis import storage_bytes
+    from repro_torch.launch.steps import build_cell, rules_for
+    shape, names = production_mesh_shape()
+    grid = "x".join(map(str, shape))
+    for arch, cell_shape, batch in BLOCK_CELLS:
+        with fake_mesh(shape, names, 0) as mesh, \
+                sl.axis_rules(mesh, rules_for(arch, cell_shape, mesh)):
+            want = storage_bytes(build_cell(arch, cell_shape, batch=batch,
+                                            abstract=True).args)
+            free(torch)
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            cell = build_cell(arch, cell_shape, batch=batch, device="cuda")
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            rise = torch.cuda.max_memory_allocated() - base
+            held = storage_bytes(cell.args)
+            del cell
+        free(torch)
+        ok = held == want and rise <= want + BLOCK_SLACK
+        say(f"{arch} {cell_shape} (B {batch or 'assigned'}) as rank 0 of the "
+            f"{grid} mesh on the card: built in {secs:.2f} s, peak rise "
+            f"{rise / 1e9:.4f} GB against the dry run's argument bytes "
+            f"{want / 1e9:.4f} GB + {BLOCK_SLACK / 2 ** 20:.0f} MiB "
+            f"(held {held / 1e9:.4f} GB): {'within' if ok else 'OVER'}, "
+            f"on {card}")
+        if not ok:
+            raise AssertionError(f"{arch} {cell_shape} at {grid}: peak rise "
+                                 f"{rise} B, held {held} B, argument bytes "
+                                 f"{want} B + {BLOCK_SLACK} B")
 
 
 def rm2_sharded_save(torch, card: str, cell) -> None:

@@ -228,28 +228,42 @@ def _from_file(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 
 def load_pytree(directory: str, like, device=None, verify: bool = True,
-                shardings=None):
+                shardings=None, into: bool = False):
     """Restore into the structure of ``like`` (a tree of anything: tensors,
     arrays or the specs :meth:`CheckpointManager.peek` gives) as CPU
     tensors, or on ``device``.  Raises ``IOError`` on a CRC mismatch.
     With ``shardings`` every rank of their mesh calls this and gets its
     own blocks (the module's docstring); a leaf with no sharding comes
-    back whole.  Returns (tree, extra)."""
+    back whole.  ``into``: ``like``'s leaves are tensors of the shapes
+    read (the blocks, with ``shardings``) and dtypes saved, and each is
+    filled in place (a cell's undrawn state: no second copy of it).
+    Returns (tree, extra)."""
     with open(os.path.join(directory, "manifest.json")) as f:
         manifest = json.load(f)
     by_key = {rec["key"]: rec for rec in manifest["leaves"]}
     if shardings is not None:
         return (_load_blocks(directory, like, by_key, device, verify,
-                             shardings), manifest["extra"])
+                             shardings, into), manifest["extra"])
     out = []
-    for key, _ in flatten_with_paths(like):
+    for key, dst in flatten_with_paths(like):
         rec = by_key[key]
         arr = np.load(os.path.join(directory, rec["file"]))
         if verify and _crc(arr) != rec["crc"]:
             raise IOError(f"checksum mismatch for {key}")
-        t = _from_file(arr, rec["dtype"])
-        out.append(t if device is None else t.to(device))
+        out.append(_placed(_from_file(arr, rec["dtype"]), key, device,
+                           dst if into else None))
     return unflatten(like, out), manifest["extra"]
+
+
+def _placed(t: torch.Tensor, key: str, device, dst=None) -> torch.Tensor:
+    """``t`` read from a file: on ``device`` (or the host), or copied
+    into ``dst`` in place."""
+    if dst is None:
+        return t if device is None else t.to(device)
+    if (dst.shape, dst.dtype) != (t.shape, t.dtype):
+        raise ValueError(f"{key}: {tuple(t.shape)} {t.dtype} read, restored "
+                         f"into {tuple(dst.shape)} {dst.dtype}")
+    return dst.copy_(t)
 
 
 # ---------------------------------------------------------------------------
@@ -496,12 +510,13 @@ class _ShardedSave:
 
 
 def _load_blocks(directory: str, like, by_key: Dict, device, verify: bool,
-                 shardings):
+                 shardings, into: bool = False):
     """This rank's blocks of ``like``'s leaves (``load_pytree`` with
     ``shardings``)."""
     mesh = _mesh_of(shardings)
     specs = dict(flatten_with_paths(shardings))
-    keys = [key for key, _ in flatten_with_paths(like)]
+    flat = flatten_with_paths(like)
+    keys = [key for key, _ in flat]
     recs = [by_key[key] for key in keys]
     bad = [0] * len(recs)
     error = None
@@ -518,14 +533,14 @@ def _load_blocks(directory: str, like, by_key: Dict, device, verify: bool,
                     bad[i] = 1
     out = []
     try:
-        for key, rec in zip(keys, recs):
+        for (key, dst), rec in zip(flat, recs):
             arr = np.load(os.path.join(directory, rec["file"]),
                           mmap_mode="r")
             block = np.array(arr[sl.block_slices(arr.shape,
                                                  _spec(specs, key), mesh)])
             del arr
-            t = _from_file(block, rec["dtype"])
-            out.append(t if device is None else t.to(device))
+            out.append(_placed(_from_file(block, rec["dtype"]), key, device,
+                               dst if into else None))
     except (OSError, ValueError) as e:
         error = e
     agreed = _all_reduce(bad + [int(error is not None)], mesh,
@@ -646,10 +661,11 @@ class CheckpointManager:
         return os.path.join(self.directory, f"step_{step:08d}")
 
     def restore(self, like, step: Optional[int] = None, device=None,
-                shardings=None):
+                shardings=None, into: bool = False):
         """(tree shaped like ``like``, extra) of ``step`` (default the
         latest), as CPU tensors or on ``device``; with ``shardings``
-        this rank's blocks, the step agreed over their mesh."""
+        this rank's blocks, the step agreed over their mesh; ``into``:
+        read into ``like``'s tensors in place (``load_pytree``)."""
         self.wait()
         if step is None:
             step = self.latest_step(None if shardings is None
@@ -657,7 +673,7 @@ class CheckpointManager:
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         return load_pytree(self.step_dir(step), like, device,
-                           shardings=shardings)
+                           shardings=shardings, into=into)
 
     def peek(self, step: Optional[int] = None):
         """(a tree of ``LeafSpec`` rebuilt from the manifest alone, extra):

@@ -6,7 +6,11 @@ The recovery contract: checkpoints are whole leaves plus a manifest
 failure the trainer (i) picks the largest mesh the survivors can form
 (:func:`surviving_mesh`), (ii) rebuilds the shardings from the same
 logical axis rules, and (iii) restores the latest complete checkpoint
-onto the new mesh, each rank reading only its own blocks: the re-cut.
+onto the new mesh, each rank reading only its own blocks into blocks
+made from the manifest alone: the re-cut.  Nothing is drawn that the
+restore overwrites: ``build`` gets the restored state and draws one
+only when there is no checkpoint, and a cell built to give the
+shardings is built undrawn (``steps.build_cell(..., draw=False)``).
 It keeps no in-memory state across a failure and resumes at the step
 after the checkpoint.  Data streams are pure functions of (seed, step),
 so the resumed run sees the batches the uninterrupted one would have.
@@ -69,8 +73,8 @@ class ElasticTrainer:
     """Restart loop: run steps, checkpoint every k, recover on failure.
 
     ``build`` is called with (n_devices, restored state | None) and must
-    return (state, step_fn); ``step_fn(state, step)`` returns the next
-    state.  A restored state is the checkpoint's tree in the manifest's
+    return (state, step_fn), drawing a state only for ``None``;
+    ``step_fn(state, step)`` returns the next state.  A restored state is the checkpoint's tree in the manifest's
     layout (dicts and lists; an ``OptState`` as a dict): whole, as CPU
     tensors, or with ``shardings`` this rank's blocks.
     ``failure_injector`` lets tests raise at chosen steps: a

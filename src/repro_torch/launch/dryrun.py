@@ -89,6 +89,26 @@ def _mesh_of(mesh_kind: str, mesh_shape: Optional[Sequence[int]]):
     return shape, names[len(names) - len(shape):]
 
 
+@contextlib.contextmanager
+def fake_mesh(shape: Sequence[int], names: Sequence[str], rank: int = 0):
+    """The mesh ``shape`` over ``names`` (cuda), on a ``"fake"`` default
+    process group of as many ranks, in which this process is ``rank`` and
+    every collective returns at once; the group is destroyed after the
+    ``with`` block.  None may be live before it."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from .. import shardlib as sl
+    if dist.is_initialized():
+        raise RuntimeError("a fake group is process-wide; one is live in "
+                           "this process")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=math.prod(shape))
+    try:
+        yield sl.make_mesh(shape, names, "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
 def run_cell(arch: str, shape: str, mesh_kind: str = "single",
              variant: str = "base", mesh_shape: Optional[Sequence[int]] = None,
              layers: Optional[int] = None, batch: Optional[int] = None,
@@ -104,32 +124,20 @@ def run_cell(arch: str, shape: str, mesh_kind: str = "single",
     from .op_analysis import LiveBytes, OpAnalysis
     from .steps import build_cell, rules_for
 
-    if dist.is_initialized():
-        raise RuntimeError("run_cell starts its own fake process group; one "
-                           "is live in this process")
     shape_m, names = _mesh_of(mesh_kind, mesh_shape)
     n_chips = math.prod(shape_m)
     t0 = time.time()
-    if shape_m:
-        from torch.testing._internal.distributed.fake_pg import FakeStore
-        dist.init_process_group("fake", store=FakeStore(), rank=0,
-                                world_size=n_chips)
-    try:
+    with contextlib.ExitStack() as stack:
         if shape_m:
-            mesh = sl.make_mesh(shape_m, names, "cuda")
-            ruled = sl.axis_rules(mesh, rules_for(arch, shape, mesh))
-        else:
-            ruled = contextlib.nullcontext()
-        with ruled:
-            cell = build_cell(arch, shape, smoke=smoke, variant=variant,
-                              layers=layers, batch=batch, abstract=True)
-            t_build = time.time() - t0
-            with cell.meta["fake_mode"], OpAnalysis() as oa, \
-                    LiveBytes(cell.args) as live:
-                mem = live.finish(cell.run())
-    finally:
-        if shape_m:
-            dist.destroy_process_group()
+            mesh = stack.enter_context(fake_mesh(shape_m, names))
+            stack.enter_context(sl.axis_rules(mesh, rules_for(arch, shape,
+                                                              mesh)))
+        cell = build_cell(arch, shape, smoke=smoke, variant=variant,
+                          layers=layers, batch=batch, abstract=True)
+        t_build = time.time() - t0
+        with cell.meta["fake_mode"], OpAnalysis() as oa, \
+                LiveBytes(cell.args) as live:
+            mem = live.finish(cell.run())
     t_trace = time.time() - t0 - t_build
     acc = oa.report()
     terms = {

@@ -24,27 +24,37 @@ of (seed, step).  A GNN step's batch is one ``GraphBatch``.
 Built under ``shardlib.axis_rules(mesh, rules_for(arch, shape, mesh))``
 a cell carries ``in_shardings``: one ``NamedSharding`` a leaf of its
 arguments, resolved from the logical axis rules (the JAX cells' trees).
-Every cell then holds this rank's blocks, cut by ``local_block`` from
-the same seeded weights and inputs, and runs sharded under the same
-rules (``cell.run()`` inside the ``with``): a train step sums each
+Every cell then holds this rank's blocks and runs sharded under the
+same rules (``cell.run()`` inside the ``with``): a train step sums each
 gradient block over the ranks its uses are partial on and clips to the
-whole model's norm.  A GNN cell's graph is laid out for its node blocks
-first (:func:`gnn_mesh_layout`: padded, and bucketed by owner for the
-``opt`` layouts); a layout the mesh cannot hold raises, naming the arch
-and the mesh.
+whole model's norm.  An LM's or DLRM's state never exists whole on a
+rank: its weights are the keyed draw (``models/init.py``), each leaf a
+function of (SEED, its path, the element's position), so each rank
+draws only the tiles its blocks meet, bit-equal to the cut of the
+weights a world-1 cell draws whole; AdamW's m and v and the KV caches
+are zeros made at block size.  ``local_block`` cuts only the inputs
+(tokens, DLRM rows, candidates), which every rank makes whole from the
+same numpy stream.  A GNN cell's parameters are replicated and drawn
+whole from a seeded generator; its graph is laid out for its node
+blocks (:func:`gnn_mesh_layout`: padded, and bucketed by owner for the
+``opt`` layouts) and cut; a layout the mesh cannot hold raises, naming
+the arch and the mesh.  ``draw=False`` leaves the state uninitialised
+(``torch.empty`` blocks) for a restore to fill: nothing is drawn.
 
 ``abstract=True`` is the JAX builder's ``eval_shape`` path: every leaf of
 the cell's arguments is a fake tensor (``FakeTensorMode``) on
 :func:`~repro_torch.device.fake_device` with the shape and dtype of the
 concrete cell's leaf, this rank's block under axis rules.  Nothing is
-drawn on the host or the card: the weights' shapes come from their
-initializers run on fake CPU tensors, and the inputs (tokens, DLRM
-rows, a GNN cell's graph and its layout over the mesh) are empty
-tensors of the concrete inputs' shapes.  The cell's step runs under
-``cell.meta["fake_mode"]``; the dry run (:mod:`.dryrun`) counts it.
+drawn on the host or the card: the LM and DLRM weights are their keyed
+blocks left undrawn, a GNN's come from its initializer run on fake CPU
+tensors, and the inputs (tokens, DLRM rows, a GNN cell's graph and its
+layout over the mesh) are empty tensors of the concrete inputs' shapes.
+The cell's step runs under ``cell.meta["fake_mode"]``; the dry run
+(:mod:`.dryrun`) counts it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -72,7 +82,10 @@ from ..optim import OptState, adamw_init, adamw_update, cosine_schedule
 from ..tree import leaves, map_tree, unflatten
 from . import mesh as mesh_mod
 
-SEED = 0          # weights (torch generator on the device) and inputs (numpy)
+SEED = 0     # weights (the keyed draw's seed; a GNN's generator) and inputs
+#: The LM smoke cells' sequence length (the JAX smoke cells'), and a
+#: smoke decode cell's cache length.
+SMOKE_SEQ, SMOKE_DECODE_SEQ = 64, 128
 
 
 @dataclasses.dataclass
@@ -176,16 +189,33 @@ def _abstract(tree, device):
                                           device=device), tree)
 
 
-def _init(init, cfg, device, abstract: bool, **kw):
-    """``init(cfg, generator, device, **kw)``: the weights drawn from
-    SEED by a generator on ``device``; abstract, their shapes and dtypes
-    on ``device``, from the initializer run on fake CPU tensors (no
+def _init(model, cfg, device, abstract: bool, draw: bool = True, **kw):
+    """An LM's or DLRM's weights, ``model.init_params(cfg, device=,
+    shardings=, draw=, **kw)``: the keyed draw (seed 0, SEED), this
+    rank's blocks under the current rules (``model.param_shardings``)
+    and the whole leaves without them; abstract or ``draw=False``, the
+    same blocks uninitialised (fake under the active
+    ``FakeTensorMode``)."""
+    psh = (_resolve(model.param_shardings(cfg))
+           if sl.current_rules() is not None else None)
+    return model.init_params(cfg, device=device, shardings=psh,
+                             draw=draw and not abstract, **kw)
+
+
+def _gnn_init(init, cfg, device, abstract: bool, draw: bool = True):
+    """``init(cfg, generator, device)``: a GNN's replicated weights drawn
+    whole from SEED by a generator on ``device``; abstract or
+    ``draw=False``, empty tensors of their shapes and dtypes on
+    ``device``, from the initializer run on fake CPU tensors (no
     generator on the card, nothing drawn)."""
-    if not abstract:
+    if not abstract and draw:
         return init(cfg, torch.Generator(device=device).manual_seed(SEED),
-                    device, **kw)
-    return _abstract(init(cfg, torch.Generator().manual_seed(SEED), "cpu",
-                          **kw), device)
+                    device)
+    fresh = None if detect_fake_mode() else FakeTensorMode(
+        allow_non_fake_inputs=True)
+    with fresh or contextlib.nullcontext():
+        shapes = init(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    return _abstract(shapes, device)
 
 
 def _partial_axes() -> Tuple[str, ...]:
@@ -269,9 +299,9 @@ def lm_train_layers(cfg: tf.TransformerConfig, device_bytes: int,
 
 
 def _build_lm_train_cell(arch_id, shape_name, cfg, smoke, device, meta,
-                         abstract=False):
+                         abstract=False, draw=True):
     b, s = meta["batch"], meta["seq_len"]
-    params = _init(tf.init_params, cfg, device, abstract)  # f32, as JAX trains
+    params = _init(tf, cfg, device, abstract, draw)  # f32, as JAX trains
     if abstract:
         batch_args = _empty(device, ((b, s), torch.int32),
                             ((b, s), torch.int32))
@@ -294,7 +324,6 @@ def _build_lm_train_cell(arch_id, shape_name, cfg, smoke, device, meta,
         in_sh = ({"params": psh,
                   "opt": OptState(m=psh, v=psh, count=sl.sharding_for())},
                  tok, tok)
-        params = local_blocks(params, psh)
         batch_args = local_blocks(batch_args, in_sh[1:])
         whole_at = batch_at
         batch_at = lambda step: local_blocks(  # noqa: E731
@@ -321,12 +350,12 @@ def lm_cell_config(arch_id: str, smoke: bool = False,
 
 
 def _build_lm_cell(arch_id, shape_name, smoke, device, batch, layers=None,
-                   variant="base", abstract=False):
+                   variant="base", abstract=False, draw=True):
     cfg = lm_cell_config(arch_id, smoke, variant)
     sp = dict(SHAPE_PARAMS["lm"][shape_name])
     kind = sp["kind"]
     if smoke:
-        sp["seq_len"] = 64 if kind != "decode" else 128
+        sp["seq_len"] = SMOKE_SEQ if kind != "decode" else SMOKE_DECODE_SEQ
         sp["global_batch"] = 2
     b = sp["global_batch"] if batch is None else batch
     s = sp["seq_len"]
@@ -345,33 +374,31 @@ def _build_lm_cell(arch_id, shape_name, smoke, device, batch, layers=None,
         meta["reduced"] = reduced
     if kind == "train":
         return _build_lm_train_cell(arch_id, shape_name, cfg, smoke, device,
-                                    meta, abstract)
-    # serving: bf16 parameters, as the JAX serving cells cast them
-    params = _init(tf.init_params, cfg, device, abstract,
-                   dtype=torch.bfloat16)
+                                    meta, abstract, draw)
+    # serving: bf16 parameters, as the JAX serving cells cast them (each
+    # tile of the draw cast on its own)
+    params = _init(tf, cfg, device, abstract, draw, dtype=torch.bfloat16)
     flops = _lm_flops(cfg, kind, b, s)
     ruled = sl.current_rules() is not None
     if kind == "prefill":
-        args = (params, (_empty(device, ((b, s), torch.int32))[0]
-                         if abstract else
-                         torch.from_numpy(np.random.default_rng(SEED).integers(
-                             0, cfg.vocab, (b, s)).astype(np.int32)).to(device)))
+        tokens = (_empty(device, ((b, s), torch.int32))[0] if abstract else
+                  torch.from_numpy(np.random.default_rng(SEED).integers(
+                      0, cfg.vocab, (b, s)).astype(np.int32)).to(device))
         in_sh = ((_resolve(tf.param_shardings(cfg)),
                   sl.sharding_for("batch", None)) if ruled else None)
+        args = (params,) + (local_blocks((tokens,), in_sh[1:]) if ruled
+                            else (tokens,))
         fn = functools.partial(tf.prefill, cfg=cfg)
     else:
-        cache = (_abstract(tf.make_cache(cfg, b, s, dtype=torch.bfloat16,
-                                         device="cpu"), device)
-                 if abstract else
-                 tf.make_cache(cfg, b, s, dtype=torch.bfloat16, device=device))
-        args = (params, cache,
-                torch.zeros(b, dtype=torch.int32, device=device), s - 1)
         in_sh = ((_resolve(tf.param_shardings(cfg)),
                   _resolve(tf.cache_shardings(cfg)), sl.sharding_for("batch"),
                   sl.sharding_for()) if ruled else None)
+        cache = tf.make_cache(cfg, b, s, dtype=torch.bfloat16, device=device,
+                              shardings=in_sh[1] if ruled else None)
+        pos = torch.zeros(b, dtype=torch.int32, device=device)
+        args = (params, cache,
+                local_blocks(pos, in_sh[2]) if ruled else pos, s - 1)
         fn = functools.partial(tf.decode_step, cfg=cfg)
-    if ruled:
-        args = local_blocks(args, in_sh)
     return Cell(arch_id, shape_name, kind, "lm", fn, args, flops, meta,
                 in_shardings=in_sh)
 
@@ -593,7 +620,7 @@ def _gnn_train_step(model, cfg):
 
 
 def _build_gnn_cell(arch_id, shape_name, mod, smoke, device,
-                    variant="base", abstract=False):
+                    variant="base", abstract=False, draw=True):
     """A GNN train cell.  ``smoke``: the JAX smoke cell (reduced config,
     the smoke batch; ``variant="opt"`` gives its edges the opt layout,
     where the JAX smoke cell ignores the variant: both layouts compute
@@ -658,7 +685,7 @@ def _build_gnn_cell(arch_id, shape_name, mod, smoke, device,
                             else "make_graph_batch")
         if batch.node_feat.dim() == 1:
             cfg = dataclasses.replace(cfg, d_in=0)
-    params = _init(model.init_params, cfg, device, abstract)
+    params = _gnn_init(model.init_params, cfg, device, abstract, draw)
     state = {"params": params, "opt": adamw_init(params)}
     meta.update(cfg=cfg, n_nodes=batch.n_nodes,
                 n_edges=int(batch.src.shape[0]))
@@ -807,13 +834,14 @@ def _owner_buckets(g: GraphBatch, n_buckets: int, cap: Optional[int] = None,
 
 
 def shard_train_cell(cell: Cell) -> Cell:
-    """A built GNN or recsys train cell on this rank's blocks under the
-    current rules, with its step and ``in_shardings``: the same cell as
-    ``build_cell`` makes under them, from the cell's own state and batch
-    (so a caller that holds a full-size cell lays it out without building
-    it again).  Where nothing is cut (the replicated GNN parameters, a
-    one-rank mesh) a block is the cell's own tensor: clone the state
-    first to step both cells.
+    """A world-1 GNN or recsys train cell, which holds its state whole,
+    on this rank's blocks under the current rules, with its step and
+    ``in_shardings``: the same cell as ``build_cell`` makes under them
+    (whose keyed draw gives each rank its blocks of the same weights),
+    cut from the cell's own state and batch, so a caller that holds a
+    full-size cell lays it out without building it again.  Where nothing
+    is cut (the replicated GNN parameters, a one-rank mesh) a block is
+    the cell's own tensor: clone the state first to step both cells.
 
     A GNN cell's graph is laid out by :func:`gnn_mesh_layout` and cut to
     the rank's node and edge blocks.  Every step's graph is laid out the
@@ -822,12 +850,9 @@ def shard_train_cell(cell: Cell) -> Cell:
     laid out once.  A recsys train cell's tables are cut to the rank's
     row blocks and its batch to the rank's rows."""
     if (cell.family, cell.kind) == ("recsys", "train"):
-        cfg = cell.meta["cfg"]
-        in_sh = _recsys_train_shardings(cfg)
-        whole_at = cell.batch_at
-        return dataclasses.replace(
-            cell, args=local_blocks(cell.args, in_sh), in_shardings=in_sh,
-            batch_at=lambda step: local_blocks(whole_at(step), in_sh[1:]))
+        in_sh = _recsys_train_shardings(cell.meta["cfg"])
+        return _recsys_rows(cell, local_blocks(cell.args[0], in_sh[0]),
+                            in_sh)
     if cell.family != "gnn":
         raise ValueError(f"{cell.arch} {cell.shape}: shard_train_cell lays "
                          "out the GNN and recsys train cells")
@@ -949,8 +974,19 @@ def _recsys_train_shardings(cfg: dlrm_mod.DLRMConfig):
             rows, rows, sl.sharding_for("batch"))
 
 
+def _recsys_rows(cell: Cell, state, in_sh) -> Cell:
+    """``cell`` (a recsys train cell with its batch whole) on ``state``,
+    this rank's blocks, with its batch and every later step's cut to
+    the rank's rows under ``in_sh``."""
+    whole_at = cell.batch_at
+    return dataclasses.replace(
+        cell, args=(state,) + local_blocks(cell.args[1:], in_sh[1:]),
+        in_shardings=in_sh,
+        batch_at=lambda step: local_blocks(whole_at(step), in_sh[1:]))
+
+
 def _build_recsys_cell(arch_id, shape_name, mod, smoke, device, batch,
-                       abstract=False):
+                       abstract=False, draw=True):
     cfg = mod.smoke_config() if smoke else mod.CONFIG
     sp = dict(SHAPE_PARAMS["recsys"][shape_name])
     kind = sp["kind"]
@@ -960,7 +996,7 @@ def _build_recsys_cell(arch_id, shape_name, mod, smoke, device, batch,
     meta = {"cfg": cfg, "batch": b}
     if b != full_b:
         meta["reduced"] = {"batch": [full_b, b]}
-    params = _init(dlrm_mod.init_params, cfg, device, abstract)
+    params = _init(dlrm_mod, cfg, device, abstract, draw)
     psh = (_resolve(dlrm_mod.param_shardings(cfg))
            if sl.current_rules() is not None else None)
     rng = np.random.default_rng(SEED)
@@ -990,21 +1026,21 @@ def _build_recsys_cell(arch_id, shape_name, mod, smoke, device, batch,
             batch_at = lambda step: _on(stream.batch_at(step),  # noqa: E731
                                         device)
         meta["data"] = "RecsysStream"
-        # under rules each rank makes the whole state and keeps its
-        # blocks (per-rank construction: ROADMAP.md queue 1)
+        # under rules the state is this rank's blocks already (the keyed
+        # draw, and m and v zeros at block size); the batch is cut
+        state = {"params": params, "opt": adamw_init(params)}
         cell = Cell(arch_id, shape_name, kind, "recsys",
-                    _dlrm_train_step(cfg),
-                    ({"params": params, "opt": adamw_init(params)},)
-                    + batch_args, _dlrm_flops(cfg, kind, b), meta,
-                    batch_at=batch_at)
-        return cell if psh is None else shard_train_cell(cell)
+                    _dlrm_train_step(cfg), (state,) + batch_args,
+                    _dlrm_flops(cfg, kind, b), meta, batch_at=batch_at)
+        return cell if psh is None else _recsys_rows(
+            cell, state, _recsys_train_shardings(cfg))
     if kind == "serve":
         args = (params, dense, sparse)
         in_sh = None
         if psh is not None:
             in_sh = (psh, sl.sharding_for("batch", None),
                      sl.sharding_for("batch", None))
-            args = local_blocks(args, in_sh)
+            args = (params,) + local_blocks(args[1:], in_sh[1:])
         return Cell(arch_id, shape_name, kind, "recsys",
                     functools.partial(dlrm_mod.forward, cfg=cfg), args,
                     _dlrm_flops(cfg, kind, b), meta, in_shardings=in_sh)
@@ -1019,7 +1055,7 @@ def _build_recsys_cell(arch_id, shape_name, mod, smoke, device, batch,
     if psh is not None:
         in_sh = (psh, sl.sharding_for(None, None),
                  sl.sharding_for(None, None), sl.sharding_for("cand"))
-        args = local_blocks(args, in_sh)
+        args = (params,) + local_blocks(args[1:], in_sh[1:])
     return Cell(arch_id, shape_name, kind, "recsys",
                 functools.partial(dlrm_mod.retrieval_scores, cfg=cfg),
                 args, _dlrm_flops(cfg, kind, 1, n_cand), meta,
@@ -1033,14 +1069,18 @@ def _build_recsys_cell(arch_id, shape_name, mod, smoke, device, batch,
 def build_cell(arch_id: str, shape_name: str, smoke: bool = False,
                device=None, batch: Optional[int] = None,
                layers: Optional[int] = None, variant: str = "base",
-               abstract: bool = False) -> Cell:
+               abstract: bool = False, draw: bool = True) -> Cell:
     """The cell ``(arch_id, shape_name)`` with concrete tensors on
     ``device`` (default ``cuda``; raises without a card unless given
     ``"cpu"``).  ``batch`` overrides the assigned batch of an LM or DLRM
     cell and ``layers`` an LM's depth (cuts, recorded in
     ``meta["reduced"]``); ``variant="opt"`` picks an LM's optimized
     training (:func:`lm_cell_config`) or a GNN cell's bucketed edge
-    layouts.  Weights and inputs come from seed 0.
+    layouts.  Weights and inputs come from seed 0.  Under axis rules
+    each rank draws only its blocks of the weights (the module's
+    docstring).  ``draw=False``: the state (weights, and a train cell's
+    AdamW state) is left uninitialised for a restore to fill (the train
+    CLI's resume); nothing is drawn.
 
     ``abstract=True``: the same cell on fake tensors (the module's
     docstring), built and to be run under ``meta["fake_mode"]`` (the
@@ -1051,15 +1091,15 @@ def build_cell(arch_id: str, shape_name: str, smoke: bool = False,
             allow_non_fake_inputs=True)
         with mode:
             cell = _build(arch_id, shape_name, smoke, fake_device(), batch,
-                          layers, variant, True)
+                          layers, variant, True, False)
         cell.meta.update(fake_mode=mode, abstract=True)
         return cell
     return _build(arch_id, shape_name, smoke, resolve_device(device), batch,
-                  layers, variant, False)
+                  layers, variant, False, draw)
 
 
 def _build(arch_id, shape_name, smoke, device, batch, layers, variant,
-           abstract) -> Cell:
+           abstract, draw) -> Cell:
     mod = get_arch(arch_id)
     skip = getattr(mod, "SKIP_SHAPES", {})
     if shape_name in skip:
@@ -1072,7 +1112,7 @@ def _build(arch_id, shape_name, smoke, device, batch, layers, variant,
                                   "have an 'opt' variant")
     if mod.FAMILY == "lm":
         return _build_lm_cell(arch_id, shape_name, smoke, device, batch,
-                              layers, variant, abstract)
+                              layers, variant, abstract, draw)
     if layers is not None:
         raise ValueError(f"{arch_id}: layers= cuts an LM's depth only")
     if mod.FAMILY == "gnn":
@@ -1080,6 +1120,6 @@ def _build(arch_id, shape_name, smoke, device, batch, layers, variant,
             raise ValueError(f"{arch_id}: batch= cuts an LM or DLRM batch "
                              "only")
         return _build_gnn_cell(arch_id, shape_name, mod, smoke, device,
-                               variant, abstract)
+                               variant, abstract, draw)
     return _build_recsys_cell(arch_id, shape_name, mod, smoke, device, batch,
-                              abstract)
+                              abstract, draw)

@@ -16,7 +16,10 @@ gloo with ``--device cpu``) the cell is built under
 ``make_smoke_mesh``, the ``(1, world)`` mesh, so each rank holds its
 blocks of the state.  Then the checkpoint manager (async, keep-last-3),
 the step monitor (straggler and hang verdicts) and a resume from the
-newest complete checkpoint, which every rank agrees on.  Checkpoints go
+newest complete checkpoint, which every rank agrees on: a resumed run
+builds its cell's state undrawn (``build_cell(draw=False)``) and
+restores into those blocks in place, so nothing is drawn that the
+restore overwrites.  Checkpoints go
 by blocks under the cell's ``in_shardings[0]``: each rank writes its
 own blocks of the whole leaves and restores only its own, so a run
 resumes on another world size whose mesh divides the shapes, and from a
@@ -109,19 +112,19 @@ def _train(args, shape: str, device: torch.device) -> dict:
     mon = StepMonitor()
     out = {}
     with sl.axis_rules(mesh, rules_for(args.arch, shape, mesh)):
-        cell = build_cell(args.arch, shape, smoke=args.smoke, device=device)
+        last = mgr.latest_step(mesh)
+        # a resume builds the state undrawn and restores into its blocks
+        cell = build_cell(args.arch, shape, smoke=args.smoke, device=device,
+                          draw=last is None)
         if cell.kind != "train":
             raise ValueError(f"{args.arch} {shape} is a {cell.kind} shape, "
                              "not a train shape")
         shardings = cell.in_shardings[0]
         state = cell.args[0]
         start = 0
-        last = mgr.latest_step(mesh)
         if last is not None:
             state, extra = mgr.restore(state, step=last, device=device,
-                                       shardings=shardings)
-            # the drawn state is not kept beside the restored one
-            cell.args = (state,) + tuple(cell.args[1:])
+                                       shardings=shardings, into=True)
             start = int(extra["step"]) + 1
             say(f"resumed from step {start - 1}")
 

@@ -36,6 +36,7 @@ from .. import shardlib as sl
 from ..device import resolve_device
 from ..kernels.embedding_bag import bag_sum
 from ..shardlib import P
+from . import init
 from .common import mlp, mlp_init
 
 TP = "model_dim"
@@ -75,23 +76,41 @@ class DLRMConfig:
 
 
 def init_params(cfg: DLRMConfig, generator: Optional[torch.Generator] = None,
-                device=None) -> Dict[str, Any]:
+                device=None, shardings=None, draw: bool = True
+                ) -> Dict[str, Any]:
     """Tables uniform in +-V^-0.5 and MLPs normal x fan_in^-0.5 (the JAX
-    law), drawn from ``generator`` on ``device`` (default ``cuda``; the
-    generator must live there, default seed 0).  The tables are drawn in
-    place, so the 6.66 GB of rm2 are made on the card with no copy."""
+    law) on ``device`` (default ``cuda``).  Without a ``generator``: the
+    keyed draw (``models/init.py``), each leaf keyed by its path
+    (``tables``, ``bot/0/0``), the tables tiled along their rows, and
+    this rank's block under its ``NamedSharding`` in ``shardings`` (a
+    tree like :func:`param_shardings`'s; None: whole leaves);
+    ``draw=False`` leaves the blocks uninitialised.  With a
+    ``generator`` (it must live on ``device``): drawn from it in
+    sequence, the tables in place, so the 6.66 GB of rm2 are made on the
+    card with no copy."""
     device = resolve_device(device)
-    gen = (torch.Generator(device=device).manual_seed(0)
-           if generator is None else generator)
-    scale = cfg.vocab_per_table ** -0.5
-    tables = torch.empty((cfg.n_sparse, cfg.vocab_per_table, cfg.embed_dim),
-                         dtype=cfg.dtype, device=device)
-    tables.uniform_(-scale, scale, generator=gen)
     d_top_in = cfg.n_interactions + cfg.bot_mlp[-1]
+    shape = (cfg.n_sparse, cfg.vocab_per_table, cfg.embed_dim)
+    scale = cfg.vocab_per_table ** -0.5
+    if generator is None:
+        sh = shardings or {}
+        return {
+            "tables": init.keyed("tables", shape,
+                                 param_shardings(cfg)["tables"], "uniform",
+                                 scale, cfg.dtype, device, sh.get("tables"),
+                                 draw=draw),
+            "bot": mlp_init(None, list(cfg.bot_mlp), cfg.dtype, device,
+                            path="bot", shardings=sh.get("bot"), draw=draw),
+            "top": mlp_init(None, [d_top_in] + list(cfg.top_mlp), cfg.dtype,
+                            device, path="top", shardings=sh.get("top"),
+                            draw=draw),
+        }
+    tables = torch.empty(shape, dtype=cfg.dtype, device=device)
+    tables.uniform_(-scale, scale, generator=generator)
     return {
         "tables": tables,
-        "bot": mlp_init(gen, list(cfg.bot_mlp), cfg.dtype, device),
-        "top": mlp_init(gen, [d_top_in] + list(cfg.top_mlp), cfg.dtype,
+        "bot": mlp_init(generator, list(cfg.bot_mlp), cfg.dtype, device),
+        "top": mlp_init(generator, [d_top_in] + list(cfg.top_mlp), cfg.dtype,
                         device),
     }
 

@@ -59,6 +59,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import shardlib as sl
 from ..device import resolve_device
+from . import init
 from .common import dense_init
 from .layers import (MoEConfig, attention_causal, attention_causal_opt,
                      attention_decode, attention_window, column_in,
@@ -157,44 +158,102 @@ def _fan_in_axis(cfg: TransformerConfig, name: str) -> int:
 
 def init_params(cfg: TransformerConfig,
                 generator: Optional[torch.Generator] = None, device=None,
-                dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+                dtype: Optional[torch.dtype] = None, shardings=None,
+                draw: bool = True) -> Dict[str, Any]:
     """Random parameters with the JAX ``init_params`` law (normal x
     fan_in^-0.5 for matrices, the experts' fan-in on their axis 1, zeros
-    for the norm scales), drawn from ``generator`` on ``device``
-    (default ``cuda``; the generator must
-    live there, default seed 0) and stored in ``dtype`` (default
-    ``cfg.param_dtype``).  Each layer is drawn in f32 and cast into its
-    slot of the stack, so the full model is made on the card without an
-    f32 copy of it."""
+    for the norm scales) on ``device`` (default ``cuda``), stored in
+    ``dtype`` (default ``cfg.param_dtype``).
+
+    Without a ``generator``: the keyed draw (``models/init.py``), each
+    leaf keyed by its path in the tree (``layers/0/wq``), tiled by its
+    logical axes (:func:`param_shardings`; a stack per cycle), and this
+    rank's block under its ``NamedSharding`` in ``shardings`` (a tree
+    like the parameters'; None: whole leaves).  ``draw=False`` leaves
+    the blocks uninitialised (for a restore, or fake tensors).
+
+    With a ``generator`` (it must live on ``device``): the whole model
+    drawn from it in sequence (:func:`draw_sequential_`), each layer
+    drawn in f32 and cast into its slot of the stack, so the full model
+    is made on the card without an f32 copy of it."""
     device = resolve_device(device)
     dt = cfg.param_dtype if dtype is None else dtype
-    gen = (torch.Generator(device=device).manual_seed(0)
-           if generator is None else generator)
-    shapes = _layer_shapes(cfg)
+    if generator is not None:
+        return draw_sequential_(_empty_params(cfg, dt, device), cfg,
+                                generator)
+    axes = param_shardings(cfg)
+
+    def leaf(path, shape, ax, in_axis=None):
+        sharding = shardings
+        for key in path.split("/"):
+            if sharding is not None:
+                sharding = sharding[int(key) if key.isdigit() else key]
+        if in_axis is None:
+            return init.keyed(path, shape, ax, dtype=dt, device=device,
+                              sharding=sharding, draw=draw)
+        return dense_init(None, shape, in_axis, dt, device, path=path,
+                          axes=ax, sharding=sharding, draw=draw)
     per_pos: List[Dict[str, torch.Tensor]] = []
-    for _ in range(cfg.local_global_period):
+    for pos in range(cfg.local_global_period):
         stack = {}
-        for name, shp in shapes.items():
-            if name.startswith("ln"):
-                stack[name] = torch.zeros((cfg.n_cycles,) + shp, dtype=dt,
-                                          device=device)
-                continue
-            stack[name] = torch.empty((cfg.n_cycles,) + shp, dtype=dt,
-                                      device=device)
-            for c in range(cfg.n_cycles):
-                stack[name][c] = dense_init(gen, shp,
-                                            _fan_in_axis(cfg, name),
-                                            dtype=dt, device=device)
+        for name, shp in _layer_shapes(cfg).items():
+            stack[name] = leaf(
+                f"layers/{pos}/{name}", (cfg.n_cycles,) + shp,
+                axes["layers"][pos][name], None if name.startswith("ln")
+                else 1 + _fan_in_axis(cfg, name))
         per_pos.append(stack)
     params = {
-        "embed": dense_init(gen, (cfg.vocab, cfg.d_model), dtype=dt,
-                            device=device),
-        "ln_f": torch.zeros(cfg.d_model, dtype=dt, device=device),
+        "embed": leaf("embed", (cfg.vocab, cfg.d_model), axes["embed"], 0),
+        "ln_f": leaf("ln_f", (cfg.d_model,), axes["ln_f"]),
         "layers": per_pos,
     }
     if not cfg.tie_embeddings:
-        params["head"] = dense_init(gen, (cfg.d_model, cfg.vocab), dtype=dt,
-                                    device=device)
+        params["head"] = leaf("head", (cfg.d_model, cfg.vocab),
+                              axes["head"], 0)
+    return params
+
+
+def _empty_params(cfg: TransformerConfig, dtype: torch.dtype, device
+                  ) -> Dict[str, Any]:
+    """Whole parameters, uninitialised."""
+    def empty(*shape):
+        return torch.empty(shape, dtype=dtype, device=device)
+    params = {"embed": empty(cfg.vocab, cfg.d_model),
+              "ln_f": empty(cfg.d_model),
+              "layers": [{name: empty(cfg.n_cycles, *shp)
+                          for name, shp in _layer_shapes(cfg).items()}
+                         for _ in range(cfg.local_global_period)]}
+    if not cfg.tie_embeddings:
+        params["head"] = empty(cfg.d_model, cfg.vocab)
+    return params
+
+
+@torch.no_grad()
+def draw_sequential_(params: Dict[str, Any], cfg: TransformerConfig,
+                     generator: torch.Generator) -> Dict[str, Any]:
+    """Whole parameters ``params`` rewritten in place, and returned, by
+    the sequential law of :func:`init_params` with a ``generator``: each
+    cycle position's stacks in turn (every matrix cycle by cycle; the
+    norm scales zeroed), then ``embed``, then ``head``, each matrix
+    drawn whole in f32, scaled and cast into its place.  A cell's
+    weights (the keyed draw) become the ones a sequential draw from the
+    same generator state makes, holding no more than one matrix in f32
+    beside them."""
+    def draw(dst, in_axis):
+        w = torch.randn(tuple(dst.shape), generator=generator,
+                        device=dst.device, dtype=torch.float32)
+        dst.copy_(w.mul_(init.fan_in_scale(dst.shape, in_axis)))
+    for stack in params["layers"]:
+        for name in _layer_shapes(cfg):
+            if name.startswith("ln"):
+                stack[name].zero_()
+                continue
+            for c in range(cfg.n_cycles):
+                draw(stack[name][c], _fan_in_axis(cfg, name))
+    for name in ("embed", "head"):
+        if name in params:
+            draw(params[name], 0)
+    params["ln_f"].zero_()
     return params
 
 
@@ -234,20 +293,25 @@ def lm_head_weight(params, cfg: TransformerConfig) -> torch.Tensor:
 
 
 def make_cache(cfg: TransformerConfig, batch: int, seq_len: int,
-               dtype: torch.dtype = torch.bfloat16, device=None
-               ) -> List[Dict[str, torch.Tensor]]:
+               dtype: torch.dtype = torch.bfloat16, device=None,
+               shardings=None) -> List[Dict[str, torch.Tensor]]:
     """Cache list: per cycle position, K and V of [n_cycles, B, S*, Kh,
     hd], zero-filled on ``device`` (default ``cuda``).  S* is
     ``seq_len``, or ``min(window, seq_len)`` for a local position's
-    rolling cache (what lets gemma3's long_500k fit)."""
+    rolling cache (what lets gemma3's long_500k fit).  With
+    ``shardings`` (a tree like :func:`cache_shardings`'s, of
+    ``NamedSharding``) each is this rank's block, made at block size."""
     device = resolve_device(device)
     caches = []
     for pos in range(cfg.local_global_period):
         s = (min(cfg.sliding_window, seq_len) if cfg.layer_is_local(pos)
              else seq_len)
         shp = (cfg.n_cycles, batch, s, cfg.n_kv_heads, cfg.hd)
-        caches.append({"k": torch.zeros(shp, dtype=dtype, device=device),
-                       "v": torch.zeros(shp, dtype=dtype, device=device)})
+        caches.append({
+            n: torch.zeros(tuple(b.stop - b.start for b in init.block_slices(
+                shp, None if shardings is None else shardings[pos][n])),
+                dtype=dtype, device=device)
+            for n in ("k", "v")})
     return caches
 
 

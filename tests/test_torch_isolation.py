@@ -45,6 +45,7 @@ def test_import_loads_neither_jax_nor_repro():
             "import repro_torch.configs, repro_torch.launch.steps\n"
             "import repro_torch.models.layers, repro_torch.models.transformer\n"
             "import repro_torch.models.dlrm, repro_torch.models.common\n"
+            "import repro_torch.models.init\n"
             "import repro_torch.models.convert\n"
             "import repro_torch.storage, repro_torch.storage.stream\n"
             "import repro_torch.storage.pipeline\n"

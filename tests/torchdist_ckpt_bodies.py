@@ -24,12 +24,14 @@ def _rules(mesh, arch):
     return sl.axis_rules(mesh, steps.rules_for(arch, CELLS[arch], mesh))
 
 
-def _cell(mesh, arch, stepped):
+def _cell(mesh, arch, stepped, draw=True):
     """``arch``'s smoke train cell under its rules on ``mesh``; with
-    ``stepped``, one step taken (m, v and the count nonzero)."""
+    ``stepped``, one step taken (m, v and the count nonzero); without
+    ``draw``, its state undrawn."""
     from repro_torch.launch import steps
     with _rules(mesh, arch):
-        cell = steps.build_cell(arch, CELLS[arch], smoke=True, device="cpu")
+        cell = steps.build_cell(arch, CELLS[arch], smoke=True, device="cpu",
+                                draw=draw)
         if stepped:
             cell.fn(cell.args[0], *cell.batch_at(0))
     return cell
@@ -268,8 +270,10 @@ def elastic_case(rank, world, p):
     ``p["steps"]`` steps, checkpoints every ``p["every"]``, and a
     ``DeviceLoss(p["survivors"])`` before step ``p["fail"]``.  The mesh
     is re-cut onto the survivors and the state restored onto it by
-    blocks.  Returns the log, and on a rank of the last mesh the final
-    parameters gathered whole (numpy); None on a rank outside it."""
+    blocks: the cell that gives the shardings is built undrawn, and a
+    state is drawn only where no checkpoint is restored.  Returns the
+    log, and on a rank of the last mesh the final parameters gathered
+    whole (numpy); None on a rank outside it."""
     from repro_torch import shardlib as sl
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.ft import DeviceLoss, ElasticTrainer
@@ -279,13 +283,15 @@ def elastic_case(rank, world, p):
     cells = {}
 
     def shardings(mesh):
-        cells["now"] = _cell(mesh, arch, stepped=False)
+        cells["now"] = _cell(mesh, arch, stepped=False, draw=False)
         return cells["now"].in_shardings[0]
 
     def build(n_devices, restored):
         cell = cells["now"]
-        state = cell.args[0] if restored is None else {
-            "params": restored["params"], "opt": OptState(**restored["opt"])}
+        state = (_cell(trainer.mesh, arch, stepped=False).args[0]
+                 if restored is None else
+                 {"params": restored["params"],
+                  "opt": OptState(**restored["opt"])})
 
         def step_fn(st, step):
             with _rules(trainer.mesh, arch):

@@ -211,11 +211,22 @@ def train_battery(rank, world, p):
 
 
 def params_np(arch, shape):
-    """The port's smoke cell's parameters (seed 0) as a numpy tree."""
+    """The port's smoke cell's parameters (seed 0) as a numpy tree: a
+    GNN's as its cell draws them; rm2's by the sequential law from seed
+    0 (``init_params(cfg, generator)``), the weights its cell held
+    before the cells took the keyed draw, on which these tests' bounds
+    were set."""
+    import torch
+
     from repro_torch.launch import steps
+    from repro_torch.models import dlrm
     from repro_torch.tree import map_tree
     cell = steps.build_cell(arch, shape, smoke=True, device="cpu")
-    return map_tree(lambda t: t.numpy().copy(), cell.args[0]["params"])
+    params = cell.args[0]["params"]
+    if arch == "dlrm-rm2":
+        params = dlrm.init_params(cell.meta["cfg"],
+                                  torch.Generator().manual_seed(0), "cpu")
+    return map_tree(lambda t: t.numpy().copy(), params)
 
 
 def unsharded_first_loss(arch, shape):
