@@ -178,7 +178,12 @@ class QueryEngine:
     #: Optional :class:`repro_torch.obs.trace.Tracer` (DESIGN.md §11),
     #: set by the server or the streaming engine; ``None`` keeps every
     #: hook inert.  An in-memory sweep is one launch and emits no
-    #: per-level span, as the reference's ``lax.scan`` emits none.
+    #: per-level span, as the reference's ``lax.scan`` emits none; the
+    #: in-memory engine spans its phases instead (``phase.forward``,
+    #: ``phase.core``, ``phase.backward``, ``phase.recon``,
+    #: ``phase.to_host``), on the host: a span ends when its launches
+    #: return, and none synchronizes the card.  The store-backed
+    #: engine's queries do not pass through them.
     tracer = None
 
     def __init__(self, index: HoDIndex, core_mode: str = "closure",
@@ -363,22 +368,27 @@ class QueryEngine:
                       d: float = None) -> torch.Tensor:
         """Forward search (§5.1) + core search (§5.2): the shared first
         two phases of SSD, P2P, and threshold queries (``d``)."""
-        return self._core_search(self._relax_sweep(
-            self._init_state(sources_perm), self._sweep_f, d))
+        with span_if(self.tracer, "phase.forward"):
+            dist = self._relax_sweep(self._init_state(sources_perm),
+                                     self._sweep_f, d)
+        with span_if(self.tracer, "phase.core"):
+            return self._core_search(dist)
 
     def _ssd_dev(self, sources_perm: np.ndarray) -> torch.Tensor:
         dist = self._forward_core(sources_perm)
-        return self._relax_sweep(dist, self._sweep_b)   # backward (§5.3)
+        with span_if(self.tracer, "phase.backward"):    # §5.3
+            return self._relax_sweep(dist, self._sweep_b)
 
     def _sssp_dev(self, sources_perm: np.ndarray):
         dist = self._ssd_dev(sources_perm)
-        pred = torch.full(dist.shape, -1, dtype=torch.int32,
-                          device=self.device)
-        recon = self._recon_level_body(dist)
-        # The per-plan reconstruction scatters are max-merges over a
-        # fixed `dist`, so the plan order commutes.
-        for levels in (self._levels_f, self._levels_c, self._levels_b):
-            pred = self._run_plan(pred, levels, recon)
+        with span_if(self.tracer, "phase.recon"):
+            pred = torch.full(dist.shape, -1, dtype=torch.int32,
+                              device=self.device)
+            recon = self._recon_level_body(dist)
+            # The per-plan reconstruction scatters are max-merges over a
+            # fixed `dist`, so the plan order commutes.
+            for levels in (self._levels_f, self._levels_c, self._levels_b):
+                pred = self._run_plan(pred, levels, recon)
         return dist, pred
 
     def _to_host(self, state: torch.Tensor) -> np.ndarray:
@@ -427,15 +437,19 @@ class QueryEngine:
     def ssd(self, sources: np.ndarray) -> np.ndarray:
         """Distances from each source to every node, original node order."""
         s = len(sources)
-        return self._to_host(self._ssd_dev(
-            self._perm_ids(self._share(sources))))[:s]
+        dist = self._ssd_dev(self._perm_ids(self._share(sources)))
+        with span_if(self.tracer, "phase.to_host", what="dist"):
+            return self._to_host(dist)[:s]
 
     def sssp(self, sources: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """(dist, pred): pred[v] = node preceding v on a shortest path, -1
         for sources/unreachable. Node ids in original order."""
         s = len(sources)
         dist, pred = self._sssp_dev(self._perm_ids(self._share(sources)))
-        return self._to_host(dist)[:s], self._to_host(pred)[:s]
+        with span_if(self.tracer, "phase.to_host", what="dist"):
+            dist = self._to_host(dist)[:s]
+        with span_if(self.tracer, "phase.to_host", what="pred"):
+            return dist, self._to_host(pred)[:s]
 
     def p2p(self, sources: np.ndarray, targets: np.ndarray) -> np.ndarray:
         """Point-to-point distances ``dist(sources[i], targets[i])``

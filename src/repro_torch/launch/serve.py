@@ -278,7 +278,9 @@ class QueryServer:
     as in the JAX package; the torch device is the engine's.
     ``warm_start`` runs :meth:`warmup` at construction.  ``tracer`` (a
     :class:`~repro_torch.obs.trace.Tracer`) threads down through the
-    engine into the pipeline, cache and device hooks; ``metrics`` is the
+    engine into the pipeline, cache and device hooks, and in memory
+    into the engine's phase spans and the front end's ``server.rows``
+    and ``server.resolve`` (``obs/trace.py``); ``metrics`` is the
     registry the per-mode latency histograms and server counters go to
     (a fresh one by default).
 
@@ -407,6 +409,10 @@ class QueryServer:
         # the engine into the pipeline/cache/device hooks; the registry
         # holds the per-mode latency histograms and server counters.
         self.tracer = tracer
+        # The front end's own spans (server.rows, server.resolve) are the
+        # port's, and in-memory only: a store server's query thread
+        # traces the JAX package's sequence.
+        self._front_tracer = tracer if self.store is None else None
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         if tracer is not None:
             if hasattr(engine, "set_tracer"):
@@ -630,14 +636,15 @@ class QueryServer:
             m.counter("store.bytes_filled").inc(delta.bytes_filled)
             m.gauge("page_cache.hit_rate").set(st.page_hit_rate())
         rows = []
-        for i, req in enumerate(self._keys(requests)):
-            if mode == "p2p":          # scalar answer per pair
-                row = (np.float32(dist[i]), None)
-            else:
-                row = (dist[i].copy(),
-                       None if pred is None else pred[i].copy())
-            self._cache_put(req, row, mode)
-            rows.append(row)
+        with span_if(self._front_tracer, "server.rows"):
+            for i, req in enumerate(self._keys(requests)):
+                if mode == "p2p":          # scalar answer per pair
+                    row = (np.float32(dist[i]), None)
+                else:
+                    row = (dist[i].copy(),
+                           None if pred is None else pred[i].copy())
+                self._cache_put(req, row, mode)
+                rows.append(row)
         return rows
 
     def _observe(self, latency_s: float, cached: bool,
@@ -915,16 +922,18 @@ class QueryServer:
                 continue
             share = self._last_batch_bytes / len(entries)
             now = self._now()
-            for (req, fut, t0, _), row in zip(entries, rows):
-                self.stats.requests += 1
-                self._observe(now - t0, cached=False, mode=mode)
-                src, tgt = req if isinstance(req, tuple) else (req, None)
-                if not fut.done():
-                    d, p, nd = self._row_fields(row, mode)
-                    fut.set_result(QueryResult(
-                        source=src, target=tgt, dist=d, pred=p,
-                        nodes=nd, mode=mode, latency_s=now - t0,
-                        batched_with=len(entries), io_bytes=share))
+            with span_if(self._front_tracer, "server.resolve"):
+                for (req, fut, t0, _), row in zip(entries, rows):
+                    self.stats.requests += 1
+                    self._observe(now - t0, cached=False, mode=mode)
+                    src, tgt = req if isinstance(req, tuple) \
+                        else (req, None)
+                    if not fut.done():
+                        d, p, nd = self._row_fields(row, mode)
+                        fut.set_result(QueryResult(
+                            source=src, target=tgt, dist=d, pred=p,
+                            nodes=nd, mode=mode, latency_s=now - t0,
+                            batched_with=len(entries), io_bytes=share))
 
     def _flush(self, include_partial: bool = True) -> None:
         """Flush every queue unconditionally (drain), then re-derive the

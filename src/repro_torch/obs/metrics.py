@@ -1,5 +1,4 @@
-"""Process-wide metrics: counters, gauges, fixed-bucket histograms
-(DESIGN.md §11).
+"""Metrics: counters, gauges, fixed-bucket histograms (DESIGN.md §11).
 
 The serving layer needs per-class latency percentiles (the SLO
 scheduler's currency) without keeping a per-request list: a
@@ -29,7 +28,7 @@ import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 __all__ = ["SCHEMA_VERSION", "Counter", "Gauge", "Histogram",
-           "MetricsRegistry", "REGISTRY", "exp_buckets"]
+           "MetricsRegistry", "exp_buckets"]
 
 #: Version of the metrics-snapshot / BENCH row schema.  Bump when a
 #: snapshot or bench table changes shape incompatibly;
@@ -217,8 +216,3 @@ class MetricsRegistry:
                     inst.counts = [0] * (len(inst.bounds) + 1)
                     inst.count = 0
                     inst.total = 0.0
-
-
-#: Process-wide default registry (library code that is not handed an
-#: explicit registry records here).
-REGISTRY = MetricsRegistry()

@@ -4,7 +4,8 @@
 The JAX package's ``obs/trace.py``, copied so that the port needs
 nothing of that package; a trace of either package's server has the
 same span names, tracks and attributes, so the two line up in one
-viewer.
+viewer.  The port adds spans of its own on the in-memory path and in
+the front end (below), and a clock mapping.
 
 The serving stack's argument is I/O *attribution* — which reads a
 query caused, which it avoided, and how far the pipeline hid the rest
@@ -33,6 +34,38 @@ must nest *per thread*.  Events land on three kinds of tracks:
 * retroactive ``"X"`` complete events (:meth:`complete`) for
   durations only measurable after the fact (``coalesce.wait``).
 
+**The port's in-memory spans.**  Inside ``jit.dispatch`` the in-memory
+``QueryEngine`` opens one span a phase a batch: ``phase.forward`` (the
+label state and the forward sweep), ``phase.core`` (the core search),
+``phase.backward`` (the backward sweep), ``phase.recon`` (SSSP's three
+reconstruction plans) and ``phase.to_host`` (one an answer copied,
+``what="dist"`` or ``"pred"``; each copies the padded batch's ``[S_pad,
+n]`` answer, so its bytes follow from the server's batch size and the
+graph).  The front end opens ``server.rows`` (the answer rows copied
+and put in the row cache) and ``server.resolve`` (the requests'
+latencies observed and their futures resolved).  None of these fires
+on the store-backed path, whose query-thread sequence is the JAX
+package's::
+
+    coalesce.wait (X, async path: the oldest rider's wait)
+    query.sssp
+      jit.dispatch
+        phase.forward, phase.core, phase.backward, phase.recon
+        phase.to_host (what="dist"), phase.to_host (what="pred")
+    server.rows
+    server.resolve (async path)
+
+(an SSD batch has no ``phase.recon`` and one ``phase.to_host``).
+
+**One clock with the device's.**  Timestamps count nanoseconds of
+``time.perf_counter_ns`` from the tracer's construction, where it reads
+``time.time_ns`` once (:attr:`Tracer.epoch_ns`) between two readings of
+the counter, whose midpoint is the origin.  :meth:`Tracer.to_epoch_ns`
+adds that reading, which puts a timestamp on the clock
+``torch.profiler``'s device events carry; ``chrome()`` writes it under
+``otherData``.  The mapping assumes that the wall clock is not stepped
+while the tracer lives.
+
 **Stitching.** Work that hops threads carries an explicit span id:
 ``Tracer.new_id()`` at submit, then every related event (the io
 thread's ``level.read``, each decode worker's ``level.decode``, the
@@ -42,7 +75,11 @@ Perfetto's query view joins them back into one per-level story.
 **Overhead.** A ``None`` tracer is the off switch — every hook site
 guards with ``if tracer is not None`` (or :func:`span_if`), so disabled
 tracing adds one attribute load per site.  Enabled tracing buffers flat
-tuples in memory with a lock-free append (atomic under the GIL).
+tuples in memory with a lock-free append (atomic under the GIL).  Its
+measured cost on the port's served path (an H100, the in-memory road
+grid of 40,000 nodes under 128 closed-loop SSD clients, 17 events a
+batch of 32): 0.7% and 2.9% of the untraced q/s in two sets, each the
+medians of six alternating 8-s windows a side (PERF.md §6).
 Tracing never changes answers or counter sequences: hooks only
 *observe*.  No hook synchronizes the card: a span's end is when the
 host returns, which for the server's ``jit.dispatch`` is after the
@@ -93,7 +130,8 @@ class Tracer:
     """Append-only trace buffer with span/instant emission.
 
     Timestamps are ``time.perf_counter_ns`` relative to construction
-    (exported as microseconds, the Chrome trace unit).  All methods
+    (exported as microseconds, the Chrome trace unit);
+    :meth:`to_epoch_ns` maps one onto ``time.time_ns``.  All methods
     are thread-safe; events record which real thread (or synthetic
     ``track``) emitted them.
     """
@@ -103,16 +141,25 @@ class Tracer:
         # Internal buffer holds flat tuples, not dicts: (ph, name, ts,
         # tkey, tname, attrs, dur).  Appending one object to a list is
         # atomic under the GIL, so the hot path takes no lock and
-        # builds no dict — that is what keeps enabled tracing inside
-        # the 5% overhead budget; events() materializes dicts.
+        # builds no dict — that is what keeps enabled tracing cheap
+        # (its measured cost is in the module docstring); events()
+        # materializes dicts.
         self._events: List[tuple] = []
         self._next_id = 0
-        self._t0 = time.perf_counter_ns()
+        before = time.perf_counter_ns()
+        #: ``time.time_ns()`` at the origin of the timestamps.
+        self.epoch_ns = time.time_ns()
+        self._t0 = (before + time.perf_counter_ns()) // 2
 
     # ------------------------------------------------------------- emission
     def now(self) -> int:
         """Nanoseconds since tracer start (for :meth:`complete`)."""
         return time.perf_counter_ns() - self._t0
+
+    def to_epoch_ns(self, ts: int) -> int:
+        """A timestamp of this tracer's on the ``time.time_ns`` clock
+        (``torch.profiler``'s)."""
+        return self.epoch_ns + ts
 
     def new_id(self) -> int:
         """Fresh span id for cross-thread stitching (ticket attrs)."""
@@ -190,8 +237,9 @@ class Tracer:
 
     def spans(self) -> List[dict]:
         """Materialized intervals: B/E pairs (stack-matched per track)
-        and X events as ``{"name", "tname", "t0", "t1", "args"}`` with
-        ns bounds — what the overlap checks consume."""
+        and X events as ``{"name", "tname", "t0", "t1", "args", "ph"}``
+        with ns bounds and ``ph`` ``"B"`` for a pair, ``"X"`` for a
+        complete event — what the overlap checks consume."""
         out: List[dict] = []
         stacks: Dict[tuple, list] = {}
         for e in sorted(self.events(), key=lambda e: e["ts"]):
@@ -203,11 +251,11 @@ class Tracer:
                     b = stack.pop()
                     out.append({"name": b["name"], "tname": b["tname"],
                                 "t0": b["ts"], "t1": e["ts"],
-                                "args": b.get("args") or {}})
+                                "args": b.get("args") or {}, "ph": "B"})
             elif e["ph"] == "X":
                 out.append({"name": e["name"], "tname": e["tname"],
                             "t0": e["ts"], "t1": e["ts"] + e["dur"],
-                            "args": e.get("args") or {}})
+                            "args": e.get("args") or {}, "ph": "X"})
         return out
 
     # -------------------------------------------------------------- export
@@ -216,7 +264,9 @@ class Tracer:
 
         Events are globally sorted by timestamp (stable, so same-thread
         order is preserved) and threads/tracks get small stable tids
-        with ``thread_name`` metadata.  Timestamps are microseconds.
+        with ``thread_name`` metadata.  Timestamps are microseconds;
+        ``otherData.epoch_ns`` is :attr:`epoch_ns`, the ``time.time_ns``
+        of timestamp 0.
         """
         evs = sorted(self.events(), key=lambda e: e["ts"])
         tids: Dict[tuple, int] = {}
@@ -237,7 +287,8 @@ class Tracer:
             if e.get("args"):
                 ev["args"] = e["args"]
             out.append(ev)
-        return {"traceEvents": meta + out, "displayTimeUnit": "ms"}
+        return {"traceEvents": meta + out, "displayTimeUnit": "ms",
+                "otherData": {"epoch_ns": self.epoch_ns}}
 
     def write_chrome(self, path: str) -> None:
         with open(path, "w") as f:

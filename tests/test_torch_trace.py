@@ -3,11 +3,12 @@
 The ``Tracer`` cases of the JAX package's observability tests on the
 port's copy; a tracer attached to a server is a pure observer (the same
 answers and counters with it and without it, in memory and from a
-store); the port's store server traces the same query-thread span
-sequence, the same ``submit``-track cache instants and the same
-``device``-track reads as the JAX store server, at queue depths 1 and 4;
-and the serve CLI writes valid ``--trace-out`` / ``--metrics-out``
-files.
+store); an in-memory batch spans the engine's phases and the front
+end's fan-out, and maps onto the wall clock; the port's store server
+traces the same query-thread span sequence, the same ``submit``-track
+cache instants and the same ``device``-track reads as the JAX store
+server, at queue depths 1 and 4; and the serve CLI writes valid
+``--trace-out`` / ``--metrics-out`` files.
 """
 import dataclasses
 import io
@@ -207,6 +208,73 @@ def test_tracer_is_a_pure_observer(fixture_ix, mode, where):
             assert "level.decode" in names
     else:
         assert not {"level.relax", "core.search"} & names
+
+
+# ------------------------------------------ the port's in-memory spans
+_PHASES = {"ssd": ["phase.forward", "phase.core", "phase.backward",
+                   ("phase.to_host", "dist")],
+           "sssp": ["phase.forward", "phase.core", "phase.backward",
+                    "phase.recon", ("phase.to_host", "dist"),
+                    ("phase.to_host", "pred")]}
+
+
+@pytest.mark.parametrize("mode", ["ssd", "sssp"])
+def test_in_memory_batch_spans_its_phases_and_front_end(fixture_ix, mode):
+    """Each async batch of an in-memory server: the coalesce wait, the
+    engine's phases in order inside ``jit.dispatch`` (one
+    ``phase.to_host`` an answer copied), then the front end's
+    ``server.rows`` and ``server.resolve``, once each."""
+    import asyncio
+    _, ixt, _, _ = fixture_ix
+    tr = Tracer()
+    engine = T.QueryEngine(ixt, device="cpu")
+    server = TS.QueryServer(engine, batch_size=4, max_wait_ms=5.0,
+                            cache_entries=0, mode=mode, warm_start=True,
+                            tracer=tr)
+
+    async def drive():
+        tasks = [asyncio.create_task(server.submit(s)) for s in range(10)]
+        await server.drain()
+        return await asyncio.gather(*tasks)
+
+    assert len(asyncio.run(drive())) == 10
+    batches = server.stats.batches
+    assert batches == 3
+    inner = []
+    for p in _PHASES[mode]:
+        name, what = p if isinstance(p, tuple) else (p, None)
+        attrs = (("what", what),) if what else ()
+        inner += [("B", name, attrs), ("E", name, ())]
+    want = []
+    for batch, fill in enumerate((4, 4, 2), 1):
+        want += ([("X", "coalesce.wait", (("waiters", fill),)),
+                  ("B", f"query.{mode}", (("batch", batch), ("fill", fill))),
+                  ("B", "jit.dispatch", (("mode", mode),))] + inner
+                 + [("E", "jit.dispatch", ()), ("E", f"query.{mode}", ()),
+                    ("B", "server.rows", ()), ("E", "server.rows", ()),
+                    ("B", "server.resolve", ()),
+                    ("E", "server.resolve", ())])
+    got = tr.sequence(threading.current_thread().name)
+    assert got == want
+    assert validate_chrome_trace(tr.chrome()) == []
+    server.close()
+
+
+def test_mapped_span_lies_between_wall_clock_readings():
+    """A span's bounds on the wall clock (``to_epoch_ns``) lie between two
+    ``time.time_ns()`` readings taken around it; ``chrome()`` carries
+    the mapping."""
+    import time
+    tr = Tracer()
+    a = time.time_ns()
+    with tr.span("x"):
+        time.sleep(0.002)
+    b = time.time_ns()
+    (sp,) = tr.spans()
+    assert sp["ph"] == "B"
+    assert a <= tr.to_epoch_ns(sp["t0"]) <= tr.to_epoch_ns(sp["t1"]) <= b
+    assert tr.to_epoch_ns(sp["t1"]) - tr.to_epoch_ns(sp["t0"]) >= 2_000_000
+    assert tr.chrome()["otherData"] == {"epoch_ns": tr.epoch_ns}
 
 
 # ------------------------------------- the two packages trace alike
